@@ -1,0 +1,16 @@
+"""PyTorch/CUDA port of acinoset_tpu, beside the JAX package.
+
+The subpackages mirror ``acinoset_tpu`` (``ops models solvers kernels
+pipeline utils``) so each function has an obvious counterpart. The port
+imports torch, numpy and scipy only — never JAX, nor any module of the
+JAX package, nor the JAX package's I/O stack (h5py, imageio, pandas,
+cv2). Tests hold every ported function to its JAX counterpart on the
+same inputs.
+
+Entry points (``solvers.trajopt.fte_solve``, ``pipeline.fte.fte_run``,
+``pipeline.fte.initial_trajectory_batch``) run on ``cuda`` unless the
+caller passes ``device="cpu"``, and raise when no device is given and
+no CUDA device exists. The banded-Cholesky kernel wrapper
+(``kernels.banded_cuda.banded_solve``) launches its CUDA kernel on CUDA
+tensors and runs its plain PyTorch version on CPU tensors.
+"""

@@ -1,0 +1,227 @@
+"""Fisheye (Kannala-Brandt 4-coefficient) camera model on torch tensors,
+the counterpart of the main-path subset of acinoset_tpu.ops.camera:
+projection with its analytic point-Jacobian, Newton undistortion and
+two-view DLT triangulation.
+
+Camera parameters are K (..., 3, 3), D (..., 4), R (..., 3, 3) and
+t (..., 3). With an unbatched K (3, 3), D and t may also come in the
+JAX package's shapes ((4, 1), (3, 1)). A batched camera's leading
+dimensions broadcast against those of the points, so one call covers a
+rig or a batch of rigs where the JAX package vmaps.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .rotations import mv3
+
+
+def _like(x, ref):
+    return torch.as_tensor(x, dtype=ref.dtype, device=ref.device)
+
+
+def _camera(pts, K, D, R, t):
+    K, D, R, t = (_like(a, pts) for a in (K, D, R, t))
+    if K.dim() == 2:  # one camera: accept the JAX package's (4, 1)/(3, 1) shapes
+        D = D.reshape(-1)[:4]
+        t = t.reshape(3)
+    else:
+        D = D[..., :4]
+    return K, D, R, t
+
+
+def distort_theta(theta, D):
+    """theta_d = theta (1 + d0 t^2 + d1 t^4 + d2 t^6 + d3 t^8)."""
+    t2 = theta * theta
+    poly = 1.0 + t2 * (D[..., 0] + t2 * (D[..., 1] + t2 * (D[..., 2] + t2 * D[..., 3])))
+    return theta * poly
+
+
+def project_points_fisheye(pts, K, D, R, t, eps: float = 1e-12):
+    """World points (..., 3) -> pixels (..., 2) through the KB4 model
+    (cv2.fisheye.projectPoints), with the same 1e-12 guard inside the
+    radius sqrt as the JAX version."""
+    K, D, R, t = _camera(pts, K, D, R, t)
+    cam = mv3(R, pts) + t
+    a = cam[..., 0] / cam[..., 2]
+    b = cam[..., 1] / cam[..., 2]
+    r = torch.sqrt(a * a + b * b + eps)
+    scale = distort_theta(torch.atan(r), D) / r
+    u = K[..., 0, 0] * (a * scale) + K[..., 0, 2]
+    v = K[..., 1, 1] * (b * scale) + K[..., 1, 2]
+    return torch.stack([u, v], dim=-1)
+
+
+def project_points_fisheye_and_jac(pts, K, D, R, t, eps: float = 1e-12):
+    """Fused KB4 projection and analytic point-Jacobian:
+    ``(uv (..., 2), J (..., 2, 3))`` with J = d uv / d world-point, the
+    closed form of the JAX version (equal to jacfwd of
+    :func:`project_points_fisheye`)."""
+    K, D, R, t = _camera(pts, K, D, R, t)
+    cam = mv3(R, pts) + t
+    z = cam[..., 2]
+    a = cam[..., 0] / z
+    b = cam[..., 1] / z
+    r2 = a * a + b * b + eps  # r^2 including eps, as in the primal
+    r = torch.sqrt(r2)
+    theta = torch.atan(r)
+    t2 = theta * theta
+    d0, d1, d2, d3 = D[..., 0], D[..., 1], D[..., 2], D[..., 3]
+    poly = 1.0 + t2 * (d0 + t2 * (d1 + t2 * (d2 + t2 * d3)))
+    dpoly = 1.0 + t2 * (3.0 * d0 + t2 * (5.0 * d1 + t2 * (7.0 * d2 + 9.0 * t2 * d3)))
+    s = theta * poly / r
+    fx, fy = K[..., 0, 0], K[..., 1, 1]
+    uv = torch.stack([fx * (a * s) + K[..., 0, 2], fy * (b * s) + K[..., 1, 2]], dim=-1)
+
+    g = (dpoly / (1.0 + r2) - s) / r2
+    zinv = 1.0 / z[..., None]
+    Ma = (R[..., 0, :] - a[..., None] * R[..., 2, :]) * zinv  # da/dp
+    Mb = (R[..., 1, :] - b[..., None] * R[..., 2, :]) * zinv  # db/dp
+    Ju = fx[..., None] * ((s + a * a * g)[..., None] * Ma + (a * b * g)[..., None] * Mb)
+    Jv = fy[..., None] * ((a * b * g)[..., None] * Ma + (s + b * b * g)[..., None] * Mb)
+    return uv, torch.stack([Ju, Jv], dim=-2)
+
+
+def project_rig_and_jac(pts, K, D, R, T):
+    """Project points (..., L, 3) through a C-camera rig, K (..., C, 3, 3)
+    etc.: ``(h (..., C, L, 2), Jp (..., C, L, 2, 3))``."""
+    K = _like(K, pts)
+    lead = K.shape[:-2]
+    D = _like(D, pts).reshape(*lead, -1)[..., :4]
+    T = _like(T, pts).reshape(*lead, 3)
+    R = _like(R, pts)
+    return project_points_fisheye_and_jac(
+        pts[..., None, :, :], K[..., None, :, :], D[..., None, :], R[..., None, :, :],
+        T[..., None, :],
+    )
+
+
+def undistort_theta(th_d, D, num_iters: int = 10):
+    """Invert theta_d = distort_theta(theta) by a fixed number of Newton steps."""
+    theta = th_d
+    d0, d1, d2, d3 = D[..., 0], D[..., 1], D[..., 2], D[..., 3]
+    for _ in range(num_iters):
+        t2 = theta * theta
+        poly = 1.0 + t2 * (d0 + t2 * (d1 + t2 * (d2 + t2 * d3)))
+        dpoly = 1.0 + t2 * (3.0 * d0 + t2 * (5.0 * d1 + t2 * (7.0 * d2 + 9.0 * t2 * d3)))
+        theta = theta - (theta * poly - th_d) / dpoly
+    return theta
+
+
+def undistort_points_fisheye(pts, K, D, P=None, num_iters: int = 10, eps: float = 1e-12):
+    """Pixels (..., 2) -> normalized camera-plane coordinates (a, b)
+    (cv2.fisheye.undistortPoints); with ``P`` re-applies a pinhole
+    matrix to give undistorted pixels."""
+    K = _like(K, pts)
+    D = _like(D, pts)
+    D = D.reshape(-1)[:4] if K.dim() == 2 else D[..., :4]
+    x = (pts[..., 0] - K[..., 0, 2]) / K[..., 0, 0]
+    y = (pts[..., 1] - K[..., 1, 2]) / K[..., 1, 1]
+    th_d = torch.sqrt(x * x + y * y + eps)
+    # cv2 clips theta_d to pi/2 before inverting
+    th_d = torch.clamp(th_d, max=math.pi / 2)
+    theta = undistort_theta(th_d, D, num_iters=num_iters)
+    scale = torch.tan(theta) / th_d
+    a = x * scale
+    b = y * scale
+    if P is not None:
+        P = _like(P, pts)
+        a = P[..., 0, 0] * a + P[..., 0, 2]
+        b = P[..., 1, 1] * b + P[..., 1, 2]
+    return torch.stack([a, b], dim=-1)
+
+
+def _dlt_one(ab1, ab2, P1, P2):
+    """Two-view DLT of normalized point pairs ab (..., 2) with projection
+    matrices P (..., 3, 4), broadcasting over leading dimensions: the
+    inhomogeneous 3x3 normal equations solved by Cramer's rule, as in
+    the JAX version."""
+    A = torch.stack(
+        [
+            ab1[..., 0, None] * P1[..., 2, :] - P1[..., 0, :],
+            ab1[..., 1, None] * P1[..., 2, :] - P1[..., 1, :],
+            ab2[..., 0, None] * P2[..., 2, :] - P2[..., 0, :],
+            ab2[..., 1, None] * P2[..., 2, :] - P2[..., 1, :],
+        ],
+        dim=-2,
+    )  # (..., 4, 4)
+    M = A[..., :3]
+    rhs = -A[..., 3]
+    G = M.mT @ M  # (..., 3, 3)
+    h = (M.mT @ rhs[..., None])[..., 0]  # (..., 3)
+
+    def g(i, j):
+        return G[..., i, j]
+
+    c00 = g(1, 1) * g(2, 2) - g(1, 2) * g(2, 1)
+    c01 = g(1, 2) * g(2, 0) - g(1, 0) * g(2, 2)
+    c02 = g(1, 0) * g(2, 1) - g(1, 1) * g(2, 0)
+    det = g(0, 0) * c00 + g(0, 1) * c01 + g(0, 2) * c02
+    adj = torch.stack(
+        [
+            torch.stack([c00, g(0, 2) * g(2, 1) - g(0, 1) * g(2, 2), g(0, 1) * g(1, 2) - g(0, 2) * g(1, 1)], -1),
+            torch.stack([c01, g(0, 0) * g(2, 2) - g(0, 2) * g(2, 0), g(0, 2) * g(1, 0) - g(0, 0) * g(1, 2)], -1),
+            torch.stack([c02, g(0, 1) * g(2, 0) - g(0, 0) * g(2, 1), g(0, 0) * g(1, 1) - g(0, 1) * g(1, 0)], -1),
+        ],
+        dim=-2,
+    )
+    den = torch.where(torch.abs(det) > 1e-30, det, torch.full_like(det, 1e-30))
+    return (adj.mT @ h[..., None])[..., 0] / den[..., None]
+
+
+def _projection(r, t):
+    """[R | t] (..., 3, 4)."""
+    return torch.cat([r, t[..., None]], dim=-1)
+
+
+def triangulate_points_fisheye(img_pts_1, img_pts_2, k1, d1, r1, t1, k2, d2, r2, t2):
+    """Triangulate fisheye pixel correspondences (..., 2) in two views
+    into world points (-1, 3): undistort both views, then DLT with
+    P = [R | t]."""
+    p1 = img_pts_1.reshape(-1, 2)
+    p2 = img_pts_2.reshape(-1, 2)
+    ab1 = undistort_points_fisheye(p1, k1, d1)
+    ab2 = undistort_points_fisheye(p2, k2, d2)
+    P1 = _projection(_like(r1, p1), _like(t1, p1).reshape(3))
+    P2 = _projection(_like(r2, p1), _like(t2, p1).reshape(3))
+    return _dlt_one(ab1, ab2, P1, P2)
+
+
+def triangulate_pairwise_mean(pts2d, valid, k_arr, d_arr, r_arr, t_arr):
+    """Masked pairwise triangulation averaged over adjacent camera pairs
+    (c, c+1), the counterpart of the JAX version.
+
+    pts2d (..., C, N, L, 2), valid (..., C, N, L) bool, camera stacks
+    with the same leading (..., C). Returns points3d (..., N, L, 3), NaN
+    where no adjacent pair saw the marker, and seen (..., N, L)."""
+    k_arr = _like(k_arr, pts2d)
+    lead = k_arr.shape[:-2]
+    d_arr = _like(d_arr, pts2d).reshape(*lead, -1)[..., :4]
+    r_arr = _like(r_arr, pts2d)
+    t_arr = _like(t_arr, pts2d).reshape(*lead, 3)
+    C = k_arr.shape[-3]
+
+    def cam(c):  # camera c broadcast over (N, L)
+        k = k_arr[..., c, None, None, :, :]
+        d = d_arr[..., c, None, None, :]
+        P = _projection(r_arr[..., c, :, :], t_arr[..., c, :])[..., None, None, :, :]
+        return k, d, P
+
+    total = torch.zeros(pts2d.shape[:-4] + pts2d.shape[-3:-1] + (3,), dtype=pts2d.dtype,
+                        device=pts2d.device)
+    count = torch.zeros(total.shape[:-1], dtype=pts2d.dtype, device=pts2d.device)
+    for c in range(C - 1):
+        k1, d1, P1 = cam(c)
+        k2, d2, P2 = cam(c + 1)
+        ab1 = undistort_points_fisheye(pts2d[..., c, :, :, :], k1, d1)
+        ab2 = undistort_points_fisheye(pts2d[..., c + 1, :, :, :], k2, d2)
+        xyz = _dlt_one(ab1, ab2, P1, P2)
+        ok = valid[..., c, :, :] & valid[..., c + 1, :, :]
+        total = total + torch.where(ok[..., None], xyz, torch.zeros_like(xyz))
+        count = count + ok.to(pts2d.dtype)
+    seen = count > 0
+    mean = total / torch.where(seen, count, torch.ones_like(count))[..., None]
+    points3d = torch.where(seen[..., None], mean, torch.full_like(mean, float("nan")))
+    return points3d, seen

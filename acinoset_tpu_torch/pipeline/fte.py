@@ -1,0 +1,119 @@
+"""FTE pipeline for the cheetah model, the array-level counterpart of
+acinoset_tpu.pipeline.fte (no file I/O): default config, the
+linear-regression initial trajectory, and one run's solve."""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from ..models import cheetah
+from ..ops import camera as cam_ops
+from ..solvers import trajopt
+from ..utils.device import resolve_device
+from .ekf import make_hj_parts_fn, nose_track_linreg
+from .tri import triangulate_run
+
+
+def default_config(fps: float, num_iters: int = 60) -> trajopt.FteConfig:
+    lo, hi = cheetah.pose_limits_25()
+    return trajopt.FteConfig(
+        Ts=1.0 / fps,
+        q_var=tuple(cheetah.Q_VAR[cheetah.ACTIVE_IDX_ORDERED]),
+        lo=tuple(lo),
+        hi=tuple(hi),
+        meas_std_px=cheetah.MEAS_STD_PX,
+        redesc=(cheetah.REDESC_A, cheetah.REDESC_B, cheetah.REDESC_C),
+        num_iters=num_iters,
+        linear_solver="pcg",
+    )
+
+
+def _x0_from_tri(tri_pos: np.ndarray, frames: np.ndarray) -> np.ndarray:
+    """Nose-track linear regression -> straight-line x/y/z + initial yaw."""
+    nose = cheetah.get_markers().index("nose")
+    xs, xi, ys, yi, zs, zi = nose_track_linreg(tri_pos, frames, nose)
+    X0 = np.zeros((len(frames), cheetah.N_ACTIVE))
+    pp = cheetah.get_pose_params()
+    f = frames.astype(np.float64)
+    X0[:, pp["x_0"]] = f * xs + xi
+    X0[:, pp["y_0"]] = f * ys + yi
+    X0[:, pp["z_0"]] = f * zs + zi
+    X0[:, pp["psi_0"]] = np.arctan2(ys, xs)
+    return X0
+
+
+def initial_trajectory(pixels, likelihood, k_arr, d_arr, r_arr, t_arr, frames, dlc_thresh,
+                       device=None) -> np.ndarray:
+    """Linear-regression init of one run (pixels (C, N, L, 2), likelihood
+    (C, N, L)): the triangulated nose track gives a straight line in
+    x/y/z and the initial yaw. Triangulates on ``device``."""
+    tri_pos = triangulate_run(
+        np.nan_to_num(pixels), np.nan_to_num(likelihood, nan=-1.0) > dlc_thresh,
+        k_arr, d_arr, r_arr, t_arr, device=resolve_device(device),
+    )
+    return _x0_from_tri(tri_pos, frames)
+
+
+def initial_trajectory_batch(pixels_b, likelihood_b, aux, frames, dlc_thresh,
+                             device=None) -> list:
+    """Batched initial_trajectory: one triangulation of all B runs on
+    ``device``, then the numpy regression per run.
+
+    pixels_b (B, C, N, L, 2); likelihood_b (B, C, N, L); aux (K, D, R, T)
+    stacks, each (B, C, ...); frames (N,). Returns B (N, 25) float64 arrays."""
+    device = resolve_device(device)
+    px = torch.as_tensor(np.nan_to_num(np.asarray(pixels_b)), dtype=torch.float64,
+                         device=device)
+    ok = torch.as_tensor(np.nan_to_num(np.asarray(likelihood_b), nan=-1.0) > dlc_thresh,
+                         device=device)
+    cams = [torch.as_tensor(np.array(a, dtype=np.float64), device=device) for a in aux]
+    tri = cam_ops.triangulate_pairwise_mean(px, ok, *cams)[0].cpu().numpy()
+    return [_x0_from_tri(t, frames) for t in tri]
+
+
+def fte_run(
+    pixels: np.ndarray,  # (C, N, L, 2)
+    likelihood: np.ndarray,  # (C, N, L)
+    k_arr, d_arr, r_arr, t_arr,
+    fps: float,
+    dlc_thresh: float,
+    frames: Optional[np.ndarray] = None,
+    num_iters: int = 60,
+    dtype=torch.float64,
+    device=None,
+) -> Dict:
+    """Solve one trajectory with the default config; returns positions,
+    states and the solver status as numpy values."""
+    device = resolve_device(device)
+    C, N, L, _ = pixels.shape
+    frames = frames if frames is not None else np.arange(N)
+    cfg = default_config(fps, num_iters=num_iters)
+    X0 = initial_trajectory(pixels, likelihood, k_arr, d_arr, r_arr, t_arr, frames,
+                            dlc_thresh, device=device)
+    hj_parts = make_hj_parts_fn(k_arr, d_arr, r_arr, t_arr, dtype, device)
+    meas = torch.as_tensor(pixels.transpose(1, 0, 2, 3), dtype=dtype, device=device)
+    lik = np.nan_to_num(likelihood.transpose(1, 0, 2), nan=-1.0)
+    w_meas = torch.as_tensor((lik > dlc_thresh) / cfg.meas_std_px, dtype=dtype, device=device)
+    X, info = trajopt.fte_solve(
+        hj_parts, torch.as_tensor(X0, dtype=dtype, device=device)[None], meas[None],
+        w_meas[None], cfg, device=device,
+    )
+    X = X[0]
+    dx, ddx = trajopt.derivatives_from_trajectory(X, cfg.Ts)
+
+    def host(t):
+        return t.detach().cpu().numpy()
+
+    return dict(
+        positions=host(cheetah.fk25(X)),
+        x=host(X),
+        dx=host(dx),
+        ddx=host(ddx),
+        cost=float(info["cost"][0]),
+        cost0=float(info["cost0"][0]),
+        cost_history=host(info["cost_history"][0]),
+        converged=bool(info["converged"][0]),
+        grad_norm=float(info["grad_norm"][0]),
+    )

@@ -1,0 +1,388 @@
+"""FTE trajectory optimisation as a batched banded Gauss-Newton solver,
+the counterpart of acinoset_tpu.solvers.trajopt.
+
+The reference's collocation NLP (Pyomo -> IPOPT) with its equality
+constraints eliminated: minimise over the active pose trajectory
+X (N, P)
+
+    sum_n |sqrt(1/Q) D3 X|^2 + sum redesc(w_meas (proj(FK(x_n)) - meas))
+    + limit_penalty |violation of lo <= X <= hi|^2
+
+by LM-damped Gauss-Newton with IRLS redescending weights (plain, then
+robust after ``plain_iters``), a polish tail and a Jacobi-scaled
+stationarity status. ``fte_solve`` is natively batched: it solves B
+trajectories at once, with per-run accept/reject, damping and cost
+where the JAX package vmaps a single-run solver.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..kernels.banded_cuda import banded_solve
+from ..ops import losses
+from ..utils.device import resolve_device
+from ..utils.precision import f32_matmuls
+from .banded import block_banded_solve_unrolled, pcg_solve, spectral_minv
+
+#: linear solvers the port takes; the JAX package's 'cg', 'chol',
+#: 'grouped' and 'cr' are not ported yet
+LINEAR_SOLVERS = ("pcg", "chol_unrolled", "pallas")
+MEAS_LOSSES = ("redescending", "l1", "quadratic")
+
+
+@dataclass(frozen=True)
+class FteConfig:
+    """Field names and defaults as the JAX FteConfig; see there for the
+    measured reasons behind each default."""
+
+    Ts: float  # timestep = 1/fps
+    q_var: Tuple[float, ...]  # per-pose-param model variance
+    lo: Tuple[float, ...]  # joint lower bounds (len P)
+    hi: Tuple[float, ...]  # joint upper bounds
+    meas_std_px: float = 5.0
+    redesc: Tuple[float, float, float] = (3.0, 10.0, 20.0)
+    meas_loss: str = "redescending"
+    num_iters: int = 60
+    plain_iters: int = 15
+    #: 'pcg' (spectrally preconditioned CG), 'chol_unrolled' (the banded
+    #: Cholesky in plain PyTorch) or 'pallas' (the hand-written CUDA
+    #: kernel, kernels/banded_cuda.py; its plain version on CPU tensors)
+    linear_solver: str = "chol_unrolled"
+    cg_iters: int = 50
+    pcg_iters: int = 16
+    limit_penalty: float = 1e4
+    lam0: float = 1e-2
+    lam_init: Optional[float] = None
+    lam_up: float = 4.0
+    lam_down: float = 0.5
+    relinearize_every: int = 1
+    stat_tol: float = 0.05
+    polish_iters: int = 1
+    #: 'auto' and 'einsum' both mean the einsum assembly; the JAX
+    #: package's 'vpu' is a TPU layout workaround and is not ported
+    assembly: str = "auto"
+    pcg_meas_bf16: bool = False
+
+
+def third_difference(X, Ts):
+    """slack_model[n] = (x[n] - 3x[n-1] + 3x[n-2] - x[n-3]) / Ts^2, n >= 3,
+    along axis -2 of X (..., N, P)."""
+    return (X[..., 3:, :] - 3.0 * X[..., 2:-1, :] + 3.0 * X[..., 1:-2, :] - X[..., :-3, :]) / Ts**2
+
+
+def _d3_correlate(v, Ts):
+    """g = D3^T v for v (..., N-3, P): the adjoint of third_difference."""
+    g = (
+        F.pad(v, (0, 0, 3, 0))
+        - 3.0 * F.pad(v, (0, 0, 2, 1))
+        + 3.0 * F.pad(v, (0, 0, 1, 2))
+        - F.pad(v, (0, 0, 0, 3))
+    )
+    return g / Ts**2
+
+
+def _d3_gram_dense(N: int, Ts: float) -> np.ndarray:
+    """Dense D3^T D3 (exact, boundary-corrected). Shape (N, N)."""
+    c = np.array([-1.0, 3.0, -3.0, 1.0]) / Ts**2
+    D = np.zeros((max(N - 3, 0), N))
+    for r in range(max(N - 3, 0)):
+        D[r, r : r + 4] = c
+    return D.T @ D
+
+
+def _d3_gram_bands(N: int, Ts: float) -> np.ndarray:
+    """Scalar bands of D3^T D3. Shape (4, N)."""
+    G = _d3_gram_dense(N, Ts)
+    bands = np.zeros((4, N))
+    for k in range(4):
+        for n in range(k, N):
+            bands[k, n] = G[n, n - k]
+    return bands
+
+
+def _meas_rho(cfg, e):
+    a, b, c = cfg.redesc
+    if cfg.meas_loss == "redescending":
+        return losses.redescending_loss(e, a, b, c)
+    if cfg.meas_loss == "l1":
+        return losses.huber_loss(e, a)
+    return 0.5 * e * e
+
+
+def _meas_irls(cfg, e):
+    a, b, c = cfg.redesc
+    if cfg.meas_loss == "redescending":
+        return losses.redescending_weight(e, a, b, c)
+    if cfg.meas_loss == "l1":
+        return losses.huber_weight(e, a)
+    return torch.ones_like(e)
+
+
+def fte_objective(X, h_fn, meas, w_meas, cfg: FteConfig):
+    """The reference objective on unpadded trajectories X (..., N, P),
+    with h_fn mapping poses (..., 25) to pixels (..., C, L, 2). The same
+    function ``fte_solve`` minimises. Returns one value per trajectory."""
+    q = torch.as_tensor(cfg.q_var, dtype=X.dtype, device=X.device)
+    d3 = third_difference(X, cfg.Ts)
+    model_term = torch.sum((1.0 / q) * d3 * d3, dim=(-2, -1))
+    proj = h_fn(X)
+    w = torch.where(torch.isfinite(w_meas), w_meas, torch.zeros_like(w_meas))
+    e = w[..., None] * (proj - torch.nan_to_num(meas, nan=0.0))
+    meas_term = torch.sum(_meas_rho(cfg, e), dim=(-4, -3, -2, -1))
+    lo = torch.as_tensor(cfg.lo, dtype=X.dtype, device=X.device)
+    hi = torch.as_tensor(cfg.hi, dtype=X.dtype, device=X.device)
+    viol = torch.clamp(lo - X, min=0.0) + torch.clamp(X - hi, min=0.0)
+    return model_term + meas_term + cfg.limit_penalty * torch.sum(viol**2, dim=(-2, -1))
+
+
+def _check_config(cfg: FteConfig, compute_cov: bool):
+    if cfg.linear_solver not in LINEAR_SOLVERS:
+        raise ValueError(
+            f"unknown or unported linear_solver {cfg.linear_solver!r}; choose from {LINEAR_SOLVERS}"
+        )
+    if cfg.meas_loss not in MEAS_LOSSES:
+        raise ValueError(f"unknown meas_loss {cfg.meas_loss!r}; choose from {MEAS_LOSSES}")
+    if cfg.assembly not in ("auto", "einsum"):
+        raise ValueError(f"assembly {cfg.assembly!r} is not ported; use 'einsum'")
+    if compute_cov:
+        raise NotImplementedError("compute_cov (the Laplace-posterior pass) is not ported yet")
+    if int(cfg.relinearize_every) > 1:
+        raise NotImplementedError("relinearize_every > 1 (lagged Jacobians) is not ported yet")
+    if cfg.pcg_meas_bf16:
+        raise NotImplementedError("pcg_meas_bf16 is not ported yet")
+
+
+def fte_solve(
+    hj_parts_fn: Callable,
+    X0,  # (B, N, P) initial trajectories
+    meas,  # (B, N, C, L, 2) pixel measurements
+    w_meas,  # (B, N, C, L) weights: 1/R if trusted else 0
+    cfg: FteConfig,
+    n_valid=None,  # (B,) true trajectory lengths when frames are padded
+    compute_cov: bool = False,
+    device=None,
+):
+    """Solve B FTE trajectories at once. Returns (X (B, N, P), info) with
+    per-run ``cost``, ``cost0``, ``cost_history`` (B, num_iters), ``lam``,
+    ``converged`` and ``grad_norm``.
+
+    ``hj_parts_fn`` maps poses (B, N, P) to the unassembled measurement
+    pieces (h (B, N, m), Jp (B, N, C, L, 2, 3), Jfk (B, N, L, 3, P)), see
+    ``pipeline.ekf.make_hj_parts_fn``; it must produce tensors on
+    ``device``. Runs on ``device`` (CUDA unless ``device="cpu"``; no
+    device and no CUDA raises), in the dtype of X0.
+
+    ``n_valid`` masks third-difference rows touching frames >= n_valid
+    (padded frames then carry zero measurement weight and zero model
+    coupling and stay at their initialisation). ``converged`` tests the
+    Jacobi-scaled gradient inf-norm at the final accepted solution
+    against ``cfg.stat_tol``."""
+    _check_config(cfg, compute_cov)
+    device = resolve_device(device)
+    X0 = torch.as_tensor(X0, device=device)
+    dtype = X0.dtype
+    meas = torch.as_tensor(meas, dtype=dtype, device=device)
+    w_meas = torch.as_tensor(w_meas, dtype=dtype, device=device)
+    with f32_matmuls():
+        return _fte_solve(hj_parts_fn, X0, meas, w_meas, cfg, n_valid)
+
+
+def _fte_solve(hj_parts_fn, X0, meas, w_meas, cfg, n_valid):
+    B, N, P = X0.shape
+    dtype, device = X0.dtype, X0.device
+    _, _, C, Lm, _ = meas.shape
+    Ts = cfg.Ts
+
+    def const(v):
+        return torch.as_tensor(np.asarray(v, np.float64), dtype=dtype, device=device)
+
+    q, lo, hi = const(cfg.q_var), const(cfg.lo), const(cfg.hi)
+    wq = 1.0 / q
+
+    if cfg.linear_solver == "pcg":
+        # eigenbasis of the static third-difference Gram: the spectral
+        # preconditioner's basis (host numpy, once per call)
+        e_np, U_np = np.linalg.eigh(_d3_gram_dense(N, Ts))
+        U_pc, e_pc = const(U_np), const(np.maximum(e_np, 0.0))
+
+    # third-difference row mask (row r involves frames r..r+3), per run
+    if n_valid is None:
+        row_mask = torch.ones((B, max(N - 3, 0)), dtype=dtype, device=device)
+    else:
+        nv = torch.as_tensor(n_valid, device=device).reshape(B, 1)
+        row_mask = ((torch.arange(N - 3, device=device) + 3) < nv).to(dtype)
+
+    # gram bands of D3^T diag(row_mask) D3:
+    # band_k[n] = sum_{j=k..3} c_j c_{j-k} row_mask[n-j]
+    cst = np.array([-1.0, 3.0, -3.0, 1.0]) / Ts**2
+    rm_pad = F.pad(row_mask, (3, 3))
+    gram_bands = []
+    for kk in range(4):
+        acc = torch.zeros((B, N), dtype=dtype, device=device)
+        for j in range(kk, 4):
+            acc = acc + float(cst[j] * cst[j - kk]) * rm_pad[:, 3 - j : 3 - j + N]
+        gram_bands.append(acc)
+
+    meas = torch.nan_to_num(meas, nan=0.0)
+    w = torch.where(torch.isfinite(w_meas), w_meas, torch.zeros_like(w_meas))
+    w_flat = torch.repeat_interleave(w.reshape(B, N, -1), 2, dim=-1)  # (B, N, m)
+    meas_flat = meas.reshape(B, N, -1)
+    rmask = row_mask[..., None]
+
+    def rsum(t):  # per-run sum
+        return torch.sum(t, dim=(-2, -1))
+
+    def objective_from_h(X, hX):
+        d3 = third_difference(X, Ts) * rmask
+        model_term = rsum(wq * d3 * d3)
+        meas_term = rsum(_meas_rho(cfg, w_flat * (hX - meas_flat)))
+        viol = torch.clamp(lo - X, min=0.0) + torch.clamp(X - hi, min=0.0)
+        return model_term + meas_term + cfg.limit_penalty * rsum(viol**2)
+
+    def meas_normal_pieces(hX, JX, robust_on):
+        """Measurement GN Hessian blocks H_meas (B, N, P, P) and gradient
+        g_meas (B, N, P), contracted through the (L, 3, 3) per-marker
+        cores: H = Jfk^T [sum_c Jp^T omega Jp] Jfk, g = Jfk^T [sum_c Jp^T omega e]."""
+        JpX, JfkX = JX
+        e = w_flat * (hX - meas_flat)
+        w_irls = _meas_irls(cfg, e) if robust_on else torch.ones_like(e)
+        omega = (w_flat**2 * w_irls).reshape(B, N, C, Lm, 2)
+        er = (w_flat * w_irls * e).reshape(B, N, C, Lm, 2)
+        A = torch.einsum("bnclui,bncluj->bnlij", JpX * omega[..., None], JpX)
+        H_meas = JfkX.reshape(B, N, Lm * 3, P).mT @ (A @ JfkX).reshape(B, N, Lm * 3, P)
+        bv = torch.einsum("bnclui,bnclu->bnli", JpX, er)
+        g_meas = torch.einsum("bnlxa,bnlx->bna", JfkX, bv)
+        return H_meas, g_meas
+
+    def limit_hessian(X):
+        viol_lo = torch.clamp(lo - X, min=0.0)
+        viol_hi = torch.clamp(X - hi, min=0.0)
+        h_lim = 2.0 * cfg.limit_penalty * ((viol_lo > 0) | (viol_hi > 0)).to(dtype)
+        return viol_lo, viol_hi, h_lim
+
+    diag_model = 2.0 * gram_bands[0][..., None] * wq  # (B, N, P)
+
+    def objective_grad_and_diag(X, H_meas, g_meas):
+        """Full gradient g = g_meas + 2 g_model + g_lim and the undamped
+        Jacobi diagonal, shared by the iteration and the status test."""
+        d3 = third_difference(X, Ts) * rmask
+        g_model = _d3_correlate(d3 * wq, Ts)
+        viol_lo, viol_hi, h_lim = limit_hessian(X)
+        g = g_meas + 2.0 * g_model + 2.0 * cfg.limit_penalty * (viol_hi - viol_lo)
+        diag0 = diag_model + torch.diagonal(H_meas, dim1=-2, dim2=-1) + h_lim
+        return g, diag0, h_lim
+
+    def solve_step(H_meas, g, diag0, damp, h_lim):
+        if cfg.linear_solver == "pcg":
+            # the unscaled system as a structured operator: the model term
+            # as the D3 stencil, the measurement term as one batched
+            # matvec with H's diagonal cancelled (it is in diag_extra)
+            diag_extra = diag0 + damp - diag_model
+            diag_H = torch.diagonal(H_meas, dim1=-2, dim2=-1)
+
+            def A_mul(x):
+                d3x = third_difference(x, Ts) * rmask
+                model = 2.0 * _d3_correlate(d3x * wq, Ts)
+                meas_ = (H_meas @ x[..., None])[..., 0] - diag_H * x
+                return model + meas_ + diag_extra * x
+
+            c_pc = torch.clamp(torch.mean(diag_extra, dim=-2), min=1e-12)  # (B, P)
+            return pcg_solve(A_mul, spectral_minv(U_pc, e_pc, wq, c_pc), -g,
+                             num_iters=cfg.pcg_iters)
+        # undamped bands: 2x model gram + measurement blocks + limit diagonal
+        bands = [torch.diag_embed(2.0 * gram_bands[k][..., None] * wq) for k in range(4)]
+        bands[0] = bands[0] + H_meas + torch.diag_embed(h_lim) + torch.diag_embed(damp)
+        # Jacobi scaling to unit diagonal: the model terms carry 1/Ts^4
+        # (~1e7 at 90 fps) against O(1e4) measurement terms
+        s = 1.0 / torch.sqrt(torch.clamp(diag0 + damp, min=1e-20))  # (B, N, P)
+        s_shift = [s] + [F.pad(s[..., :-k, :], (0, 0, k, 0)) for k in range(1, 4)]
+        bands = [bands[k] * s[..., :, None] * s_shift[k][..., None, :] for k in range(4)]
+        if cfg.linear_solver == "pallas":
+            return banded_solve(bands, -g * s) * s
+        return block_banded_solve_unrolled(bands, -g * s) * s
+
+    def where_run(ok, a, b):
+        return torch.where(ok.reshape((B,) + (1,) * (a.dim() - 1)), a, b)
+
+    def gn_step(state, it):
+        X, hX, JX, lam, cost = state
+        H_meas, g_meas = meas_normal_pieces(hX, JX, it >= cfg.plain_iters)
+        g, diag0, h_lim = objective_grad_and_diag(X, H_meas, g_meas)
+        damp = lam[:, None, None] * torch.clamp(diag0, min=1e-8)  # LM damping
+        dX = solve_step(H_meas, g, diag0, damp, h_lim)
+        X_new = X + dX
+        h_new, J_new = hj_batch(X_new)  # the iteration's one measurement pass
+        new_cost = objective_from_h(X_new, h_new)
+        ok = (new_cost < cost) & torch.isfinite(dX).all(dim=-1).all(dim=-1)
+        X = where_run(ok, X_new, X)
+        hX = where_run(ok, h_new, hX)
+        JX = tuple(where_run(ok, a, b) for a, b in zip(J_new, JX))
+        cost = torch.where(ok, new_cost, cost)
+        lam = torch.clamp(torch.where(ok, lam * cfg.lam_down, lam * cfg.lam_up), 1e-10, 1e10)
+        return X, hX, JX, lam, cost
+
+    def hj_batch(X):
+        h, Jp, Jfk = hj_parts_fn(X)
+        return h, (Jp, Jfk)
+
+    n_polish = min(max(int(cfg.polish_iters), 0), int(cfg.num_iters))
+    n_main = int(cfg.num_iters) - n_polish
+    h0, J0 = hj_batch(X0)
+    cost0 = objective_from_h(X0, h0)
+    lam_start = cfg.lam0 if cfg.lam_init is None else cfg.lam_init
+    state = (X0, h0, J0, torch.full((B,), lam_start, dtype=dtype, device=device), cost0)
+    cost_hist = []
+    for it in range(n_main):
+        state = gn_step(state, it)
+        cost_hist.append(state[4])
+    if n_polish > 0:
+        # polish tail: re-evaluate the carry at the segment boundary and
+        # clamp the LM damping to lam0 (the JAX package does this under a
+        # pinned-f32 context; the port runs pinned throughout, so the
+        # re-evaluation reproduces the carry and only the clamp acts)
+        X_m = state[0]
+        h_p, J_p = hj_batch(X_m)
+        lam_p = torch.clamp(state[3], max=cfg.lam0)
+        state = (X_m, h_p, J_p, lam_p, objective_from_h(X_m, h_p))
+        for it in range(n_main, n_main + n_polish):
+            state = gn_step(state, it)
+            cost_hist.append(state[4])
+    X, hX, JX, lam, cost = state
+
+    # status: Jacobi-scaled gradient inf-norm of the loss the last
+    # iteration optimised, at the final accepted solution (the polish
+    # tail's carried h/J are evaluations at that solution)
+    h_st, J_st = (hX, JX) if n_polish > 0 else hj_batch(X)
+    H_st, g_meas_st = meas_normal_pieces(h_st, J_st, cfg.num_iters > cfg.plain_iters)
+    g_st, diag_st, _ = objective_grad_and_diag(X, H_st, g_meas_st)
+    grad_norm = torch.amax(
+        torch.abs(g_st) * torch.rsqrt(torch.clamp(diag_st, min=1e-12)), dim=(-2, -1)
+    )
+    X = torch.clamp(X, lo, hi)
+    empty = torch.zeros((B, 0), dtype=dtype, device=device)
+    return X, dict(
+        cost=cost, cost0=cost0,
+        cost_history=torch.stack(cost_hist, dim=-1) if cost_hist else empty,
+        lam=lam, converged=grad_norm <= cfg.stat_tol, grad_norm=grad_norm,
+    )
+
+
+def derivatives_from_trajectory(X, Ts):
+    """dx, ddx consistent with the backward-Euler constraints, along
+    axis -2 of X (..., N, P); the free boundary values copy their first
+    defined neighbour."""
+    if X.shape[-2] < 2:
+        return torch.zeros_like(X), torch.zeros_like(X)
+    dx = torch.diff(X, dim=-2) / Ts
+    dx = torch.cat([dx[..., :1, :], dx], dim=-2)
+    ddx = torch.diff(dx, dim=-2) / Ts
+    if ddx.shape[-2] >= 2:
+        ddx = torch.cat([ddx[..., 1:2, :], ddx[..., 1:2, :], ddx[..., 1:, :]], dim=-2)
+    else:
+        ddx = torch.zeros_like(X)
+    return dx, ddx

@@ -1,0 +1,82 @@
+"""The port stands alone: importing it (and chip_smoke.py) pulls in
+neither JAX, nor the JAX package, nor the JAX package's I/O stack; and
+its entry points refuse to fall back to the CPU silently."""
+import os
+import pkgutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import acinoset_tpu_torch
+from acinoset_tpu_torch.pipeline import ekf as tekf
+from acinoset_tpu_torch.pipeline import fte as tfte
+from acinoset_tpu_torch.solvers import trajopt as ttraj
+from acinoset_tpu_torch.utils import synthetic as tsyn
+
+torch.set_num_threads(2)
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "acinoset_tpu", "h5py", "imageio", "pandas", "cv2")
+
+
+def test_port_and_chip_smoke_import_no_jax_nor_io_stack():
+    modules = sorted(
+        m.name for m in pkgutil.walk_packages(acinoset_tpu_torch.__path__, "acinoset_tpu_torch.")
+    )
+    assert "acinoset_tpu_torch.kernels.banded_cuda" in modules
+    code = (
+        "import importlib, sys\n"
+        f"for m in {modules!r} + ['acinoset_tpu_torch', 'chip_smoke']:\n"
+        "    importlib.import_module(m)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _solve_args():
+    k, d, r, t, _res = tsyn.ring_cameras(n_cams=2)
+    cfg = tfte.default_config(90.0, num_iters=1)
+    X0 = np.zeros((1, 8, 25))
+    meas = np.zeros((1, 8, 2, 20, 2))
+    w = np.ones((1, 8, 2, 20))
+    return tekf.make_hj_parts_fn(k, d, r, t, device="cpu"), X0, meas, w, cfg
+
+
+def _pixels():
+    cams = tsyn.ring_cameras(n_cams=2)
+    px, lik, _ = tsyn.render_measurements(tsyn.cheetah_gallop(N=8), cams, seed=0)
+    return cams[:4], px, lik
+
+
+ENTRY_POINTS = {
+    "make_hj_parts_fn": lambda: tekf.make_hj_parts_fn(*_pixels()[0]),
+    "make_h_fn": lambda: tekf.make_h_fn(*_pixels()[0]),
+    "fte_solve": lambda: ttraj.fte_solve(*_solve_args()),
+    "fte_run": lambda: tfte.fte_run(_pixels()[1], _pixels()[2], *_pixels()[0], fps=90.0,
+                                    dlc_thresh=0.5, num_iters=1),
+    "initial_trajectory_batch": lambda: tfte.initial_trajectory_batch(
+        _pixels()[1][None], _pixels()[2][None], [a[None] for a in _pixels()[0]], np.arange(8), 0.5),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_point_without_device_and_cuda_raises(monkeypatch, name):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ENTRY_POINTS[name]()
+
+
+def test_chip_smoke_refuses_to_run_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode != 0
+    assert proc.stdout == ""

@@ -13,36 +13,25 @@ what ``FteConfig(linear_solver='pallas')`` selects.
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
 from pathlib import Path
 from typing import Sequence
 
 import torch
 
 from ..solvers.banded import block_banded_solve_unrolled
+from . import _nvcc
+from ._nvcc import NVCC_FLAGS  # noqa: F401  (the flags build() compiles with)
 
 PP = 32  # the kernel's padded block edge: P may be at most this
 SOURCE = Path(__file__).resolve().parent / "csrc" / "banded_chol.cu"
 LIBRARY = Path(__file__).resolve().parents[1] / "_build" / "libbanded.so"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib = None
 
 
 def build() -> Path:
-    """Compile the kernel's source into ``LIBRARY`` unless the library is
-    newer than the source. Raises if ``nvcc`` fails or takes over 180 s."""
-    if LIBRARY.exists() and LIBRARY.stat().st_mtime > SOURCE.stat().st_mtime:
-        return LIBRARY
-    LIBRARY.parent.mkdir(parents=True, exist_ok=True)
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    tmp = LIBRARY.with_name(f"{LIBRARY.stem}.{os.getpid()}.so")
-    subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)], timeout=180, check=True)
-    os.replace(tmp, LIBRARY)  # atomic: a concurrent loader sees the old or the new library
-    return LIBRARY
+    """Compile the kernel's source into ``LIBRARY`` (``_nvcc.build``)."""
+    return _nvcc.build(SOURCE, LIBRARY)
 
 
 def _library():

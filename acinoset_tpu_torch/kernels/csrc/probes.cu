@@ -1,0 +1,481 @@
+// The Mosaic probe kernels, for Hopper (sm_90a).
+//
+// Replaces the TPU kernels of scripts/probe_mosaic.py (k1..k8, called by
+// t1..t8) and scripts/probe_mosaic2.py (k1..k3 and chain_kernel, called by
+// t1..t3 and time_chain). Each probe asks whether the chip expresses one
+// pattern that the batched banded Cholesky (banded_chol.cu) is built from:
+// batched 32 x 32 products, lane reductions, copies through a ring of
+// shared-memory slots, dynamic scratch indexing, in-place recurrences,
+// transposed contractions, and the latency of a chain of dependent 32 x 32
+// products. Every kernel computes what its TPU kernel computes, in the
+// Hopper mechanism that corresponds; none is a transcription of Mosaic
+// tiles. Every tile is 32 x 32 float32, row-major.
+//
+// What bounds them on an H100. At the probes' shapes (16 or 4 tiles of
+// 4 KB) every kernel but the chain moves at most 200 KB and does at most
+// 1 MFLOP, under 0.1 us of bandwidth or FP32 peak: each is bound by its
+// launch and its one pass through device memory, and the design keeps
+// that pass coalesced. The chain (row 12) does K dependent products on
+// data that stays in shared memory, so it is bound by the latency of one
+// step: a 32-long FMA chain (FP32) or four dependent tensor-core MMAs
+// (TF32) plus one __syncthreads.
+//
+// Each launcher is extern "C": device pointers, sizes and a stream in, the
+// CUDA error of the launch out (0 on success). Shapes are checked by the
+// Python wrapper (kernels/probes_cuda.py); the launchers refuse sizes that
+// would overrun shared memory.
+
+#include <cuda_runtime.h>
+#include <mma.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr int T = 32;        // tile edge
+constexpr int LDS = T + 1;   // padded shared-memory row: a column read hits 32 banks
+constexpr int TILE = T * T;  // floats per tile
+constexpr int MAX_SMEM = 232448;  // bytes of shared memory a block may have on sm_90
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) v += __shfl_xor_sync(0xffffffffu, v, s);
+  return v;
+}
+
+// ---- row 1: probe_mosaic.k1, batched dot (B,32,32) @ (B,32,32), HIGHEST.
+// One CTA of 32 x 32 threads per batch entry; both tiles in shared memory;
+// thread (i, j) runs the 32-long FP32 FMA chain of o[i, j] (no TF32).
+__global__ void batched_dot_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                                   float* __restrict__ o) {
+  __shared__ float as[T][LDS];
+  __shared__ float bs[T][LDS];
+  const int i = threadIdx.y, j = threadIdx.x;
+  const size_t off = (size_t)blockIdx.x * TILE + i * T + j;
+  as[i][j] = a[off];
+  bs[i][j] = b[off];
+  __syncthreads();
+  float acc = 0.f;
+#pragma unroll
+  for (int k = 0; k < T; ++k) acc = fmaf(as[i][k], bs[k][j], acc);
+  o[off] = acc;
+}
+
+// ---- rows 2 and 7: y[r] = sum_j a[r, j] v[r / 32, j] over the rows r of a
+// (B,32,32). One warp per row: lane j holds one product, __shfl_xor_sync
+// folds the 32 into the sum. probe_mosaic.k2 (broadcast multiply + lane
+// reduction) and probe_mosaic.k7 (batched matvec) compute the same function
+// and keep separate kernels, as the probes did.
+__device__ __forceinline__ void row_dot(const float* __restrict__ a, const float* __restrict__ v,
+                                        float* __restrict__ y, int rows) {
+  const int r = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  if (r >= rows) return;  // the whole warp leaves together
+  const float s = warp_sum(a[(size_t)r * T + lane] * v[(size_t)(r / T) * T + lane]);
+  if (lane == 0) y[r] = s;
+}
+
+__global__ void lane_reduce_kernel(const float* __restrict__ a, const float* __restrict__ v,
+                                   float* __restrict__ y, int rows) {
+  row_dot(a, v, y, rows);
+}
+
+__global__ void matvec_kernel(const float* __restrict__ a, const float* __restrict__ v,
+                              float* __restrict__ y, int rows) {
+  row_dot(a, v, y, rows);
+}
+
+// ---- row 3: probe_mosaic.k3, columns 0..3 of every tile times 2. Columns
+// 0..3 of a row are its first 16 bytes, so each thread takes one float4:
+// the first of each row's eight is scaled in registers, the rest copied.
+__global__ void scale_cols_kernel(const float4* __restrict__ a, float4* __restrict__ o,
+                                  size_t n4) {
+  const size_t q = blockIdx.x * (size_t)blockDim.x + threadIdx.x;
+  if (q >= n4) return;
+  float4 v = a[q];
+  if (q % (T / 4) == 0) {
+    v.x *= 2.f;
+    v.y *= 2.f;
+    v.z *= 2.f;
+    v.w *= 2.f;
+  }
+  o[q] = v;
+}
+
+// ---- row 4: probe_mosaic.k4, o[n] = x[n] + 1, each row n of x brought into
+// a 2-slot shared ring by a bulk asynchronous copy (the TPU kernel's
+// HBM -> VMEM DMA). Thread 0 starts the copy of row n + 1 into the other
+// slot before the block works on row n; each slot has an mbarrier that the
+// copy completes with its byte count, waited on with the parity of that
+// slot's use (flipping each use). Rows are a multiple of 16 bytes and
+// 16-byte aligned, as cp.async.bulk requires.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void bulk_load(float* dst, const float* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__global__ void dma_ring_kernel(const float* __restrict__ x, float* __restrict__ o, int N,
+                                int row) {
+  extern __shared__ __align__(128) float ring[];  // 2 slots of `row` floats
+  __shared__ __align__(8) uint64_t bar[2];
+  const uint32_t bytes = row * sizeof(float);
+  if (threadIdx.x == 0) {
+    mbar_init(&bar[0], 1);
+    mbar_init(&bar[1], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    mbar_expect_tx(&bar[0], bytes);
+    bulk_load(ring, x, bytes, &bar[0]);
+  }
+  __syncthreads();
+  for (int n = 0; n < N; ++n) {
+    const int s = n & 1;
+    if (threadIdx.x == 0 && n + 1 < N) {
+      // slot s^1 held row n - 1, which every thread finished reading
+      // before the __syncthreads that closed iteration n - 1
+      mbar_expect_tx(&bar[s ^ 1], bytes);
+      bulk_load(ring + (s ^ 1) * row, x + (size_t)(n + 1) * row, bytes, &bar[s ^ 1]);
+    }
+    mbar_wait(&bar[s], (n >> 1) & 1);
+    const float* buf = ring + s * row;
+    for (int t = threadIdx.x; t < row; t += blockDim.x) o[(size_t)n * row + t] = buf[t] + 1.f;
+    __syncthreads();
+  }
+}
+
+// ---- row 5: probe_mosaic.k5, o[n] = a[n] + o[n-1] through a 3-slot ring
+// indexed by n % 3 in a device loop (the slot read is (n + 2) % 3, the one
+// written the step before). The columns of a row are independent, so the
+// row is split over CTAs of 256 threads, each with its own ring.
+constexpr int RING_THREADS = 256;
+
+__global__ void ring_prefix_kernel(const float* __restrict__ a, float* __restrict__ o, int N,
+                                   int row) {
+  __shared__ float ring[3][RING_THREADS];
+  const int t = threadIdx.x;
+  const int m = blockIdx.x * RING_THREADS + t;
+  ring[0][t] = 0.f;
+  ring[1][t] = 0.f;
+  ring[2][t] = 0.f;
+  if (m >= row) return;
+  // each thread reads back only the ring entries it wrote: no barrier needed
+  for (int n = 0; n < N; ++n) {
+    const float prev = ring[(n + 2) % 3][t];
+    ring[n % 3][t] = a[(size_t)n * row + m] + prev;
+    o[(size_t)n * row + m] = ring[n % 3][t];
+  }
+}
+
+// ---- row 6: probe_mosaic.k6, o[n] = 3 x[n], each row staged in a shared
+// scratch row and written out by a bulk asynchronous store (the TPU
+// kernel's VMEM -> HBM DMA). The ordinary stores into the scratch row are
+// made visible to the async proxy by fence.proxy.async before the barrier
+// that lets thread 0 issue the copy; thread 0 waits until the copy has read
+// the row before the block overwrites it.
+__global__ void dma_out_kernel(const float* __restrict__ x, float* __restrict__ o, int N,
+                               int row) {
+  extern __shared__ __align__(128) float buf[];  // one scratch row
+  const uint32_t bytes = row * sizeof(float);
+  for (int n = 0; n < N; ++n) {
+    for (int t = threadIdx.x; t < row; t += blockDim.x) buf[t] = x[(size_t)n * row + t] * 3.f;
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(
+                       o + (size_t)n * row),
+                   "r"(smem_addr(buf)), "r"(bytes)
+                   : "memory");
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+// ---- row 8: probe_mosaic.k8, transpose of the last two axes. One CTA of
+// 32 x 32 threads per tile: coalesced row read into a shared tile padded to
+// 33 floats a row, coalesced row write of its columns without bank
+// conflicts.
+__global__ void transpose_kernel(const float* __restrict__ a, float* __restrict__ o) {
+  __shared__ float t[T][LDS];
+  const size_t off = (size_t)blockIdx.x * TILE;
+  t[threadIdx.y][threadIdx.x] = a[off + threadIdx.y * T + threadIdx.x];
+  __syncthreads();
+  o[off + threadIdx.y * T + threadIdx.x] = t[threadIdx.x][threadIdx.y];
+}
+
+// ---- row 9: probe_mosaic2.k1, the whole (N, TB, 32, 32) scratch in dynamic
+// shared memory (80 KB at N = 5, TB = 4: the launcher raises the 48 KB
+// default) indexed by the loop's n: s[n] = a[n] + s[n-1], o[n] = s[n].
+__global__ void dyn4d_kernel(const float* __restrict__ a, float* __restrict__ o, int N,
+                             int row) {
+  extern __shared__ __align__(128) float s[];  // N * row floats
+  for (int n = 0; n < N; ++n) {
+    for (int t = threadIdx.x; t < row; t += blockDim.x) {
+      const float prev = n >= 1 ? s[(size_t)(n - 1) * row + t] : 0.f;
+      s[(size_t)n * row + t] = a[(size_t)n * row + t] + prev;
+      o[(size_t)n * row + t] = s[(size_t)n * row + t];
+    }
+    __syncthreads();
+  }
+}
+
+// ---- row 10: probe_mosaic2.k2, the recurrence a[n] = 2 a[n] + a[n-1] run in
+// place. Pallas wrote into its own copy of the input; here the input is
+// copied into the output and the recurrence runs there, so the caller's
+// tensor is left as it was. Each thread owns one element of a row.
+__global__ void recur_kernel(const float* __restrict__ a, float* __restrict__ o, int N,
+                             int row) {
+  const int m = blockIdx.x * blockDim.x + threadIdx.x;
+  if (m >= row) return;
+  for (int n = 0; n < N; ++n) o[(size_t)n * row + m] = a[(size_t)n * row + m];
+  for (int n = 0; n < N; ++n) {
+    const float prev = n >= 1 ? o[(size_t)(n - 1) * row + m] : 0.f;
+    o[(size_t)n * row + m] = o[(size_t)n * row + m] * 2.f + prev;
+  }
+}
+
+// ---- row 11: probe_mosaic2.k3, y[b, j] = sum_i A[b, i, j] x[b, i]. One warp
+// per batch entry; lane j walks down column j, so every step reads one row
+// of A, 32 consecutive floats, and x[b, i] is broadcast from lane i.
+__global__ void matvec_t_kernel(const float* __restrict__ a, const float* __restrict__ x,
+                                float* __restrict__ y, int B) {
+  const int b = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  if (b >= B) return;
+  const float xl = x[(size_t)b * T + lane];
+  const float* ab = a + (size_t)b * TILE;
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < T; ++i) acc = fmaf(ab[i * T + lane], __shfl_sync(0xffffffffu, xl, i), acc);
+  y[(size_t)b * T + lane] = acc;
+}
+
+// ---- row 12: probe_mosaic2.chain_kernel, K dependent steps x <- A @ x from
+// x = A on TB tiles in one CTA, so o = A^(K+1). A and a ping-pong pair of x
+// stay in shared memory; one __syncthreads a step (the step writes the
+// other buffer, and the barrier orders every read of a buffer before its
+// next overwrite).
+//
+// HIGHEST: thread (i, j) runs the 32-long FP32 FMA chain of element (i, j)
+// of every tile.
+__global__ void chain_fp32_kernel(const float* __restrict__ a, float* __restrict__ o, int TB,
+                                  int K) {
+  extern __shared__ __align__(128) float sm[];
+  const int stride = T * LDS;
+  float* as = sm;
+  float* xc = as + TB * stride;
+  float* xn = xc + TB * stride;
+  const int i = threadIdx.y, j = threadIdx.x;
+  for (int b = 0; b < TB; ++b) {
+    const float v = a[(size_t)b * TILE + i * T + j];
+    as[b * stride + i * LDS + j] = v;
+    xc[b * stride + i * LDS + j] = v;
+  }
+  __syncthreads();
+  for (int k = 0; k < K; ++k) {
+    for (int b = 0; b < TB; ++b) {
+      const float* ab = as + b * stride + i * LDS;
+      const float* xb = xc + b * stride + j;
+      float acc = 0.f;
+#pragma unroll
+      for (int q = 0; q < T; ++q) acc = fmaf(ab[q], xb[q * LDS], acc);
+      xn[b * stride + i * LDS + j] = acc;
+    }
+    __syncthreads();
+    float* tmp = xc;
+    xc = xn;
+    xn = tmp;
+  }
+  for (int b = 0; b < TB; ++b) o[(size_t)b * TILE + i * T + j] = xc[b * stride + i * LDS + j];
+}
+
+// DEFAULT (the TPU's default precision is bf16 passes; Hopper's counterpart
+// is TF32 on the tensor cores): four warps per tile, warp (ti, tj) owns the
+// 16 x 16 output tile (ti, tj) and runs four m16n16k8 TF32 MMAs a step with
+// FP32 accumulation. A's fragments are loaded and rounded to TF32 once; x is
+// rounded (cvt.rna) as each step loads it. Shared tiles are unpadded
+// (wmma's ldm must be a multiple of 4 floats, its pointers 32-byte aligned).
+__global__ void chain_tf32_kernel(const float* __restrict__ a, float* __restrict__ o, int TB,
+                                  int K) {
+  using namespace nvcuda;
+  extern __shared__ __align__(128) float sm[];
+  float* as = sm;
+  float* xc = as + TB * TILE;
+  float* xn = xc + TB * TILE;
+  for (int t = threadIdx.x; t < TB * TILE; t += blockDim.x) {
+    as[t] = a[t];
+    xc[t] = a[t];
+  }
+  __syncthreads();
+  const int warp = threadIdx.x / 32;
+  const int b = warp / 4, ti = (warp / 2) % 2, tj = warp % 2;
+  wmma::fragment<wmma::matrix_a, 16, 16, 8, wmma::precision::tf32, wmma::row_major> af[4];
+  wmma::fragment<wmma::matrix_b, 16, 16, 8, wmma::precision::tf32, wmma::row_major> bf;
+  wmma::fragment<wmma::accumulator, 16, 16, 8, float> cf;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    wmma::load_matrix_sync(af[kk], as + b * TILE + ti * 16 * T + kk * 8, T);
+#pragma unroll
+    for (int e = 0; e < af[kk].num_elements; ++e) af[kk].x[e] = wmma::__float_to_tf32(af[kk].x[e]);
+  }
+  for (int k = 0; k < K; ++k) {
+    wmma::fill_fragment(cf, 0.f);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wmma::load_matrix_sync(bf, xc + b * TILE + kk * 8 * T + tj * 16, T);
+#pragma unroll
+      for (int e = 0; e < bf.num_elements; ++e) bf.x[e] = wmma::__float_to_tf32(bf.x[e]);
+      wmma::mma_sync(cf, af[kk], bf, cf);
+    }
+    wmma::store_matrix_sync(xn + b * TILE + ti * 16 * T + tj * 16, cf, T, wmma::mem_row_major);
+    __syncthreads();
+    float* tmp = xc;
+    xc = xn;
+    xn = tmp;
+  }
+  for (int t = threadIdx.x; t < TB * TILE; t += blockDim.x) o[t] = xc[t];
+}
+
+int launched() { return (int)cudaGetLastError(); }
+
+int smem_limit(const void* kernel, size_t bytes) {
+  if (bytes > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)bytes);
+}
+
+}  // namespace
+
+// Shapes: a tile is 32 x 32; B counts tiles, N rows of a ring or recurrence,
+// `row` the floats of one row; TB the tiles of the chain, K its steps.
+
+extern "C" int probe_batched_dot(const float* a, const float* b, float* o, int B,
+                                 void* stream) {
+  if (B <= 0) return (int)cudaErrorInvalidValue;
+  batched_dot_kernel<<<B, dim3(T, T), 0, (cudaStream_t)stream>>>(a, b, o);
+  return launched();
+}
+
+extern "C" int probe_lane_reduce(const float* a, const float* v, float* y, int B, void* stream) {
+  if (B <= 0) return (int)cudaErrorInvalidValue;
+  const int rows = B * T;
+  lane_reduce_kernel<<<(rows + 7) / 8, 256, 0, (cudaStream_t)stream>>>(a, v, y, rows);
+  return launched();
+}
+
+extern "C" int probe_matvec(const float* a, const float* v, float* y, int B, void* stream) {
+  if (B <= 0) return (int)cudaErrorInvalidValue;
+  const int rows = B * T;
+  matvec_kernel<<<(rows + 7) / 8, 256, 0, (cudaStream_t)stream>>>(a, v, y, rows);
+  return launched();
+}
+
+extern "C" int probe_scale_cols(const float* a, float* o, int B, void* stream) {
+  if (B <= 0) return (int)cudaErrorInvalidValue;
+  const size_t n4 = (size_t)B * TILE / 4;
+  scale_cols_kernel<<<(unsigned)((n4 + 255) / 256), 256, 0, (cudaStream_t)stream>>>(
+      reinterpret_cast<const float4*>(a), reinterpret_cast<float4*>(o), n4);
+  return launched();
+}
+
+extern "C" int probe_dma_ring(const float* x, float* o, int N, int row, void* stream) {
+  if (N <= 0 || row <= 0 || row % 4 != 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = 2 * (size_t)row * sizeof(float);
+  const int err = smem_limit((const void*)dma_ring_kernel, smem);
+  if (err) return err;
+  dma_ring_kernel<<<1, row < 1024 ? row : 1024, smem, (cudaStream_t)stream>>>(x, o, N, row);
+  return launched();
+}
+
+extern "C" int probe_ring_prefix(const float* a, float* o, int N, int row, void* stream) {
+  if (N <= 0 || row <= 0) return (int)cudaErrorInvalidValue;
+  ring_prefix_kernel<<<(row + RING_THREADS - 1) / RING_THREADS, RING_THREADS, 0,
+                       (cudaStream_t)stream>>>(a, o, N, row);
+  return launched();
+}
+
+extern "C" int probe_dma_out(const float* x, float* o, int N, int row, void* stream) {
+  if (N <= 0 || row <= 0 || row % 4 != 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)row * sizeof(float);
+  const int err = smem_limit((const void*)dma_out_kernel, smem);
+  if (err) return err;
+  dma_out_kernel<<<1, row < 1024 ? row : 1024, smem, (cudaStream_t)stream>>>(x, o, N, row);
+  return launched();
+}
+
+extern "C" int probe_transpose(const float* a, float* o, int B, void* stream) {
+  if (B <= 0) return (int)cudaErrorInvalidValue;
+  transpose_kernel<<<B, dim3(T, T), 0, (cudaStream_t)stream>>>(a, o);
+  return launched();
+}
+
+extern "C" int probe_dyn4d(const float* a, float* o, int N, int row, void* stream) {
+  if (N <= 0 || row <= 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)N * row * sizeof(float);
+  const int err = smem_limit((const void*)dyn4d_kernel, smem);
+  if (err) return err;
+  dyn4d_kernel<<<1, 1024, smem, (cudaStream_t)stream>>>(a, o, N, row);
+  return launched();
+}
+
+extern "C" int probe_recur(const float* a, float* o, int N, int row, void* stream) {
+  if (N <= 0 || row <= 0) return (int)cudaErrorInvalidValue;
+  recur_kernel<<<(row + 255) / 256, 256, 0, (cudaStream_t)stream>>>(a, o, N, row);
+  return launched();
+}
+
+extern "C" int probe_matvec_t(const float* a, const float* x, float* y, int B, void* stream) {
+  if (B <= 0) return (int)cudaErrorInvalidValue;
+  matvec_t_kernel<<<(B + 7) / 8, 256, 0, (cudaStream_t)stream>>>(a, x, y, B);
+  return launched();
+}
+
+extern "C" int probe_chain_fp32(const float* a, float* o, int TB, int K, void* stream) {
+  if (TB <= 0 || TB > 8 || K < 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = 3 * (size_t)TB * T * LDS * sizeof(float);
+  const int err = smem_limit((const void*)chain_fp32_kernel, smem);
+  if (err) return err;
+  chain_fp32_kernel<<<1, dim3(T, T), smem, (cudaStream_t)stream>>>(a, o, TB, K);
+  return launched();
+}
+
+extern "C" int probe_chain_tf32(const float* a, float* o, int TB, int K, void* stream) {
+  if (TB <= 0 || TB > 8 || K < 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = 3 * (size_t)TB * TILE * sizeof(float);
+  const int err = smem_limit((const void*)chain_tf32_kernel, smem);
+  if (err) return err;
+  chain_tf32_kernel<<<1, 128 * TB, smem, (cudaStream_t)stream>>>(a, o, TB, K);
+  return launched();
+}

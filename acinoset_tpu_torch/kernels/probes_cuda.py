@@ -1,0 +1,273 @@
+"""The Mosaic probe kernels as hand-written CUDA kernels for Hopper
+(``csrc/probes.cu``), the port of the TPU kernels of
+``scripts/probe_mosaic.py`` (k1..k8) and ``scripts/probe_mosaic2.py``
+(k1..k3, ``chain_kernel``).
+
+The kernels are compiled at first use by ``nvcc`` into
+``acinoset_tpu_torch/_build/libprobes.so`` (``_nvcc.build``) and loaded
+with ``ctypes``. Each wrapper launches its kernel for CUDA tensors
+(float32, contiguous, 16-byte aligned, on one device) and raises on
+anything else; for CPU tensors it runs the plain PyTorch version from
+``probes.probe_mosaic`` / ``probes.probe_mosaic2``. Each wrapper counts
+its kernel launches in ``<wrapper>.launches``. The wrappers carry the
+probes' report names.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from ..probes import probe_mosaic as _pm
+from ..probes import probe_mosaic2 as _pm2
+from . import _nvcc
+
+T = 32  # tile edge of every probe
+MAX_CHAIN_TILES = 8
+SOURCE = Path(__file__).resolve().parent / "csrc" / "probes.cu"
+LIBRARY = Path(__file__).resolve().parents[1] / "_build" / "libprobes.so"
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+#: launcher name -> (pointer arguments, int arguments); each ends with the stream
+_SIGNATURES = {
+    "probe_batched_dot": (3, 1),
+    "probe_lane_reduce": (3, 1),
+    "probe_matvec": (3, 1),
+    "probe_scale_cols": (2, 1),
+    "probe_dma_ring": (2, 2),
+    "probe_ring_prefix": (2, 2),
+    "probe_dma_out": (2, 2),
+    "probe_transpose": (2, 1),
+    "probe_dyn4d": (2, 2),
+    "probe_recur": (2, 2),
+    "probe_matvec_t": (3, 1),
+    "probe_chain_fp32": (2, 2),
+    "probe_chain_tf32": (2, 2),
+}
+
+_lib = None
+
+
+def build() -> Path:
+    """Compile ``csrc/probes.cu`` into ``LIBRARY`` (``_nvcc.build``)."""
+    return _nvcc.build(SOURCE, LIBRARY)
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, (n_ptr, n_int) in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = [_P] * n_ptr + [_I] * n_int + [_P]
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def _shape(name, t, shape):
+    """Raise unless ``t`` has ``shape`` (None matches any extent)."""
+    if t.dim() != len(shape) or any(s is not None and s != d for s, d in zip(shape, t.shape)):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+
+
+def _on_cpu(*ts) -> bool:
+    return all(t.device.type == "cpu" for t in ts)
+
+
+def _check_cuda(*ts):
+    dev = ts[0].device
+    for t in ts:
+        if t.device != dev or t.device.type != "cuda":
+            raise ValueError(f"operand on {t.device}; all operands must be on one CUDA device")
+        if t.dtype != torch.float32:
+            raise TypeError(f"operand is {t.dtype}; the CUDA kernels take float32")
+        if not t.is_contiguous():
+            raise ValueError("operand is not contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError("operand is not 16-byte aligned")
+
+
+def _launch(name, tensors, ints):
+    """Launch ``name`` on the current stream of the tensors' device."""
+    lib = _library()
+    dev = tensors[0].device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, name)(*(_P(t.data_ptr()) for t in tensors), *ints, _P(stream))
+    if err != 0:
+        raise RuntimeError(f"{name} failed to launch: CUDA error {err}")
+
+
+def batched_dot(a, b):
+    """Row 1: (B, 32, 32) @ (B, 32, 32) in FP32 (HIGHEST)."""
+    _shape("a", a, (None, T, T))
+    _shape("b", b, tuple(a.shape))
+    if _on_cpu(a, b):
+        return _pm.batched_dot_plain(a, b)
+    _check_cuda(a, b)
+    o = torch.empty_like(a)
+    if a.shape[0]:
+        _launch("probe_batched_dot", (a, b, o), (a.shape[0],))
+        batched_dot.launches += 1
+    return o
+
+
+def bcast_mul_lane_reduce(a, v):
+    """Row 2: sum(a * v[:, None, :], -1), a (B, 32, 32), v (B, 32)."""
+    _shape("a", a, (None, T, T))
+    _shape("v", v, (a.shape[0], T))
+    if _on_cpu(a, v):
+        return _pm.bcast_mul_lane_reduce_plain(a, v)
+    _check_cuda(a, v)
+    y = torch.empty_like(v)
+    if a.shape[0]:
+        _launch("probe_lane_reduce", (a, v, y), (a.shape[0],))
+        bcast_mul_lane_reduce.launches += 1
+    return y
+
+
+def value_at_set_static(a):
+    """Row 3: columns 0..3 of every (32, 32) tile of a (B, 32, 32) times 2."""
+    _shape("a", a, (None, T, T))
+    if _on_cpu(a):
+        return _pm.value_at_set_static_plain(a)
+    _check_cuda(a)
+    o = torch.empty_like(a)
+    if a.shape[0]:
+        _launch("probe_scale_cols", (a, o), (a.shape[0],))
+        value_at_set_static.launches += 1
+    return o
+
+
+def _rows(name, x):
+    """(N, ...) -> (N, floats per row), for the ring and recurrence probes."""
+    if x.dim() < 2:
+        raise ValueError(f"{name} must have a leading row axis, got shape {tuple(x.shape)}")
+    return x.shape[0], x[0].numel()
+
+
+def _row_kernel(launcher, plain, wrapper, x, bulk=False):
+    N, row = _rows("x", x)
+    if _on_cpu(x):
+        return plain(x)
+    _check_cuda(x)
+    if bulk and row % 4:
+        raise ValueError(f"a row of {row} floats is not a multiple of 16 bytes")
+    o = torch.empty_like(x)
+    if N and row:
+        _launch(launcher, (x, o), (N, row))
+        wrapper.launches += 1
+    return o
+
+
+def dma_hbm_ring(x):
+    """Row 4: o[n] = x[n] + 1, rows brought in by bulk async copies
+    through a 2-slot shared ring. x (N, ...) with rows of a multiple of
+    16 bytes and at most 113 KB."""
+    return _row_kernel("probe_dma_ring", _pm.dma_hbm_ring_plain, dma_hbm_ring, x, bulk=True)
+
+
+def ring_dyn_index(a):
+    """Row 5: o[n] = a[n] + o[n-1] through a 3-slot shared ring, a (N, ...)."""
+    return _row_kernel("probe_ring_prefix", _pm.ring_dyn_index_plain, ring_dyn_index, a)
+
+
+def dma_out_any(x):
+    """Row 6: o[n] = 3 x[n], rows written out by bulk async stores from a
+    shared scratch row. x (N, ...) with rows of a multiple of 16 bytes."""
+    return _row_kernel("probe_dma_out", _pm.dma_out_any_plain, dma_out_any, x, bulk=True)
+
+
+def batched_matvec(a, v):
+    """Row 7: (B, 32, 32) @ (B, 32) in FP32 (HIGHEST)."""
+    _shape("a", a, (None, T, T))
+    _shape("v", v, (a.shape[0], T))
+    if _on_cpu(a, v):
+        return _pm.batched_matvec_plain(a, v)
+    _check_cuda(a, v)
+    y = torch.empty_like(v)
+    if a.shape[0]:
+        _launch("probe_matvec", (a, v, y), (a.shape[0],))
+        batched_matvec.launches += 1
+    return y
+
+
+def batched_transpose(a):
+    """Row 8: the last two axes of a (B, 32, 32) swapped."""
+    _shape("a", a, (None, T, T))
+    if _on_cpu(a):
+        return _pm.batched_transpose_plain(a)
+    _check_cuda(a)
+    o = torch.empty_like(a)
+    if a.shape[0]:
+        _launch("probe_transpose", (a, o), (a.shape[0],))
+        batched_transpose.launches += 1
+    return o
+
+
+def dyn4d_scratch(a):
+    """Row 9: prefix sum over n of a (N, TB, 32, 32) through a scratch of
+    the whole input in shared memory (at most 227 KB)."""
+    _shape("a", a, (None, None, T, T))
+    return _row_kernel("probe_dyn4d", _pm2.dyn4d_scratch_plain, dyn4d_scratch, a)
+
+
+def write_input_ref(a):
+    """Row 10: the recurrence a[n] = 2 a[n] + a[n-1] over a (N, TB, 32, 32),
+    run in a copy: the input is left as it was."""
+    _shape("a", a, (None, None, T, T))
+    return _row_kernel("probe_recur", _pm2.write_input_ref_plain, write_input_ref, a)
+
+
+def matvec_transposed_contract(a, v):
+    """Row 11: y[b, j] = sum_i a[b, i, j] v[b, i], a (B, 32, 32), v (B, 32)."""
+    _shape("a", a, (None, T, T))
+    _shape("v", v, (a.shape[0], T))
+    if _on_cpu(a, v):
+        return _pm2.matvec_transposed_contract_plain(a, v)
+    _check_cuda(a, v)
+    y = torch.empty_like(v)
+    if a.shape[0]:
+        _launch("probe_matvec_t", (a, v, y), (a.shape[0],))
+        matvec_transposed_contract.launches += 1
+    return y
+
+
+def _chain(launcher, wrapper, prec, a, K):
+    _shape("a", a, (None, T, T))
+    if not 1 <= a.shape[0] <= MAX_CHAIN_TILES:
+        raise ValueError(f"the chain takes 1..{MAX_CHAIN_TILES} tiles, got {a.shape[0]}")
+    if K < 0:
+        raise ValueError(f"K must be >= 0, got {K}")
+    if _on_cpu(a):
+        return _pm2.chain_plain(a, K, prec)
+    _check_cuda(a)
+    o = torch.empty_like(a)
+    _launch(launcher, (a, o), (a.shape[0], int(K)))
+    wrapper.launches += 1
+    return o
+
+
+def chain_highest(a, K):
+    """Row 12, HIGHEST: K dependent steps x <- a @ x from x = a, in FP32
+    FMA, on TB <= 8 tiles a (TB, 32, 32) in one CTA; returns a^(K+1)."""
+    return _chain("probe_chain_fp32", chain_highest, "highest", a, K)
+
+
+def chain_tf32(a, K):
+    """Row 12, DEFAULT: the chain on the TF32 tensor cores (a and each x
+    rounded to TF32, FP32 accumulation)."""
+    return _chain("probe_chain_tf32", chain_tf32, "default", a, K)
+
+
+#: every wrapper, by the name chip_smoke.py and PERF.md give its kernel
+KERNELS = {f.__name__: f for f in (
+    batched_dot, bcast_mul_lane_reduce, value_at_set_static, dma_hbm_ring, ring_dyn_index,
+    dma_out_any, batched_matvec, batched_transpose, dyn4d_scratch, write_input_ref,
+    matvec_transposed_contract, chain_highest, chain_tf32,
+)}
+for _f in KERNELS.values():
+    _f.launches = 0

@@ -1,0 +1,314 @@
+"""The sweep's batched FTE stage for the cheetah, the counterpart of the
+array-level part of acinoset_tpu.pipeline.sweep: a group of runs (same
+fps) padded to one (frames, cameras) shape and solved as one batch, in
+chunks of at most ``MAX_PROGRAM_BATCH`` runs, and the rescue pass that
+re-solves the runs whose stationarity test failed.
+
+Per-run camera rigs ride along as batched inputs: the measurement
+pieces are ``pipeline.ekf.hj_parts_aux`` with each run's rig broadcast
+over its frames. ``fte_solve`` is natively batched, so where the JAX
+package caches one jitted program per configuration, the port calls the
+stage directly. The file-level ``sweep``, ``discover_runs`` and
+``load_run`` read DLC ``.h5`` files and are not ported yet.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from dataclasses import replace as dc_replace
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..models import cheetah
+from ..ops import camera as cam_ops
+from ..solvers import trajopt
+from ..utils.device import resolve_device
+from .ekf import hj_parts_aux
+from .fte import default_config
+
+
+@dataclass
+class RunData:
+    data_dir: str
+    pixels: np.ndarray  # (C, N, L, 2)
+    likelihood: np.ndarray  # (C, N, L)
+    cams: Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]  # k, d, r, t
+    fps: float
+    start_frame: int
+    scene_fpath: str
+    cam_res: Tuple[int, int] = (2704, 1520)  # per-run sensor resolution
+
+
+def _pad_run(run: RunData, N: int, C: int):
+    """Pad a run to (C, N, L, 2) frames/cameras; padded entries weight 0."""
+    c0, n0, L, _ = run.pixels.shape
+    pix = np.zeros((C, N, L, 2))
+    lik = np.full((C, N, L), -1.0)
+    pix[:c0, :n0] = np.nan_to_num(run.pixels)
+    lik[:c0, :n0] = run.likelihood
+    k, d, r, t = run.cams
+    K = np.tile(np.eye(3), (C, 1, 1))
+    D = np.zeros((C, 4))
+    R = np.tile(np.eye(3), (C, 1, 1))
+    T = np.zeros((C, 3))
+    T[:, 2] = 10.0  # benign pose for padded cameras
+    K[:c0], D[:c0], R[:c0], T[:c0] = k, d, r, t
+    return pix, lik, (K, D, R, T), n0
+
+
+#: per-batch cap: groups larger than this solve as sequential chunks of
+#: exactly this size, the last padded with repeats of its final run. The
+#: value is the JAX package's, measured on a TPU v5e (its throughput knee
+#: and a compiler safety wall there); it is still to be re-measured on
+#: the H100, where the port compiles nothing per shape.
+MAX_PROGRAM_BATCH = 96
+
+
+def _solve_chunked(runs, max_batch, solve_chunk, X0_override=None):
+    """Split an oversized group into <=max_batch chunks and solve each
+    with ``solve_chunk(chunk_runs, chunk_X0) -> results``. The last
+    partial chunk is padded by repeating its final run (results
+    discarded) so all chunks share one shape."""
+    results = []
+    for i in range(0, len(runs), max_batch):
+        chunk = list(runs[i : i + max_batch])
+        Xc = (list(X0_override[i : i + max_batch])
+              if X0_override is not None else None)
+        n_real = len(chunk)
+        if n_real < max_batch and i > 0:  # pad to the shared shape
+            chunk += [chunk[-1]] * (max_batch - n_real)
+            if Xc is not None:
+                Xc += [Xc[-1]] * (max_batch - n_real)
+        results.extend(solve_chunk(chunk, Xc)[:n_real])
+    return results
+
+
+def _track_linreg(pix, lik, cams, marker, thresh, live):
+    """Triangulate one marker's track and fit a straight line by weighted
+    normal equations over finite live frames, falling back to the track
+    mean below 2 points: the counterpart of ``_jit_track_linreg``,
+    batched over any leading dimensions.
+
+    pix (..., C, N, L, 2), lik (..., C, N, L), cams (K (..., C, 3, 3),
+    D (..., C, 4), R (..., C, 3, 3), T (..., C, 3)), live (..., N) bool.
+    Returns (slope (..., 3), intercept (..., 3)) in frame units."""
+    K, D, R, T = cams
+    dtype = pix.dtype
+    Nn = pix.shape[-3]
+    valid = (lik[..., marker:marker + 1] > thresh) & live[..., None, :, None]
+    track = cam_ops.triangulate_pairwise_mean(
+        pix[..., marker:marker + 1, :], valid, K, D, R, T
+    )[0][..., 0, :]  # (..., N, 3)
+    ok = torch.all(torch.isfinite(track), dim=-1) & live
+    okf = ok.to(dtype)
+    tr0 = torch.where(ok[..., None], track, torch.zeros_like(track))
+    nok = torch.sum(okf, dim=-1, keepdim=True)
+    f = torch.arange(Nn, dtype=dtype, device=pix.device)
+    Sx = torch.sum(okf * f, dim=-1, keepdim=True)
+    Sxx = torch.sum(okf * f * f, dim=-1, keepdim=True)
+    Sy = torch.sum(okf[..., None] * tr0, dim=-2)
+    Sxy = torch.sum((okf * f)[..., None] * tr0, dim=-2)
+    det = nok * Sxx - Sx * Sx
+    big = torch.abs(det) > 1e-12
+    fit = (nok >= 2.0) & big
+    zero = torch.zeros_like(Sy)
+    slope = torch.where(fit, (nok * Sxy - Sx * Sy) / torch.where(big, det, torch.ones_like(det)),
+                        zero)
+    intercept = torch.where(fit, (Sy - slope * Sx) / torch.clamp(nok, min=1.0),
+                            Sy / torch.clamp(nok, min=1.0))
+    return slope, intercept
+
+
+def _unpack_rig(auxp):
+    """(B, C, 25) packed rig -> K (B, C, 3, 3), D (B, C, 4), R, T (B, C, 3)."""
+    lead = auxp.shape[:-1]
+    return (auxp[..., :9].reshape(*lead, 3, 3), auxp[..., 9:13],
+            auxp[..., 13:22].reshape(*lead, 3, 3), auxp[..., 22:25])
+
+
+def solve_stage(cfg, packed, auxp, n_valid, dlc_thresh, X0=None):
+    """The fused FTE stage over a batch of padded runs, the counterpart of
+    ``_cached_batch_solver``'s ``solve_one`` vmapped over runs.
+
+    packed (B, C, N, L, 3): pixels and likelihood; auxp (B, C, 25): each
+    run's rig (K 9, D 4, R 9, T 3); n_valid (B,) frames per run; X0
+    (B, N, P) or None for the cold init: the nose track's straight line
+    and yaw, held at the last valid frame through padding. All on one
+    device, in the solve's dtype. Weights are ``lik > dlc_thresh`` over
+    ``cfg.meas_std_px`` on live frames. Returns (X (B, N, P), marker
+    positions (B, N, L, 3), fte_solve's info)."""
+    B, C, Nn = packed.shape[:3]
+    dtype, device = packed.dtype, packed.device
+    K, D, R, T = _unpack_rig(auxp)
+    pix, lik = packed[..., :2], packed[..., 2]
+    n = torch.as_tensor(n_valid, device=device).reshape(B, 1)
+    fidx = torch.arange(Nn, device=device)
+    live = fidx[None] < n  # (B, N)
+    thresh = float(dlc_thresh)
+    w = (lik > thresh).to(dtype) / cfg.meas_std_px
+    w = w * live[:, None, :, None].to(dtype)
+    meas = pix.permute(0, 2, 1, 3, 4).contiguous()  # (B, N, C, L, 2)
+    wT = w.permute(0, 2, 1, 3).contiguous()
+    if X0 is None:
+        pp = cheetah.get_pose_params()
+        nose = cheetah.get_markers().index("nose")
+        slope, intercept = _track_linreg(pix, lik, (K, D, R, T), nose, thresh, live)
+        f_eff = torch.minimum(fidx[None], n - 1).to(dtype)  # (B, N)
+        X0 = torch.zeros((B, Nn, cheetah.N_ACTIVE), dtype=dtype, device=device)
+        line = f_eff[..., None] * slope[:, None] + intercept[:, None]
+        X0[..., [pp["x_0"], pp["y_0"], pp["z_0"]]] = line
+        X0[..., pp["psi_0"]] = torch.atan2(slope[:, 1], slope[:, 0])[:, None]
+    rig = tuple(a[:, None] for a in (K, D, R, T))  # (B, 1, C, ...): broadcast over frames
+    X, info = trajopt.fte_solve(lambda x: hj_parts_aux(x, rig), X0, meas, wT, cfg,
+                                n_valid=n[:, 0], device=device)
+    return X, cheetah.fk25(X), info
+
+
+def solve_batch(
+    runs: Sequence[RunData],
+    dlc_thresh: float,
+    num_iters: int = 60,
+    device=None,
+    dtype=torch.float32,
+    X0_override: Optional[Sequence[np.ndarray]] = None,
+    relinearize_every: int = 1,
+    plain_iters: Optional[int] = None,
+    uncertainty: bool = False,
+    max_batch: Optional[int] = MAX_PROGRAM_BATCH,
+    pad_frames: Optional[int] = None,
+    pad_cams: Optional[int] = None,
+) -> List[Dict]:
+    """Solve a group of runs (same fps) as one batch on ``device`` (CUDA
+    unless the caller names another; raises without CUDA when none is
+    given).
+
+    Groups beyond ``max_batch`` runs solve as sequential chunks padded to
+    a shared (frames, cams, batch) shape. ``pad_frames``/``pad_cams`` pin
+    the padded shapes (used by the chunk recursion). ``X0_override`` (one
+    (n_i, P) array per run) replaces the cold init; rows beyond each run's
+    length are held at its last frame. ``plain_iters`` overrides the
+    graduated-robustness schedule. Returns one dict per run with
+    positions, x, dx, ddx (host numpy, float64) and the solver status.
+    ``uncertainty=True`` and ``relinearize_every > 1`` are not ported yet
+    and raise, as ``fte_solve`` does."""
+    device = resolve_device(device)
+    fps = runs[0].fps
+    N = pad_frames or max(r.pixels.shape[1] for r in runs)
+    C = pad_cams or max(r.pixels.shape[0] for r in runs)
+    if max_batch and len(runs) > max_batch:
+        return _solve_chunked(
+            runs, max_batch,
+            lambda chunk, Xc: solve_batch(
+                chunk, dlc_thresh, num_iters=num_iters, device=device,
+                dtype=dtype, X0_override=Xc,
+                relinearize_every=relinearize_every,
+                plain_iters=plain_iters, uncertainty=uncertainty,
+                max_batch=None, pad_frames=N, pad_cams=C,
+            ),
+            X0_override=X0_override,
+        )
+    cfg = default_config(fps, num_iters=num_iters)
+    if relinearize_every != 1:
+        cfg = dc_replace(cfg, relinearize_every=relinearize_every)
+    if plain_iters is not None:
+        cfg = dc_replace(cfg, plain_iters=plain_iters)
+    if uncertainty:
+        raise NotImplementedError("uncertainty (the Laplace-posterior pass) is not ported yet")
+
+    packed_b, auxp_b, n_valid, X0_b = [], [], [], []
+    for run in runs:
+        pix, lik, cams, n0 = _pad_run(run, N, C)
+        packed_b.append(np.concatenate([pix, lik[..., None]], axis=-1))
+        K, D, R, T = cams
+        auxp_b.append(np.concatenate([
+            K.reshape(C, 9), D.reshape(C, 4), R.reshape(C, 9),
+            np.asarray(T).reshape(C, 3),
+        ], axis=1))
+        n_valid.append(n0)
+    X0 = None
+    if X0_override is not None:
+        for i in range(len(runs)):
+            Xw = np.asarray(X0_override[i], np.float64)
+            Xp = np.zeros((N, Xw.shape[1]))
+            Xp[: len(Xw)] = Xw
+            Xp[len(Xw):] = Xw[-1]  # hold the last frame through padding
+            X0_b.append(Xp)
+        X0 = torch.as_tensor(np.stack(X0_b), dtype=dtype, device=device)
+
+    X, pts, info = solve_stage(
+        cfg,
+        torch.as_tensor(np.stack(packed_b), dtype=dtype, device=device),
+        torch.as_tensor(np.stack(auxp_b), dtype=dtype, device=device),
+        torch.as_tensor(n_valid, dtype=torch.int64, device=device),
+        dlc_thresh, X0,
+    )
+    Xb, positions_b = X.cpu().numpy(), pts.cpu().numpy()
+    status = {k: info[k].cpu().numpy() for k in ("cost", "cost0", "converged", "grad_norm")}
+
+    results = []
+    Ts = 1.0 / fps
+    for i, run in enumerate(runs):
+        n0 = n_valid[i]
+        X = Xb[i, :n0].astype(np.float64)
+        # backward-difference derivatives on host (cheap numpy)
+        dx = np.diff(X, axis=0) / Ts
+        dx = np.concatenate([dx[:1], dx], axis=0) if len(X) > 1 else np.zeros_like(X)
+        ddx = np.diff(dx, axis=0) / Ts
+        ddx = (
+            np.concatenate([ddx[1:2], ddx[1:2], ddx[1:]], axis=0)
+            if len(X) > 2 else np.zeros_like(X)
+        )
+        results.append(
+            dict(
+                data_dir=run.data_dir,
+                positions=positions_b[i, :n0].astype(np.float64),
+                x=X,
+                dx=dx,
+                ddx=ddx,
+                start_frame=run.start_frame,
+                scene_fpath=run.scene_fpath,
+                cost=float(status["cost"][i]),
+                cost0=float(status["cost0"][i]),
+                converged=bool(status["converged"][i]),
+                grad_norm=float(status["grad_norm"][i]),
+            )
+        )
+    return results
+
+
+def ekf_warm_starts(ekf_results: Sequence[Dict]) -> List[np.ndarray]:
+    """Per-run FTE initializations from batched-EKF results: the
+    RTS-smoothed pose block, one (n_i, P) array per run."""
+    return [np.asarray(r["states"]["smoothed_x"], np.float64) for r in ekf_results]
+
+
+def _rescue_unconverged(results, label, num_iters, resolve):
+    """Runs whose stationarity flag came back unconverged re-solve as
+    their own batch, warm-started from their current solutions (the
+    caller's ``resolve`` continues the graduated solve with robust
+    weights on from iteration 0): first at 1x the budget, then the
+    holdouts at 3x. The rescue batch is padded to the next power of two
+    (repeats of the last failure, results discarded), as the JAX package
+    does to bound its compiled shapes. Only failures are replaced; a
+    rescued run can honestly remain unconverged."""
+    for mult in (1, 3):
+        bad = [i for i, r in enumerate(results) if not r["converged"]]
+        if not bad:
+            return results
+        print(f"rescue: {len(bad)} unconverged {label}runs re-solved at "
+              f"{mult * num_iters} iterations")
+        n_pad = 1 << (len(bad) - 1).bit_length()
+        bad_p = bad + [bad[-1]] * (n_pad - len(bad))
+        rr = resolve(bad_p, [results[i]["x"] for i in bad_p],
+                     mult * num_iters)
+        for i, res in zip(bad, rr[: len(bad)]):
+            results[i] = res
+    return results
+
+
+def resolve_warm_start(warm_start) -> bool:
+    """Resolve the warm_start knob ('auto'/True/False): 'auto' is the cold
+    init at every horizon (the JAX package measured the EKF init landing
+    in a worse basin); truthy values force the EKF init."""
+    return False if warm_start == "auto" else bool(warm_start)

@@ -5,18 +5,28 @@
 
 Phases, one line each with its seconds:
   1. device  - the card's name and power limit (nvidia-smi);
-  2. build   - nvcc builds the banded-Cholesky kernel from the checkout;
-  3. kernel  - the kernel against its plain PyTorch version at the
-               flagship shape (B=96, N=100, P=25) on a well-conditioned
-               and an FTE-like ill-conditioned batch, with its time, the
-               plain version's, a dense torch.linalg.solve yardstick's and
-               the bound the card sets;
+  2. build   - nvcc builds the banded-Cholesky kernel and the probe
+               kernels from the checkout, both at once, with each
+               kernel's registers and spills;
+  3. kernel  - the banded kernel against its plain PyTorch version at
+               the flagship shape (B=96, N=100, P=25) on a
+               well-conditioned and an FTE-like ill-conditioned batch,
+               with its time, the plain version's, a dense
+               torch.linalg.solve yardstick's and the bound the card sets;
   4. main    - the batched flagship FTE solve (B=96, N=100, C=6, L=20,
                float32, 13 GN iterations, linear_solver='pallas') on
                bench.py's synthetic input, counting kernel launches;
   5. golden  - fte_run with the default config (pcg, float64) against
                tests/golden/fte_synthetic_n30.npz;
-  6. profile - measurement only: the main path's time with each linear
+  6. probes  - the 13 probe kernels (scripts/probe_mosaic*.py's rows)
+               against their plain versions on seeded random inputs and
+               on the scripts' own inputs, with their times and bounds;
+               then the probe path (every probe entry point and the
+               time_chain table at both precisions), counting launches;
+  7. sweep   - the sweep's batched FTE stage on 128 synthetic runs
+               (8 rigs x 16 seeds, 80-100 frames): solve_batch in chunks
+               of 96 (pcg, 13 iterations) and the rescue pass, timed;
+  8. profile - measurement only: the main path's time with each linear
                solver and a torch.profiler breakdown of one solve.
 
 Any failed check raises. The line before the last is the kernels' JSON
@@ -27,9 +37,11 @@ any result.
 """
 import json
 import os
+import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import replace
 
 import numpy as np
@@ -39,8 +51,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "golden", "fte_synthetic_n30.npz")
 
 # H100 SXM published peaks (dense, at the 700 W limit): FP32 outside the
-# tensor cores and HBM3 bandwidth
+# tensor cores, TF32 on them, and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 
 
@@ -136,14 +149,53 @@ def phase_device():
     return smi
 
 
+def _kernel_name(mangled):
+    """The name of a ``*_kernel`` function in an Itanium-mangled symbol
+    (each name in it is preceded by its length)."""
+    for m in re.finditer(r"\d+", mangled):
+        for k in range(len(m.group())):  # the length may follow other digits
+            n = int(m.group()[k:])
+            name = mangled[m.end():m.end() + n]
+            if len(name) == n and name.endswith("_kernel"):
+                return name[:-len("_kernel")]
+    return mangled
+
+
+def _ptxas_summary(log):
+    """'kernel N regs' per kernel, and its spills if any, from nvcc -Xptxas -v."""
+    out, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = _kernel_name(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name and m.groups() != ("0", "0"):
+            out.append(f"{name} spills {m.group(1)}/{m.group(2)} bytes")
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append(f"{name} {m.group(1)} regs")
+    return ", ".join(out)
+
+
 def phase_build():
-    from acinoset_tpu_torch.kernels import banded_cuda
+    """Build both libraries at once (one nvcc each, started together)."""
+    from acinoset_tpu_torch.kernels import _nvcc, banded_cuda, probes_cuda
 
     t0 = time.perf_counter()
-    path = banded_cuda.build()
-    secs = time.perf_counter() - t0
-    _phase("build", t0, f"{os.path.relpath(path, ROOT)} built in {secs:.2f} s")
-    return secs
+
+    def timed(build):
+        t1 = time.perf_counter()
+        return build(), time.perf_counter() - t1
+
+    with ThreadPoolExecutor(2) as pool:
+        futures = [pool.submit(timed, m.build) for m in (banded_cuda, probes_cuda)]
+        built = [f.result() for f in futures]
+    for path, secs in built:
+        log = _nvcc.log_path(path).read_text()
+        spills = re.findall(r"(\d+) bytes spill stores", log)
+        print(f"[build] {os.path.relpath(path, ROOT)} built in {secs:.2f} s; spill stores "
+              f"{sum(int(v) for v in spills)} bytes; {_ptxas_summary(log)}", flush=True)
+    _phase("build", t0, "both libraries")
 
 
 def phase_kernel(device, B=96, N=100, P=25):
@@ -337,6 +389,336 @@ def phase_golden(device):
            f"vs {cref:.6f}; converged {out['converged']}")
 
 
+# ---- probes: the Mosaic probe kernels (scripts/probe_mosaic*.py) ----
+
+#: the chains' step count on their seeded random inputs
+CHAIN_K_RANDOM = 16
+
+
+def probe_cases():
+    """Per probe kernel: its __global__ function, its plain version, the
+    TPU kernel it replaces, inputs at the probe path's shapes (seeded
+    random, and the scripts' own), the tolerance, its operations and the
+    one PyTorch call that computes the same function. There is none for
+    value_at_set_static (scaling four columns takes a scale vector or an
+    index beside the input), write_input_ref (a weighted scan) or the chains
+    (torch.linalg.matrix_power reaches a^(K+1) by log2 K squarings: other
+    work than the K dependent steps the probe times).
+
+    Tolerances, against the plain version on the same card: 'exact' for
+    the rows that move or scale data and for the recurrences (the same
+    float32 additions in the same order); ('rtol', 1e-5) of the largest
+    value for the FP32 products, summed in another order (32 terms: at
+    most 32 * 2^-24 of the sum of |terms|, under 1e-5 of the largest
+    value on these inputs); ('frob', bound) on the chains' random inputs,
+    a = 0.9 Q with Q orthogonal, so that no step amplifies an error: at
+    FP32 a step's sums move by at most 32 * 2^-24 of its norm, so K steps
+    stay within K * 32 * 2^-24 in the Frobenius norm; at TF32 the plain
+    version rounds a and x to TF32 as the kernel does, but its sums run
+    in another order, so a rounding of x may break the other way, by at
+    most 2 * 2^-11 of the step's norm: K * 2^-10. On the script's 0.999 I
+    both chains are exact (one nonzero term per sum)."""
+    from acinoset_tpu_torch.probes import probe_mosaic as pm
+    from acinoset_tpu_torch.probes import probe_mosaic2 as pm2
+
+    B, P, TB, K = 16, 32, 4, 2000
+    S3 = (B, P, P)
+
+    def rnd(*shape):
+        return lambda r, d: torch.as_tensor(r.normal(size=shape), dtype=torch.float32, device=d)
+
+    def ones(*shape, v=1.0):
+        return lambda r, d: torch.full(shape, v, dtype=torch.float32, device=d)
+
+    def arange(*shape, div=1.0):
+        return lambda r, d: (torch.arange(int(np.prod(shape)), dtype=torch.float32, device=d)
+                             .reshape(shape) / div)
+
+    def orth(tb):
+        def make(r, d):
+            q, _ = np.linalg.qr(r.normal(size=(tb, P, P)))
+            return torch.as_tensor(0.9 * q, dtype=torch.float32, device=d)
+        return make
+
+    def eye(tb):
+        return lambda r, d: (torch.eye(P, dtype=torch.float32, device=d)[None] * 0.999).repeat(
+            tb, 1, 1)
+
+    def const(v):
+        return lambda r, d: v
+
+    PM, PM2 = "scripts/probe_mosaic.py", "scripts/probe_mosaic2.py"
+    rt = ("rtol", 1e-5)
+    return {
+        "batched_dot": dict(
+            kernel="batched_dot_kernel",
+            replaces=f"{PM}:34", plain=pm.batched_dot_plain, tol=rt, flops=2 * B * P**3,
+            random=[rnd(*S3), rnd(*S3)], script=[ones(*S3), ones(*S3)],
+            library=lambda a, b: torch.bmm(a, b)),
+        "bcast_mul_lane_reduce": dict(
+            kernel="lane_reduce_kernel",
+            replaces=f"{PM}:49", plain=pm.bcast_mul_lane_reduce_plain, tol=rt,
+            flops=2 * B * P * P, random=[rnd(*S3), rnd(B, P)],
+            script=[ones(*S3), ones(B, P, v=2.0)],
+            library=lambda a, v: torch.matmul(a, v[..., None])),
+        "value_at_set_static": dict(
+            kernel="scale_cols_kernel",
+            replaces=f"{PM}:67", plain=pm.value_at_set_static_plain, tol="exact",
+            flops=B * P * 4, random=[rnd(*S3)], script=[ones(*S3)], library=None),
+        "dma_hbm_ring": dict(
+            kernel="dma_ring_kernel",
+            replaces=f"{PM}:90", plain=pm.dma_hbm_ring_plain, tol="exact", flops=4 * B * P,
+            random=[rnd(4, B, P)], script=[arange(4, B, P)],
+            library=lambda x: torch.add(x, 1.0)),
+        "ring_dyn_index": dict(
+            kernel="ring_prefix_kernel",
+            replaces=f"{PM}:117", plain=pm.ring_dyn_index_plain, tol="exact", flops=6 * B * P,
+            random=[rnd(6, B, P)], script=[ones(6, B, P)],
+            library=lambda a: torch.cumsum(a, 0)),
+        "dma_out_any": dict(
+            kernel="dma_out_kernel",
+            replaces=f"{PM}:141", plain=pm.dma_out_any_plain, tol="exact", flops=4 * B * P,
+            random=[rnd(4, B, P)], script=[ones(4, B, P)],
+            library=lambda x: torch.mul(x, 3.0)),
+        "batched_matvec": dict(
+            kernel="matvec_kernel",
+            replaces=f"{PM}:161", plain=pm.batched_matvec_plain, tol=rt, flops=2 * B * P * P,
+            random=[rnd(*S3), rnd(B, P)], script=[ones(*S3), ones(B, P, v=2.0)],
+            library=lambda a, v: torch.bmm(a, v[..., None])),
+        "batched_transpose": dict(
+            kernel="transpose_kernel",
+            replaces=f"{PM}:176", plain=pm.batched_transpose_plain, tol="exact", flops=0,
+            random=[rnd(*S3)], script=[arange(*S3)],
+            library=lambda a: a.transpose(-1, -2).contiguous()),
+        "dyn4d_scratch": dict(
+            kernel="dyn4d_kernel",
+            replaces=f"{PM2}:44", plain=pm2.dyn4d_scratch_plain, tol="exact",
+            flops=5 * TB * P * P, random=[rnd(5, TB, P, P)], script=[ones(5, TB, P, P)],
+            library=lambda a: torch.cumsum(a, 0)),
+        "write_input_ref": dict(
+            kernel="recur_kernel",
+            replaces=f"{PM2}:66", plain=pm2.write_input_ref_plain, tol="exact",
+            flops=2 * 5 * TB * P * P, random=[rnd(5, TB, P, P)], script=[ones(5, TB, P, P)],
+            library=None),
+        "matvec_transposed_contract": dict(
+            kernel="matvec_t_kernel",
+            replaces=f"{PM2}:84", plain=pm2.matvec_transposed_contract_plain, tol=rt,
+            flops=2 * TB * P * P, random=[rnd(TB, P, P), rnd(TB, P)],
+            script=[arange(TB, P, P, div=100.0), ones(TB, P)],
+            library=lambda a, v: torch.bmm(a.mT, v[..., None])),
+        "chain_highest": dict(
+            kernel="chain_fp32_kernel",
+            replaces=f"{PM2}:108", plain=lambda a, k: pm2.chain_plain(a, k, "highest"),
+            tol=("frob", CHAIN_K_RANDOM * 32 * 2.0**-24),
+            flops=K * 8 * 2 * P**3, random=[orth(8), const(CHAIN_K_RANDOM)],
+            script=[eye(8), const(K)], library=None, script_tol="exact"),
+        "chain_tf32": dict(
+            kernel="chain_tf32_kernel",
+            replaces=f"{PM2}:108", plain=lambda a, k: pm2.chain_plain(a, k, "default"),
+            tol=("frob", CHAIN_K_RANDOM * 2.0**-10), flops=K * 8 * 2 * P**3, peak=PEAK_TF32_FLOPS,
+            random=[orth(8), const(CHAIN_K_RANDOM)], script=[eye(8), const(K)], library=None,
+            script_tol="exact"),
+    }
+
+
+def probe_error(got, want, tol):
+    """max |got - want|; raises if it breaks the case's tolerance."""
+    err = float((got - want).abs().max())
+    if tol == "exact":
+        ok = torch.equal(got, want)
+    elif tol[0] == "rtol":
+        ok = err <= tol[1] * float(want.abs().max())
+    else:
+        ok = bool(torch.all(torch.linalg.matrix_norm(got - want)
+                            <= tol[1] * torch.linalg.matrix_norm(want)))
+    if not ok:
+        raise AssertionError(f"kernel vs plain: max abs err {err:.3g} breaks {tol}")
+    return err
+
+
+def check_probe(case, wrapper, inputs, device, rng):
+    """The kernel against its plain version on one set of inputs; returns
+    (max abs err, the inputs, the output's size)."""
+    from acinoset_tpu_torch.utils.precision import f32_matmuls
+
+    args = [make(rng, device) for make in case[inputs]]
+    with f32_matmuls():
+        got = wrapper(*args)
+        torch.cuda.synchronize()
+        want = case["plain"](*args)
+    tol = case.get("script_tol", case["tol"]) if inputs == "script" else case["tol"]
+    return probe_error(got, want, tol), args, got.numel()
+
+
+def probe_device_ms(cases, args_by_name):
+    """Each probe kernel's own device time (torch.profiler), ms per launch:
+    the event timing of back-to-back launches also holds the host's
+    wrapper and ctypes call when they are slower than the kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from acinoset_tpu_torch.kernels import probes_cuda as pk
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for name, args in args_by_name.items():
+            for _ in range(3 if name.startswith("chain") else 50):
+                pk.KERNELS[name](*args)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    out = {}
+    for name in args_by_name:
+        tag = f"::{cases[name]['kernel']}("
+        hits = [e for e in events if tag in e.key]
+        out[name] = (sum(e.self_device_time_total for e in hits) / 1e3
+                     / max(sum(e.count for e in hits), 1)) if hits else float("nan")
+    return out
+
+
+def phase_probes(device):
+    """Every probe kernel against its plain version, timed at the probe
+    path's shapes (the scripts' inputs), then the probe path itself: every
+    probe entry point and the time_chain table, with the launch counts set
+    to 0 just before and read just after."""
+    from acinoset_tpu_torch.kernels import probes_cuda as pk
+    from acinoset_tpu_torch.probes import probe_mosaic as pm
+    from acinoset_tpu_torch.probes import probe_mosaic2 as pm2
+    from acinoset_tpu_torch.utils.precision import f32_matmuls
+
+    t0 = time.perf_counter()
+    cases = probe_cases()
+    recs, path_args = {}, {}
+    for i, (name, case) in enumerate(cases.items()):
+        wrapper = pk.KERNELS[name]
+        err, _, _ = check_probe(case, wrapper, "random", device, np.random.default_rng(i))
+        err_s, args, n_out = check_probe(case, wrapper, "script", device, np.random.default_rng(i))
+        path_args[name] = args
+        long = name.startswith("chain")
+        with f32_matmuls():
+            ms = _cuda_ms(lambda: wrapper(*args), reps=3 if long else 200, warmup=2)
+            plain_ms = _cuda_ms(lambda: case["plain"](*args), reps=1 if long else 20)
+            lib = case["library"]
+            library_ms = _cuda_ms(lambda: lib(*args), reps=200, warmup=2) if lib else None
+        tensors = [a for a in args if torch.is_tensor(a)]
+        nbytes = 4 * (sum(a.numel() for a in tensors) + n_out)
+        t_ops = case["flops"] / case.get("peak", PEAK_FP32_FLOPS)
+        t_bytes = nbytes / PEAK_BYTES_PER_S
+        recs[name] = dict(
+            name=name, route="cuda", source="acinoset_tpu_torch/kernels/csrc/probes.cu",
+            replaces=case["replaces"], launches=None, max_abs_err=max(err, err_s), ms=ms,
+            plain_ms=plain_ms, bound_ms=1e3 * max(t_ops, t_bytes),
+            bound_by="operations" if t_ops >= t_bytes else "bytes", library_ms=library_ms)
+        lib_txt = "none" if library_ms is None else f"{library_ms:.4f}"
+        print(f"[probes] {name}: max_abs_err random {err:.3g} script {err_s:.3g} "
+              f"(tol {case['tol']}); ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib_txt} "
+              f"bound_ms {recs[name]['bound_ms']:.2e} ({recs[name]['bound_by']})", flush=True)
+
+    device_ms = probe_device_ms(cases, path_args)
+    print("[probes] device ms per launch (torch.profiler): "
+          + ", ".join(f"{k} {v:.5f}" for k, v in device_ms.items()), flush=True)
+
+    # the probe path, through the entry points a user calls
+    for f in pk.KERNELS.values():
+        f.launches = 0
+    for probe_name, t in pm.PROBES + pm2.PROBES:
+        out = t()
+        torch.cuda.synchronize()
+        print(f"[probes] OK   {probe_name}: {out.reshape(-1)[:2].cpu().numpy()}", flush=True)
+    table = {prec: [pm2.time_chain(tb, prec=prec) for tb in (1, 2, 4, 8)]
+             for prec in pm2.PRECISIONS}
+    launches = {name: f.launches for name, f in pk.KERNELS.items()}
+    missing = [name for name, n in launches.items() if n < 1]
+    if missing:
+        raise AssertionError(f"probe kernels not launched on the probe path: {missing}")
+    for name, n in launches.items():
+        recs[name]["launches"] = n
+    print("[probes] time_chain ns/step (K=2000)   TB=1     TB=2     TB=4     TB=8", flush=True)
+    for prec, row in table.items():
+        label = "highest (FP32 FMA)" if prec == "highest" else "default (TF32 MMA)"
+        print(f"[probes]   {label:<30}" + "".join(f"{v:9.1f}" for v in row), flush=True)
+    _phase("probes", t0, f"13 kernels match their plain versions; launches {launches}")
+    return list(recs.values())
+
+
+# ---- sweep: the batched FTE stage with chunking and rescue ----
+
+def make_sweep_runs(n_rigs=8, n_seeds=16, seed=0):
+    """128 synthetic runs: 8 rigs (6 cameras, radius 10..14 m) x 16
+    seeds, 80..100 frames at 90 fps, the flagship's noise. Returns
+    (RunData list, ground-truth marker positions per run)."""
+    from acinoset_tpu_torch.pipeline.sweep import RunData
+    from acinoset_tpu_torch.utils import synthetic
+
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(80, 101, size=n_rigs * n_seeds)
+    lengths[0] = 100
+    runs, truth = [], []
+    for ri, radius in enumerate(np.linspace(10.0, 14.0, n_rigs)):
+        cams = synthetic.ring_cameras(n_cams=6, radius=float(radius))
+        k, d, r, t, res = cams
+        for si in range(n_seeds):
+            i = ri * n_seeds + si
+            X = synthetic.cheetah_gallop(N=int(lengths[i]), fps=90.0)
+            px, lik, pts3d = synthetic.render_measurements(
+                X, cams, noise_px=1.5, outlier_frac=0.02, bad_lik_frac=0.05, seed=1000 + i)
+            runs.append(RunData(data_dir=f"synthetic_{i:03d}", pixels=px, likelihood=lik,
+                                cams=(k, d.reshape(-1, 4), r, t.reshape(-1, 3)), fps=90.0,
+                                start_frame=0, scene_fpath="", cam_res=res))
+            truth.append(pts3d)
+    return runs, truth
+
+
+def _sweep_once(runs, device, iters):
+    """solve_batch with bench.py's headline schedule, then the rescue pass
+    wired as sweep() wires it: (solve s, rescue s, results before, after)."""
+    from acinoset_tpu_torch.pipeline.sweep import _rescue_unconverged, solve_batch
+
+    t1 = time.perf_counter()
+    before = solve_batch(runs, 0.5, num_iters=iters, plain_iters=5, device=device)
+    t2 = time.perf_counter()
+    after = _rescue_unconverged(
+        list(before), "", iters,
+        lambda bad, X0s, budget: solve_batch(
+            [runs[i] for i in bad], 0.5, num_iters=budget, X0_override=X0s,
+            plain_iters=0, device=device),
+    )
+    return t2 - t1, time.perf_counter() - t2, before, after
+
+
+def phase_sweep(device, iters=13):
+    """The sweep's batched stage on 128 runs (chunks of 96: 96, then 32
+    padded to 96) and the rescue; traj/s counts the second call of solve
+    plus rescue. Fails if the rescue changed a converged run or the mean
+    marker error exceeds 0.02 m."""
+    t0 = time.perf_counter()
+    runs, truth = make_sweep_runs()
+    t_make = time.perf_counter() - t0
+    _sweep_once(runs, device, iters)  # warm-up: allocator, cuBLAS handles
+    t_solve, t_rescue, before, after = _sweep_once(runs, device, iters)
+    secs = t_solve + t_rescue
+    for rb, ra in zip(before, after):
+        if rb["converged"] and not (ra is rb or np.array_equal(ra["x"], rb["x"])):
+            raise AssertionError(f"rescue changed the converged run {rb['data_dir']}")
+    n_before = sum(r["converged"] for r in before)
+    n_after = sum(r["converged"] for r in after)
+    rescued = sum(not r["converged"] for r in before)
+    errs = [float(np.mean(np.linalg.norm(r["positions"] - pts, axis=-1)))
+            for r, pts in zip(after, truth)]
+    if not all(np.isfinite(r["positions"]).all() and r["x"].shape == (len(p), 25)
+               for r, p in zip(after, truth)):
+        raise AssertionError("non-finite or misshapen sweep results")
+    if not n_after >= n_before:
+        raise AssertionError(f"rescue lost converged runs: {n_before} -> {n_after}")
+    mk = float(np.mean(errs))
+    if not mk <= 0.02:
+        raise AssertionError(f"sweep mean marker error {mk} m exceeds 0.02 m")
+    _phase("sweep", t0, f"{len(runs)} runs (8 rigs x 16 seeds, 80-100 frames, C=6, f32, pcg, "
+           f"iters={iters}, plain_iters=5; made in {t_make:.2f} s): rescue-inclusive traj/s "
+           f"{len(runs) / secs:.2f} (solve {t_solve:.4f} s + rescue {t_rescue:.4f} s); "
+           f"converged {n_before} -> "
+           f"{n_after}/{len(runs)}; rescued {rescued}; max_grad_norm "
+           f"{max(r['grad_norm'] for r in after):.4g}; mean_marker_err_m {mk:.5f} "
+           f"(worst run {max(errs):.5f})")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device is available")
@@ -350,9 +732,11 @@ def main():
     rec = phase_kernel(device)
     rec["launches"] = phase_main(device)
     phase_golden(device)
+    probe_recs = phase_probes(device)
+    phase_sweep(device)
     phase_profile(device)
     print(f"[total] {time.perf_counter() - t_all:.2f} s", flush=True)
-    print(json.dumps({"kernels": [rec]}), flush=True)
+    print(json.dumps({"kernels": [rec] + probe_recs}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

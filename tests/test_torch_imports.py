@@ -13,6 +13,9 @@ import torch
 import acinoset_tpu_torch
 from acinoset_tpu_torch.pipeline import ekf as tekf
 from acinoset_tpu_torch.pipeline import fte as tfte
+from acinoset_tpu_torch.pipeline import sweep as tsweep
+from acinoset_tpu_torch.probes import probe_mosaic as tpm
+from acinoset_tpu_torch.probes import probe_mosaic2 as tpm2
 from acinoset_tpu_torch.solvers import trajopt as ttraj
 from acinoset_tpu_torch.utils import synthetic as tsyn
 
@@ -25,7 +28,9 @@ def test_port_and_chip_smoke_import_no_jax_nor_io_stack():
     modules = sorted(
         m.name for m in pkgutil.walk_packages(acinoset_tpu_torch.__path__, "acinoset_tpu_torch.")
     )
-    assert "acinoset_tpu_torch.kernels.banded_cuda" in modules
+    for m in ("kernels.banded_cuda", "kernels._nvcc", "kernels.probes_cuda", "probes.probe_mosaic",
+              "probes.probe_mosaic2", "pipeline.sweep"):
+        assert f"acinoset_tpu_torch.{m}" in modules
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r} + ['acinoset_tpu_torch', 'chip_smoke']:\n"
@@ -55,6 +60,12 @@ def _pixels():
     return cams[:4], px, lik
 
 
+def _sweep_runs():
+    cams, px, lik = _pixels()
+    k, d, r, t = cams
+    return [tsweep.RunData("run", px, lik, (k, d.reshape(-1, 4), r, t.reshape(-1, 3)), 90.0, 0, "")]
+
+
 ENTRY_POINTS = {
     "make_hj_parts_fn": lambda: tekf.make_hj_parts_fn(*_pixels()[0]),
     "make_h_fn": lambda: tekf.make_h_fn(*_pixels()[0]),
@@ -63,6 +74,10 @@ ENTRY_POINTS = {
                                     dlc_thresh=0.5, num_iters=1),
     "initial_trajectory_batch": lambda: tfte.initial_trajectory_batch(
         _pixels()[1][None], _pixels()[2][None], [a[None] for a in _pixels()[0]], np.arange(8), 0.5),
+    "solve_batch": lambda: tsweep.solve_batch(_sweep_runs(), 0.5, num_iters=1),
+    "time_chain": lambda: tpm2.time_chain(1, K=1),
+    **{f"probe_mosaic.{name}": t for name, t in tpm.PROBES},
+    **{f"probe_mosaic2.{name}": t for name, t in tpm2.PROBES},
 }
 
 

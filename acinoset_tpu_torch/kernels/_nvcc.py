@@ -20,15 +20,16 @@ def log_path(library: Path) -> Path:
     return library.with_suffix(".log")
 
 
-def build(source: Path, library: Path) -> Path:
-    """Compile ``source`` into ``library`` unless the library is newer
-    than the source. Raises if ``nvcc`` fails or takes over 180 s."""
+def build(source: Path, library: Path, extra_flags: tuple = ()) -> Path:
+    """Compile ``source`` into ``library`` (``NVCC_FLAGS`` plus
+    ``extra_flags``) unless the library is newer than the source. Raises
+    if ``nvcc`` fails or takes over 180 s."""
     if library.exists() and library.stat().st_mtime > source.stat().st_mtime:
         return library
     library.parent.mkdir(parents=True, exist_ok=True)
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     tmp = library.with_name(f"{library.stem}.{os.getpid()}.so")
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source)], timeout=TIMEOUT_S,
+    proc = subprocess.run([nvcc, *NVCC_FLAGS, *extra_flags, "-o", str(tmp), str(source)], timeout=TIMEOUT_S,
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {source.name} ({proc.returncode}):\n"

@@ -25,12 +25,19 @@ from ._nvcc import NVCC_FLAGS  # noqa: F401  (the flags build() compiles with)
 PP = 32  # the kernel's padded block edge: P may be at most this
 SOURCE = Path(__file__).resolve().parent / "csrc" / "banded_chol.cu"
 LIBRARY = Path(__file__).resolve().parents[1] / "_build" / "libbanded.so"
+#: the same source built with -DBANDED_PHASE_CLOCK, which also exports
+#: banded_chol_solve_clocked (clock64() stamps at the kernel's phase
+#: borders; measurement only)
+CLOCKED_LIBRARY = LIBRARY.with_name("libbanded_chol_clocked.so")
 
 _lib = None
 
 
-def build() -> Path:
-    """Compile the kernel's source into ``LIBRARY`` (``_nvcc.build``)."""
+def build(clocked: bool = False) -> Path:
+    """Compile the kernel's source into ``LIBRARY`` (``_nvcc.build``), or
+    with ``clocked`` into ``CLOCKED_LIBRARY``."""
+    if clocked:
+        return _nvcc.build(SOURCE, CLOCKED_LIBRARY, ("-DBANDED_PHASE_CLOCK",))
     return _nvcc.build(SOURCE, LIBRARY)
 
 

@@ -5,14 +5,16 @@
 
 Phases, one line each with its seconds:
   1. device  - the card's name and power limit (nvidia-smi);
-  2. build   - nvcc builds the banded-Cholesky kernel and the probe
-               kernels from the checkout, both at once, with each
-               kernel's registers and spills;
+  2. build   - nvcc builds the banded-Cholesky kernel, its phase-clocked
+               variant and the probe kernels from the checkout, all at
+               once, with each kernel's registers and spills;
   3. kernel  - the banded kernel against its plain PyTorch version at
                the flagship shape (B=96, N=100, P=25) on a
                well-conditioned and an FTE-like ill-conditioned batch,
-               with its time, the plain version's, a dense
-               torch.linalg.solve yardstick's and the bound the card sets;
+               with its time (CUDA events and torch.profiler), the plain
+               version's, a dense torch.linalg.solve yardstick's, the
+               bound the card sets, and where a solve's time goes inside
+               the kernel (phase_split);
   4. main    - the batched flagship FTE solve (B=96, N=100, C=6, L=20,
                float32, 13 GN iterations, linear_solver='pallas') on
                bench.py's synthetic input, counting kernel launches;
@@ -178,7 +180,7 @@ def _ptxas_summary(log):
 
 
 def phase_build():
-    """Build both libraries at once (one nvcc each, started together)."""
+    """Build the three libraries at once (one nvcc each, started together)."""
     from acinoset_tpu_torch.kernels import _nvcc, banded_cuda, probes_cuda
 
     t0 = time.perf_counter()
@@ -187,15 +189,16 @@ def phase_build():
         t1 = time.perf_counter()
         return build(), time.perf_counter() - t1
 
-    with ThreadPoolExecutor(2) as pool:
-        futures = [pool.submit(timed, m.build) for m in (banded_cuda, probes_cuda)]
+    with ThreadPoolExecutor(3) as pool:
+        futures = [pool.submit(timed, f) for f in (banded_cuda.build, probes_cuda.build,
+                                                   lambda: banded_cuda.build(clocked=True))]
         built = [f.result() for f in futures]
     for path, secs in built:
         log = _nvcc.log_path(path).read_text()
         spills = re.findall(r"(\d+) bytes spill stores", log)
         print(f"[build] {os.path.relpath(path, ROOT)} built in {secs:.2f} s; spill stores "
               f"{sum(int(v) for v in spills)} bytes; {_ptxas_summary(log)}", flush=True)
-    _phase("build", t0, "both libraries")
+    _phase("build", t0, "all libraries")
 
 
 def phase_kernel(device, B=96, N=100, P=25):
@@ -205,6 +208,7 @@ def phase_kernel(device, B=96, N=100, P=25):
     plain version run in f32, |A x - g| <= 2 |A x_plain32 - g| + 1e-4 |g|
     per system, as tests/test_pallas_kernels.py holds the TPU kernel (both
     err ~ kappa eps_f32 there)."""
+    from acinoset_tpu_torch.kernels import banded_cuda
     from acinoset_tpu_torch.kernels.banded_cuda import banded_solve
     from acinoset_tpu_torch.solvers.banded import banded_matvec, block_banded_solve_unrolled
 
@@ -242,6 +246,7 @@ def phase_kernel(device, B=96, N=100, P=25):
             rhs = g32.reshape(B, N * P, 1)
             library_ms = _cuda_ms(lambda: torch.linalg.solve(A, rhs), reps=2)
             del A
+    device_ms = kernel_device_ms(lambda: banded_solve(b32, g32), "banded_chol_kernel")
     bound_ms, bound_by = banded_bound_ms(B, N, P)
     rec = dict(
         name="banded_chol", route="cuda",
@@ -254,9 +259,99 @@ def phase_kernel(device, B=96, N=100, P=25):
     _phase("kernel", t0, f"B={B} N={N} P={P}: well max_abs_err {out['well']['max_abs_err']:.3g} "
            f"rel_res {out['well']['rel_residual']:.3g}; fte max_abs_err "
            f"{out['fte']['max_abs_err']:.3g} (rel {out['fte']['rel_err']:.3g}) rel_res {out['fte']['rel_residual']:.3g}; "
-           f"kernel_ms {kernel_ms:.4f} plain_ms {plain_ms:.2f} library_ms {library_ms:.2f} "
-           f"bound_ms {bound_ms:.4f} ({bound_by})")
+           f"kernel_ms {kernel_ms:.4f} (device {device_ms:.4f}) plain_ms {plain_ms:.2f} "
+           f"library_ms {library_ms:.2f} bound_ms {bound_ms:.4f} ({bound_by})")
+    phase_split(device, banded_cuda.build(clocked=True), bands_np, g_np)
     return rec
+
+
+def _ms_per_launch(events, tag):
+    """Mean device ms per launch of the kernels whose name holds `tag`,
+    from torch.profiler's key_averages(); nan if none ran."""
+    hits = [e for e in events if tag in e.key and e.self_device_time_total > 0]
+    n = sum(e.count for e in hits)
+    return sum(e.self_device_time_total for e in hits) / 1e3 / n if n else float("nan")
+
+
+def kernel_device_ms(launch, name, reps=10):
+    """The __global__ function `name`'s own device time per launch, ms
+    (torch.profiler), over `reps` calls of `launch` after one warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    launch()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            launch()
+        torch.cuda.synchronize()
+    return _ms_per_launch(prof.key_averages(), f"::{name}(")
+
+
+#: the phases between a frame's clock stamps in the banded kernel, and
+#: the stamps per frame (banded_chol.cu, banded_chol_solve_clocked)
+SPLIT_PHASES = ("loads", "products", "factor", "forward")
+SPLIT_SLOTS = 16
+
+
+def phase_split(device, library, bands_np, g_np, skip=3):
+    """Measurement only: where one solve's time goes inside the banded
+    kernel. Runs the phase-clocked library (banded_cuda.build(clocked=True))
+    on the given float64 systems (in float32) and reads block 0's clock64()
+    stamps: microseconds per frame in each phase (from the frame's start
+    past its first barrier; the products up to S, and each of their six
+    phases; the Cholesky factor and its inverse; the factor's write-back
+    and the forward substitution, up to the next frame's start), averaged
+    over the frames past the first and last `skip`; then the frame loop,
+    the backward substitution and the whole kernel; and the spread of the
+    blocks' own spans (global timer), first start to last end. The clock
+    rate comes from the global timer read beside block 0's first and last
+    stamp."""
+    import ctypes
+
+    B, N, P = g_np.shape
+    lib = ctypes.CDLL(str(library))
+    f = lib.banded_chol_solve_clocked
+    f.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+    f.restype = ctypes.c_int
+    b32 = [torch.as_tensor(a, dtype=torch.float32, device=device).contiguous() for a in bands_np]
+    g32 = torch.as_tensor(g_np, dtype=torch.float32, device=device).contiguous()
+    x = torch.empty_like(g32)
+    fac = torch.empty((B, N, 4, 32, 32), dtype=torch.float32, device=device)
+    S = SPLIT_SLOTS
+    clk = torch.zeros(N * S + 8 + 2 * B, dtype=torch.int64, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    for _ in range(2):  # the first launch warms the caches
+        err = f(*(ctypes.c_void_p(t.data_ptr()) for t in (*b32, g32, x, fac)), B, N, P,
+                ctypes.c_void_p(stream), ctypes.c_void_p(clk.data_ptr()))
+        if err != 0:
+            raise RuntimeError(f"banded_chol_solve_clocked failed to launch: CUDA error {err}")
+    torch.cuda.synchronize()
+    c = clk.cpu().numpy().astype(np.float64)
+    ghz = (c[N * S + 2] - c[N * S]) / (c[N * S + 3] - c[N * S + 1])
+    fr = c[:N * S].reshape(N, S)
+    ends = np.concatenate([fr[1:, 0], [c[N * S + 4]]])  # a frame ends where the next starts
+    marks = np.stack([fr[:, 0], fr[:, 1], fr[:, 7], fr[:, 8], ends], axis=1)
+    sel = slice(skip, N - skip) if N > 2 * skip else slice(None)
+    per = np.diff(marks, axis=1)[sel] / ghz / 1e3  # (frames, 4) us
+    split = {name: float(per[:, i].mean()) for i, name in enumerate(SPLIT_PHASES)}
+    split["frame"] = float(per.sum(axis=1).mean())
+    split["product_phases"] = [float(v) for v in (np.diff(fr[sel, 1:8], axis=1) / ghz / 1e3).mean(0)]
+    us = lambda cycles: float(cycles / ghz / 1e3)  # noqa: E731
+    split.update(loop=us(c[N * S + 4] - c[N * S]), backward=us(c[N * S + 2] - c[N * S + 4]),
+                 kernel=us(c[N * S + 2] - c[N * S]))
+    spans = c[N * S + 8:].reshape(B, 2)
+    split.update(block_min=float((spans[:, 1] - spans[:, 0]).min() / 1e3),
+                 block_max=float((spans[:, 1] - spans[:, 0]).max() / 1e3),
+                 blocks=float((spans[:, 1].max() - spans[:, 0].min()) / 1e3))
+    sub = ", ".join(f"{v:.3f}" for v in split["product_phases"])
+    print(f"[kernel] phase split ({os.path.basename(str(library))}, block 0, clock {ghz:.3f} GHz), "
+          f"us per frame: loads {split['loads']:.3f}, products {split['products']:.3f} ({sub}), "
+          f"factor and inverse {split['factor']:.3f}, forward {split['forward']:.3f}; frame "
+          f"{split['frame']:.3f}; frame loop {split['loop']:.1f} us, backward "
+          f"{split['backward']:.1f} us, kernel {split['kernel']:.1f} us; blocks' spans "
+          f"{split['block_min']:.1f}-{split['block_max']:.1f} us, first start to last end "
+          f"{split['blocks']:.1f} us", flush=True)
+    return split
 
 
 def _main_inputs(device, B, N, C, iters, solver):
@@ -563,14 +658,8 @@ def probe_device_ms(cases, args_by_name):
             for _ in range(3 if name.startswith("chain") else 50):
                 pk.KERNELS[name](*args)
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    out = {}
-    for name in args_by_name:
-        tag = f"::{cases[name]['kernel']}("
-        hits = [e for e in events if tag in e.key]
-        out[name] = (sum(e.self_device_time_total for e in hits) / 1e3
-                     / max(sum(e.count for e in hits), 1)) if hits else float("nan")
-    return out
+    events = prof.key_averages()
+    return {name: _ms_per_launch(events, f"::{cases[name]['kernel']}(") for name in args_by_name}
 
 
 def phase_probes(device):

@@ -176,3 +176,108 @@ def test_kernel_build_command_targets_hopper_without_torch_headers():
     assert 'extern "C" int banded_chol_solve' in src
     assert "torch/" not in src and "cutlass" not in src.lower()
     assert banded_cuda.LIBRARY.parent.name == "_build"
+
+
+def test_phase_clocked_build_adds_its_flag_and_its_own_library(tmp_path, monkeypatch):
+    """banded_cuda.build(clocked=True) compiles the kernel's source with
+    -DBANDED_PHASE_CLOCK into a library of its own beside libbanded.so;
+    the build helper puts the extra flags after NVCC_FLAGS and keeps the
+    compiler's log beside the library."""
+    import subprocess
+    from pathlib import Path
+
+    from acinoset_tpu_torch.kernels import _nvcc
+
+    calls = []
+
+    def fake_run(cmd, **kwargs):
+        calls.append(cmd)
+        Path(cmd[cmd.index("-o") + 1]).write_bytes(b"")
+        return subprocess.CompletedProcess(cmd, 0, stdout="ptxas info    : Used 128 registers",
+                                           stderr="")
+
+    assert banded_cuda.CLOCKED_LIBRARY.parent == banded_cuda.LIBRARY.parent
+    monkeypatch.setattr(_nvcc.subprocess, "run", fake_run)
+    monkeypatch.setattr(banded_cuda, "CLOCKED_LIBRARY",
+                        tmp_path / "_build" / "libbanded_chol_clocked.so")
+    lib = banded_cuda.build(clocked=True)
+    assert lib == banded_cuda.CLOCKED_LIBRARY and lib.exists()
+    (cmd,) = calls
+    assert cmd[1:1 + len(_nvcc.NVCC_FLAGS)] == _nvcc.NVCC_FLAGS
+    assert "-DBANDED_PHASE_CLOCK" in cmd and cmd[-1] == str(banded_cuda.SOURCE)
+    assert _nvcc.log_path(lib).read_text() == "ptxas info    : Used 128 registers"
+    assert banded_cuda.build(clocked=True) == lib and len(calls) == 1  # newer than its source
+
+
+def _fmaf(a, b, c):
+    """fmaf in float32: float64 holds the product of two float32 exactly,
+    and the sum is rounded to float32 (after a float64 rounding: the same
+    result except on rare double-rounding ties)."""
+    return np.float32(np.float64(a) * np.float64(b) + np.float64(c))
+
+
+def _kernel_order_p1(A, g):
+    """One system at P = 1 in float32, in the CUDA kernel's order of
+    operations (kernels/csrc/banded_chol.cu): L3, then A2, A1, S -= L3
+    [L1_{n-2} | L2_{n-1} | L3], L2, A1, S -= L2 [L1_{n-1} | L2], L1, S -=
+    L1 L1, each an fmaf; the pivot's reciprocal square root of max(S,
+    1e-30), correctly rounded here (the kernel's rsqrt.approx is within a
+    few ulp of it); the forward and backward substitutions' fmaf and
+    left-to-right subtractions. A = [A0..A3] each (N,), g (N,)."""
+    f32 = np.float32
+    A0, A1, A2, A3 = (a.astype(f32) for a in A)
+    N = len(g)
+    zero, one = f32(0), f32(1)
+    ring = {-3: (one, zero, zero), -2: (one, zero, zero), -1: (one, zero, zero)}  # Li, L1, L2
+    fac, y = {}, {-3: zero, -2: zero, -1: zero}
+    for n in range(N):
+        li3 = ring[n - 3][0]
+        li2, l1_2, _ = ring[n - 2]
+        li1, l1_1, l2_1 = ring[n - 1]
+        l3 = _fmaf(A3[n], li3, zero)
+        a2, a1, s = _fmaf(-l3, l1_2, A2[n]), _fmaf(-l3, l2_1, A1[n]), _fmaf(-l3, l3, A0[n])
+        l2 = _fmaf(a2, li2, zero)
+        a1, s = _fmaf(-l2, l1_1, a1), _fmaf(-l2, l2, s)
+        l1 = _fmaf(a1, li1, zero)
+        s = _fmaf(-l1, l1, s)
+        li = f32(1.0 / np.sqrt(np.float64(max(s, f32(1e-30)))))
+        ring[n] = (li, l1, l2)
+        fac[n] = (li, l1, l2, l3)
+        t1, t2, t3 = (_fmaf(l, y[n - q], zero) for q, l in ((1, l1), (2, l2), (3, l3)))
+        y[n] = _fmaf(li, f32(f32(f32(f32(g[n]) - t1) - t2) - t3), zero)
+    x = {}
+    for n in range(N - 1, -1, -1):
+        t = [_fmaf(fac[n + q][q], x[n + q], zero) if n + q < N else zero for q in (1, 2, 3)]
+        x[n] = _fmaf(fac[n][0], f32(f32(f32(y[n] - t[0]) - t[1]) - t[2]), zero)
+    return np.array([x[n] for n in range(N)], np.float64)
+
+
+def test_kernel_order_in_float32_meets_the_edge_shape_rule_at_p1_n4():
+    """Why tests/test_torch_kernel_cuda.py holds the FTE-like edge shapes
+    to normwise backward error and not to the flagship batch's residual
+    rule. On the same three systems (P = 1, N = 4, kappa ~ 4e5) the
+    kernel's order of operations, emulated in float32, leaves a residual
+    above 2 |A x_plain32 - g| + 1e-4 |g| on at least one system, while
+    its backward error |A x - g| / (|A| |x| + |g|) stays within twice the
+    plain float32 version's plus 2^-22, and both are below float32's unit
+    roundoff: correct rounding in another order, not a fault."""
+    from chip_smoke import dense_from_bands
+
+    bands, g = make_banded_batch(np.random.default_rng(100 * 1 + 4), 3, 4, 1, "fte")
+    b64 = [torch.tensor(b) for b in bands]
+    g64 = torch.tensor(g)
+    x_emu = torch.tensor(np.stack([_kernel_order_p1([b[i, :, 0, 0] for b in bands], g[i, :, 0])
+                                   for i in range(3)]))[..., None]
+    x_p32 = tbanded.block_banded_solve_unrolled([b.float() for b in b64], g64.float()).double()
+    gn = torch.linalg.vector_norm(g64, dim=(1, 2))
+    a_norm = torch.linalg.matrix_norm(dense_from_bands(b64), ord=2)
+
+    def res(x):
+        return torch.linalg.vector_norm(tbanded.banded_matvec(b64, x) - g64, dim=(1, 2))
+
+    def eta(x):
+        return res(x) / (a_norm * torch.linalg.vector_norm(x, dim=(1, 2)) + gn)
+
+    assert bool(torch.any(res(x_emu) > 2.0 * res(x_p32) + 1e-4 * gn))
+    assert bool(torch.all(eta(x_emu) <= 2.0 * eta(x_p32) + 2.0**-22))
+    assert bool(torch.all(torch.maximum(eta(x_emu), eta(x_p32)) < 2.0**-24))

@@ -28,7 +28,9 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 
+#include <atomic>
 #include <cstdint>
+#include <mutex>
 
 namespace {
 
@@ -173,27 +175,64 @@ __global__ void dma_ring_kernel(const float* __restrict__ x, float* __restrict__
   }
 }
 
+// ---- rows 5 and 9: the prefix sum over the leading axis, each column of a
+// row an independent chain s[n] = a[n] + s[n-1]. A thread owns one column
+// (one float4 where the rows allow it), so the chain's adds run in
+// registers and shared memory with no barrier: each thread reads back only
+// what it wrote. Bound by launch and one pass through device memory.
+__device__ __forceinline__ float add(float a, float b) { return a + b; }
+__device__ __forceinline__ float4 add(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+template <typename V>
+__device__ __forceinline__ V zero();
+template <>
+__device__ __forceinline__ float zero<float>() { return 0.f; }
+template <>
+__device__ __forceinline__ float4 zero<float4>() { return make_float4(0.f, 0.f, 0.f, 0.f); }
+
 // ---- row 5: probe_mosaic.k5, o[n] = a[n] + o[n-1] through a 3-slot ring
 // indexed by n % 3 in a device loop (the slot read is (n + 2) % 3, the one
-// written the step before). The columns of a row are independent, so the
-// row is split over CTAs of 256 threads, each with its own ring.
-constexpr int RING_THREADS = 256;
+// written the step before). Columns are float4 when a row is a multiple of
+// 4 floats (then every row starts 16-byte aligned), else single floats: one
+// kernel, two instantiations of its body. A thread issues the loads of
+// RING_AHEAD rows before the dependent chain that consumes them, so it waits
+// on device memory once per RING_AHEAD rows, not once per row. At the
+// probe's shape (6 rows of 512 floats) that is one CTA of 128 threads.
+constexpr int RING_THREADS = 128;
+constexpr int RING_AHEAD = 8;
+
+template <typename V>
+__device__ __forceinline__ void ring_prefix(const V* __restrict__ a, V* __restrict__ o, int N,
+                                            int cols) {
+  __shared__ V ring[3][RING_THREADS];
+  const int t = threadIdx.x;
+  const int c = blockIdx.x * RING_THREADS + t;
+  if (c >= cols) return;
+  ring[2][t] = zero<V>();  // the slot read at n = 0
+  for (int n0 = 0; n0 < N; n0 += RING_AHEAD) {
+    V v[RING_AHEAD];
+#pragma unroll
+    for (int j = 0; j < RING_AHEAD; ++j)
+      if (n0 + j < N) v[j] = a[(size_t)(n0 + j) * cols + c];
+#pragma unroll
+    for (int j = 0; j < RING_AHEAD; ++j) {
+      const int n = n0 + j;
+      if (n < N) {
+        const V s = add(v[j], ring[(n + 2) % 3][t]);
+        ring[n % 3][t] = s;
+        o[(size_t)n * cols + c] = s;
+      }
+    }
+  }
+}
 
 __global__ void ring_prefix_kernel(const float* __restrict__ a, float* __restrict__ o, int N,
-                                   int row) {
-  __shared__ float ring[3][RING_THREADS];
-  const int t = threadIdx.x;
-  const int m = blockIdx.x * RING_THREADS + t;
-  ring[0][t] = 0.f;
-  ring[1][t] = 0.f;
-  ring[2][t] = 0.f;
-  if (m >= row) return;
-  // each thread reads back only the ring entries it wrote: no barrier needed
-  for (int n = 0; n < N; ++n) {
-    const float prev = ring[(n + 2) % 3][t];
-    ring[n % 3][t] = a[(size_t)n * row + m] + prev;
-    o[(size_t)n * row + m] = ring[n % 3][t];
-  }
+                                   int cols, int vec) {
+  if (vec)
+    ring_prefix(reinterpret_cast<const float4*>(a), reinterpret_cast<float4*>(o), N, cols);
+  else
+    ring_prefix(a, o, N, cols);
 }
 
 // ---- row 6: probe_mosaic.k6, o[n] = 3 x[n], each row staged in a shared
@@ -235,19 +274,36 @@ __global__ void transpose_kernel(const float* __restrict__ a, float* __restrict_
   o[off + threadIdx.y * T + threadIdx.x] = t[threadIdx.x][threadIdx.y];
 }
 
-// ---- row 9: probe_mosaic2.k1, the whole (N, TB, 32, 32) scratch in dynamic
-// shared memory (80 KB at N = 5, TB = 4: the launcher raises the 48 KB
-// default) indexed by the loop's n: s[n] = a[n] + s[n-1], o[n] = s[n].
-__global__ void dyn4d_kernel(const float* __restrict__ a, float* __restrict__ o, int N,
-                             int row) {
-  extern __shared__ __align__(128) float s[];  // N * row floats
+// ---- row 9: probe_mosaic2.k1, the (N, TB, 32, 32) scratch in dynamic shared
+// memory indexed by the loop's n: s[n] = a[n] + s[n-1], o[n] = s[n]. The
+// columns are spread over CTAs of DYN4D_THREADS threads, one float4 column a
+// thread, and each CTA keeps its slab of the N-deep scratch
+// (N x DYN4D_THREADS float4) in shared memory. A thread first issues its N
+// 16-byte cp.async copies into the slab (none depends on another), waits for
+// its own, then runs the scan through the slab. At the probe's shape (N = 5,
+// TB = 4) that is 8 CTAs with a 10 KB slab each, under the 48 KB default, so
+// no attribute call; the launcher refuses a slab over 227 KB (N > 113),
+// whatever TB is, where the whole scratch in one CTA was refused over
+// 227 KB (N * TB > 56).
+constexpr int DYN4D_THREADS = 128;
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__global__ void dyn4d_kernel(const float4* __restrict__ a, float4* __restrict__ o, int N,
+                             int cols) {
+  extern __shared__ __align__(128) float4 slab[];  // [N][DYN4D_THREADS]
+  const int c = blockIdx.x * DYN4D_THREADS + threadIdx.x;
+  if (c >= cols) return;
+  float4* s = slab + threadIdx.x;
+  for (int n = 0; n < N; ++n) cp_async16(s + n * DYN4D_THREADS, a + (size_t)n * cols + c);
+  asm volatile("cp.async.commit_group;\n\tcp.async.wait_group 0;" ::: "memory");
   for (int n = 0; n < N; ++n) {
-    for (int t = threadIdx.x; t < row; t += blockDim.x) {
-      const float prev = n >= 1 ? s[(size_t)(n - 1) * row + t] : 0.f;
-      s[(size_t)n * row + t] = a[(size_t)n * row + t] + prev;
-      o[(size_t)n * row + t] = s[(size_t)n * row + t];
-    }
-    __syncthreads();
+    const float4 prev = n >= 1 ? s[(n - 1) * DYN4D_THREADS] : zero<float4>();
+    s[n * DYN4D_THREADS] = add(s[n * DYN4D_THREADS], prev);
+    o[(size_t)n * cols + c] = s[n * DYN4D_THREADS];
   }
 }
 
@@ -370,11 +426,37 @@ __global__ void chain_tf32_kernel(const float* __restrict__ a, float* __restrict
 
 int launched() { return (int)cudaGetLastError(); }
 
-int smem_limit(const void* kernel, size_t bytes) {
+// The dynamic shared-memory limit of one kernel, per device ordinal: the
+// size last set there by cudaFuncSetAttribute, 0 before the first.
+constexpr int MAX_DEVICES = 64;
+constexpr size_t DEFAULT_SMEM = 48 * 1024;  // what a kernel may take without the attribute
+using SmemLimits = std::atomic<int>[MAX_DEVICES];
+std::mutex smem_mutex;  // orders the sets, so that a limit only rises
+
+// Refuse more than a block may have; otherwise raise `kernel`'s limit on the
+// current device only when `bytes` exceeds both the default and the size
+// last set there: cudaFuncSetAttribute costs host time on every call, and a
+// repeated launch of the same size makes none. (The limit cannot simply be
+// set to MAX_SMEM once: a kernel's static shared memory counts against it.)
+int smem_limit(const void* kernel, size_t bytes, SmemLimits& set) {
   if (bytes > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)bytes);
+  if (bytes <= DEFAULT_SMEM) return 0;
+  int dev = 0;
+  const int err = (int)cudaGetDevice(&dev);
+  if (err) return err;
+  if (dev >= MAX_DEVICES)
+    return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     (int)bytes);
+  if ((int)bytes <= set[dev].load(std::memory_order_acquire)) return 0;
+  std::lock_guard<std::mutex> lock(smem_mutex);
+  if ((int)bytes <= set[dev].load(std::memory_order_relaxed)) return 0;
+  const int set_err = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (!set_err) set[dev].store((int)bytes, std::memory_order_release);
+  return set_err;
 }
+
+SmemLimits dma_ring_smem, dma_out_smem, dyn4d_smem, chain_fp32_smem, chain_tf32_smem;
 
 }  // namespace
 
@@ -413,7 +495,7 @@ extern "C" int probe_scale_cols(const float* a, float* o, int B, void* stream) {
 extern "C" int probe_dma_ring(const float* x, float* o, int N, int row, void* stream) {
   if (N <= 0 || row <= 0 || row % 4 != 0) return (int)cudaErrorInvalidValue;
   const size_t smem = 2 * (size_t)row * sizeof(float);
-  const int err = smem_limit((const void*)dma_ring_kernel, smem);
+  const int err = smem_limit((const void*)dma_ring_kernel, smem, dma_ring_smem);
   if (err) return err;
   dma_ring_kernel<<<1, row < 1024 ? row : 1024, smem, (cudaStream_t)stream>>>(x, o, N, row);
   return launched();
@@ -421,15 +503,18 @@ extern "C" int probe_dma_ring(const float* x, float* o, int N, int row, void* st
 
 extern "C" int probe_ring_prefix(const float* a, float* o, int N, int row, void* stream) {
   if (N <= 0 || row <= 0) return (int)cudaErrorInvalidValue;
-  ring_prefix_kernel<<<(row + RING_THREADS - 1) / RING_THREADS, RING_THREADS, 0,
-                       (cudaStream_t)stream>>>(a, o, N, row);
+  const uintptr_t ends = reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(o);
+  const int vec = row % 4 == 0 && ends % 16 == 0;
+  const int cols = vec ? row / 4 : row;
+  ring_prefix_kernel<<<(cols + RING_THREADS - 1) / RING_THREADS, RING_THREADS, 0,
+                       (cudaStream_t)stream>>>(a, o, N, cols, vec);
   return launched();
 }
 
 extern "C" int probe_dma_out(const float* x, float* o, int N, int row, void* stream) {
   if (N <= 0 || row <= 0 || row % 4 != 0) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)row * sizeof(float);
-  const int err = smem_limit((const void*)dma_out_kernel, smem);
+  const int err = smem_limit((const void*)dma_out_kernel, smem, dma_out_smem);
   if (err) return err;
   dma_out_kernel<<<1, row < 1024 ? row : 1024, smem, (cudaStream_t)stream>>>(x, o, N, row);
   return launched();
@@ -442,11 +527,14 @@ extern "C" int probe_transpose(const float* a, float* o, int B, void* stream) {
 }
 
 extern "C" int probe_dyn4d(const float* a, float* o, int N, int row, void* stream) {
-  if (N <= 0 || row <= 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)N * row * sizeof(float);
-  const int err = smem_limit((const void*)dyn4d_kernel, smem);
+  if (N <= 0 || row <= 0 || row % 4 != 0) return (int)cudaErrorInvalidValue;
+  const int cols = row / 4;
+  const size_t smem = (size_t)N * DYN4D_THREADS * sizeof(float4);
+  const int err = smem_limit((const void*)dyn4d_kernel, smem, dyn4d_smem);
   if (err) return err;
-  dyn4d_kernel<<<1, 1024, smem, (cudaStream_t)stream>>>(a, o, N, row);
+  dyn4d_kernel<<<(cols + DYN4D_THREADS - 1) / DYN4D_THREADS, DYN4D_THREADS, smem,
+                 (cudaStream_t)stream>>>(reinterpret_cast<const float4*>(a),
+                                         reinterpret_cast<float4*>(o), N, cols);
   return launched();
 }
 
@@ -465,7 +553,7 @@ extern "C" int probe_matvec_t(const float* a, const float* x, float* y, int B, v
 extern "C" int probe_chain_fp32(const float* a, float* o, int TB, int K, void* stream) {
   if (TB <= 0 || TB > 8 || K < 0) return (int)cudaErrorInvalidValue;
   const size_t smem = 3 * (size_t)TB * T * LDS * sizeof(float);
-  const int err = smem_limit((const void*)chain_fp32_kernel, smem);
+  const int err = smem_limit((const void*)chain_fp32_kernel, smem, chain_fp32_smem);
   if (err) return err;
   chain_fp32_kernel<<<1, dim3(T, T), smem, (cudaStream_t)stream>>>(a, o, TB, K);
   return launched();
@@ -474,7 +562,7 @@ extern "C" int probe_chain_fp32(const float* a, float* o, int TB, int K, void* s
 extern "C" int probe_chain_tf32(const float* a, float* o, int TB, int K, void* stream) {
   if (TB <= 0 || TB > 8 || K < 0) return (int)cudaErrorInvalidValue;
   const size_t smem = 3 * (size_t)TB * TILE * sizeof(float);
-  const int err = smem_limit((const void*)chain_tf32_kernel, smem);
+  const int err = smem_limit((const void*)chain_tf32_kernel, smem, chain_tf32_smem);
   if (err) return err;
   chain_tf32_kernel<<<1, 128 * TB, smem, (cudaStream_t)stream>>>(a, o, TB, K);
   return launched();

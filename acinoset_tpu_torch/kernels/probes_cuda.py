@@ -24,6 +24,7 @@ from ..probes import probe_mosaic2 as _pm2
 from . import _nvcc
 
 T = 32  # tile edge of every probe
+TILE = (T, T)
 MAX_CHAIN_TILES = 8
 SOURCE = Path(__file__).resolve().parent / "csrc" / "probes.cu"
 LIBRARY = Path(__file__).resolve().parents[1] / "_build" / "libprobes.so"
@@ -47,7 +48,10 @@ _SIGNATURES = {
     "probe_chain_tf32": (2, 2),
 }
 
-_lib = None
+_F32 = torch.float32
+# bound when the library loads: launcher name -> its ctypes function, and
+# torch's getters of the current CUDA device and its current raw stream
+_lib = _fns = _current_device = _raw_stream = None
 
 
 def build() -> Path:
@@ -56,109 +60,138 @@ def build() -> Path:
 
 
 def _library():
-    global _lib
+    global _lib, _fns, _current_device, _raw_stream
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+        # PyDLL keeps the GIL through the call: a launcher enqueues one
+        # kernel and calls no Python, so it has no use for releasing and
+        # retaking the lock on every launch
+        lib = ctypes.PyDLL(str(build()))
+        fns = {}
         for name, (n_ptr, n_int) in _SIGNATURES.items():
-            fn = getattr(lib, name)
+            fn = fns[name] = getattr(lib, name)
             fn.argtypes = [_P] * n_ptr + [_I] * n_int + [_P]
             fn.restype = ctypes.c_int
-        _lib = lib
+        _current_device = torch._C._cuda_getDevice
+        _raw_stream = torch._C._cuda_getCurrentRawStream
+        _lib, _fns = lib, fns
     return _lib
 
 
-def _shape(name, t, shape):
-    """Raise unless ``t`` has ``shape`` (None matches any extent)."""
-    if t.dim() != len(shape) or any(s is not None and s != d for s, d in zip(shape, t.shape)):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+def _shape(name, t, ndim, tail):
+    """Raise unless ``t`` has ``ndim`` axes, the last of them ``tail``."""
+    dims = t.shape
+    if len(dims) != ndim or dims[ndim - len(tail):] != tail:
+        raise ValueError(f"{name} has shape {tuple(dims)}, expected {ndim} axes ending in {tail}")
 
 
 def _on_cpu(*ts) -> bool:
-    return all(t.device.type == "cpu" for t in ts)
-
-
-def _check_cuda(*ts):
-    dev = ts[0].device
     for t in ts:
-        if t.device != dev or t.device.type != "cuda":
-            raise ValueError(f"operand on {t.device}; all operands must be on one CUDA device")
-        if t.dtype != torch.float32:
+        if not t.is_cpu:
+            return False
+    return True
+
+
+def _check_cuda(*ts) -> int:
+    """Raise unless every operand is a contiguous, 16-byte aligned float32
+    tensor on one CUDA device; return that device's index. The device is
+    checked last, so that every other refusal shows on a tensor that is
+    on no device (``device="meta"``) as well."""
+    dev = ts[0].get_device()
+    for t in ts:
+        if t.dtype is not _F32:
             raise TypeError(f"operand is {t.dtype}; the CUDA kernels take float32")
         if not t.is_contiguous():
             raise ValueError("operand is not contiguous")
         if t.data_ptr() % 16:
             raise ValueError("operand is not 16-byte aligned")
+        if not t.is_cuda or t.get_device() != dev:
+            raise ValueError(f"operand on {t.device}; all operands must be on one CUDA device")
+    return dev
 
 
-def _launch(name, tensors, ints):
-    """Launch ``name`` on the current stream of the tensors' device."""
-    lib = _library()
-    dev = tensors[0].device
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, name)(*(_P(t.data_ptr()) for t in tensors), *ints, _P(stream))
-    if err != 0:
+def _launch(name, dev, *args):
+    """Call launcher ``name`` with ``args`` (pointers as integers, then the
+    sizes) and the raw handle of CUDA device ``dev``'s current stream. The
+    device guard is entered only when ``dev`` is not the current device."""
+    if _fns is None:
+        _library()
+    fn = _fns[name]
+    if dev == _current_device():
+        err = fn(*args, _raw_stream(dev))
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args, _raw_stream(dev))
+    if err:
         raise RuntimeError(f"{name} failed to launch: CUDA error {err}")
 
 
 def batched_dot(a, b):
     """Row 1: (B, 32, 32) @ (B, 32, 32) in FP32 (HIGHEST)."""
-    _shape("a", a, (None, T, T))
-    _shape("b", b, tuple(a.shape))
+    _shape("a", a, 3, TILE)
+    _shape("b", b, 3, tuple(a.shape))
     if _on_cpu(a, b):
         return _pm.batched_dot_plain(a, b)
-    _check_cuda(a, b)
+    dev = _check_cuda(a, b)
     o = torch.empty_like(a)
     if a.shape[0]:
-        _launch("probe_batched_dot", (a, b, o), (a.shape[0],))
+        _launch("probe_batched_dot", dev, a.data_ptr(), b.data_ptr(), o.data_ptr(), a.shape[0])
         batched_dot.launches += 1
+    return o
+
+
+def _tile_vec(launcher, plain, wrapper, a, v):
+    """Rows 2, 7 and 11: a (B, 32, 32) and v (B, 32) in, y (B, 32) out."""
+    _shape("a", a, 3, TILE)
+    _shape("v", v, 2, (a.shape[0], T))
+    if _on_cpu(a, v):
+        return plain(a, v)
+    dev = _check_cuda(a, v)
+    y = torch.empty_like(v)
+    if a.shape[0]:
+        _launch(launcher, dev, a.data_ptr(), v.data_ptr(), y.data_ptr(), a.shape[0])
+        wrapper.launches += 1
+    return y
+
+
+def _tile_map(launcher, plain, wrapper, a):
+    """Rows 3 and 8: a (B, 32, 32) in, o of its shape out."""
+    _shape("a", a, 3, TILE)
+    if a.is_cpu:
+        return plain(a)
+    dev = _check_cuda(a)
+    o = torch.empty_like(a)
+    if a.shape[0]:
+        _launch(launcher, dev, a.data_ptr(), o.data_ptr(), a.shape[0])
+        wrapper.launches += 1
     return o
 
 
 def bcast_mul_lane_reduce(a, v):
     """Row 2: sum(a * v[:, None, :], -1), a (B, 32, 32), v (B, 32)."""
-    _shape("a", a, (None, T, T))
-    _shape("v", v, (a.shape[0], T))
-    if _on_cpu(a, v):
-        return _pm.bcast_mul_lane_reduce_plain(a, v)
-    _check_cuda(a, v)
-    y = torch.empty_like(v)
-    if a.shape[0]:
-        _launch("probe_lane_reduce", (a, v, y), (a.shape[0],))
-        bcast_mul_lane_reduce.launches += 1
-    return y
+    return _tile_vec("probe_lane_reduce", _pm.bcast_mul_lane_reduce_plain,
+                     bcast_mul_lane_reduce, a, v)
 
 
 def value_at_set_static(a):
     """Row 3: columns 0..3 of every (32, 32) tile of a (B, 32, 32) times 2."""
-    _shape("a", a, (None, T, T))
-    if _on_cpu(a):
-        return _pm.value_at_set_static_plain(a)
-    _check_cuda(a)
-    o = torch.empty_like(a)
-    if a.shape[0]:
-        _launch("probe_scale_cols", (a, o), (a.shape[0],))
-        value_at_set_static.launches += 1
-    return o
-
-
-def _rows(name, x):
-    """(N, ...) -> (N, floats per row), for the ring and recurrence probes."""
-    if x.dim() < 2:
-        raise ValueError(f"{name} must have a leading row axis, got shape {tuple(x.shape)}")
-    return x.shape[0], x[0].numel()
+    return _tile_map("probe_scale_cols", _pm.value_at_set_static_plain, value_at_set_static, a)
 
 
 def _row_kernel(launcher, plain, wrapper, x, bulk=False):
-    N, row = _rows("x", x)
-    if _on_cpu(x):
+    """The ring and recurrence rows: x (N, ...) taken as N rows of
+    ``row`` floats, o of its shape out."""
+    if x.dim() < 2:
+        raise ValueError(f"x must have a leading row axis, got shape {tuple(x.shape)}")
+    if x.is_cpu:
         return plain(x)
-    _check_cuda(x)
+    N = x.shape[0]
+    row = x.numel() // N if N else 0
     if bulk and row % 4:
         raise ValueError(f"a row of {row} floats is not a multiple of 16 bytes")
+    dev = _check_cuda(x)
     o = torch.empty_like(x)
-    if N and row:
-        _launch(launcher, (x, o), (N, row))
+    if row:
+        _launch(launcher, dev, x.data_ptr(), o.data_ptr(), N, row)
         wrapper.launches += 1
     return o
 
@@ -183,70 +216,45 @@ def dma_out_any(x):
 
 def batched_matvec(a, v):
     """Row 7: (B, 32, 32) @ (B, 32) in FP32 (HIGHEST)."""
-    _shape("a", a, (None, T, T))
-    _shape("v", v, (a.shape[0], T))
-    if _on_cpu(a, v):
-        return _pm.batched_matvec_plain(a, v)
-    _check_cuda(a, v)
-    y = torch.empty_like(v)
-    if a.shape[0]:
-        _launch("probe_matvec", (a, v, y), (a.shape[0],))
-        batched_matvec.launches += 1
-    return y
+    return _tile_vec("probe_matvec", _pm.batched_matvec_plain, batched_matvec, a, v)
 
 
 def batched_transpose(a):
     """Row 8: the last two axes of a (B, 32, 32) swapped."""
-    _shape("a", a, (None, T, T))
-    if _on_cpu(a):
-        return _pm.batched_transpose_plain(a)
-    _check_cuda(a)
-    o = torch.empty_like(a)
-    if a.shape[0]:
-        _launch("probe_transpose", (a, o), (a.shape[0],))
-        batched_transpose.launches += 1
-    return o
+    return _tile_map("probe_transpose", _pm.batched_transpose_plain, batched_transpose, a)
 
 
 def dyn4d_scratch(a):
     """Row 9: prefix sum over n of a (N, TB, 32, 32) through a scratch of
     the whole input in shared memory (at most 227 KB)."""
-    _shape("a", a, (None, None, T, T))
+    _shape("a", a, 4, TILE)
     return _row_kernel("probe_dyn4d", _pm2.dyn4d_scratch_plain, dyn4d_scratch, a)
 
 
 def write_input_ref(a):
     """Row 10: the recurrence a[n] = 2 a[n] + a[n-1] over a (N, TB, 32, 32),
     run in a copy: the input is left as it was."""
-    _shape("a", a, (None, None, T, T))
+    _shape("a", a, 4, TILE)
     return _row_kernel("probe_recur", _pm2.write_input_ref_plain, write_input_ref, a)
 
 
 def matvec_transposed_contract(a, v):
     """Row 11: y[b, j] = sum_i a[b, i, j] v[b, i], a (B, 32, 32), v (B, 32)."""
-    _shape("a", a, (None, T, T))
-    _shape("v", v, (a.shape[0], T))
-    if _on_cpu(a, v):
-        return _pm2.matvec_transposed_contract_plain(a, v)
-    _check_cuda(a, v)
-    y = torch.empty_like(v)
-    if a.shape[0]:
-        _launch("probe_matvec_t", (a, v, y), (a.shape[0],))
-        matvec_transposed_contract.launches += 1
-    return y
+    return _tile_vec("probe_matvec_t", _pm2.matvec_transposed_contract_plain,
+                     matvec_transposed_contract, a, v)
 
 
 def _chain(launcher, wrapper, prec, a, K):
-    _shape("a", a, (None, T, T))
+    _shape("a", a, 3, TILE)
     if not 1 <= a.shape[0] <= MAX_CHAIN_TILES:
         raise ValueError(f"the chain takes 1..{MAX_CHAIN_TILES} tiles, got {a.shape[0]}")
     if K < 0:
         raise ValueError(f"K must be >= 0, got {K}")
-    if _on_cpu(a):
+    if a.is_cpu:
         return _pm2.chain_plain(a, K, prec)
-    _check_cuda(a)
+    dev = _check_cuda(a)
     o = torch.empty_like(a)
-    _launch(launcher, (a, o), (a.shape[0], int(K)))
+    _launch(launcher, dev, a.data_ptr(), o.data_ptr(), a.shape[0], int(K))
     wrapper.launches += 1
     return o
 

@@ -22,9 +22,12 @@ Phases, one line each with its seconds:
                tests/golden/fte_synthetic_n30.npz;
   6. probes  - the 13 probe kernels (scripts/probe_mosaic*.py's rows)
                against their plain versions on seeded random inputs and
-               on the scripts' own inputs, with their times and bounds;
-               then the probe path (every probe entry point and the
-               time_chain table at both precisions), counting launches;
+               on the scripts' own inputs, with their times and bounds,
+               their library calls' times (events and torch.profiler),
+               and where the host time of a launch of rows 5 and 9 goes
+               (probe_host_split); then the probe path (every probe
+               entry point and the time_chain table at both
+               precisions), counting launches;
   7. sweep   - the sweep's batched FTE stage on 128 synthetic runs
                (8 rigs x 16 seeds, 80-100 frames): solve_batch in chunks
                of 96 (pcg, 13 iterations) and the rescue pass, timed;
@@ -494,9 +497,11 @@ def probe_cases():
     """Per probe kernel: its __global__ function, its plain version, the
     TPU kernel it replaces, inputs at the probe path's shapes (seeded
     random, and the scripts' own), the tolerance, its operations and the
-    one PyTorch call that computes the same function. There is none for
-    value_at_set_static (scaling four columns takes a scale vector or an
-    index beside the input), write_input_ref (a weighted scan) or the chains
+    one PyTorch call that computes the same function. For
+    value_at_set_static that call is torch.mul(a, s) with the constant
+    (32,) row s = [2, 2, 2, 2, 1, ..., 1], made once per device on the
+    first call (the warm-up), as dma_hbm_ring's is torch.add(x, 1.0).
+    There is none for write_input_ref (a weighted scan) or the chains
     (torch.linalg.matrix_power reaches a^(K+1) by log2 K squarings: other
     work than the K dependent steps the probe times).
 
@@ -542,6 +547,16 @@ def probe_cases():
     def const(v):
         return lambda r, d: v
 
+    def col_scale_mul():
+        rows = {}
+
+        def call(a):
+            s = rows.get(a.device)
+            if s is None:
+                s = rows[a.device] = torch.tensor([2.0] * 4 + [1.0] * (P - 4), device=a.device)
+            return torch.mul(a, s)
+        return call
+
     PM, PM2 = "scripts/probe_mosaic.py", "scripts/probe_mosaic2.py"
     rt = ("rtol", 1e-5)
     return {
@@ -559,7 +574,7 @@ def probe_cases():
         "value_at_set_static": dict(
             kernel="scale_cols_kernel",
             replaces=f"{PM}:67", plain=pm.value_at_set_static_plain, tol="exact",
-            flops=B * P * 4, random=[rnd(*S3)], script=[ones(*S3)], library=None),
+            flops=B * P * 4, random=[rnd(*S3)], script=[ones(*S3)], library=col_scale_mul()),
         "dma_hbm_ring": dict(
             kernel="dma_ring_kernel",
             replaces=f"{PM}:90", plain=pm.dma_hbm_ring_plain, tol="exact", flops=4 * B * P,
@@ -645,21 +660,103 @@ def check_probe(case, wrapper, inputs, device, rng):
     return probe_error(got, want, tol), args, got.numel()
 
 
-def probe_device_ms(cases, args_by_name):
+def probe_device_ms(cases, args_by_name, reps=50):
     """Each probe kernel's own device time (torch.profiler), ms per launch:
     the event timing of back-to-back launches also holds the host's
-    wrapper and ctypes call when they are slower than the kernel."""
+    wrapper and ctypes call when they are slower than the kernel. Then
+    each case's library call's device time, ms per call: every kernel it
+    launches, in a profiler session of its own (None where the case has
+    no library call). Returns (kernel ms, library ms) by name."""
     from torch.profiler import ProfilerActivity, profile
 
     from acinoset_tpu_torch.kernels import probes_cuda as pk
+    from acinoset_tpu_torch.utils.precision import f32_matmuls
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for name, args in args_by_name.items():
-            for _ in range(3 if name.startswith("chain") else 50):
+            for _ in range(3 if name.startswith("chain") else reps):
                 pk.KERNELS[name](*args)
         torch.cuda.synchronize()
     events = prof.key_averages()
-    return {name: _ms_per_launch(events, f"::{cases[name]['kernel']}(") for name in args_by_name}
+    kernel = {name: _ms_per_launch(events, f"::{cases[name]['kernel']}(") for name in args_by_name}
+    library = {}
+    for name, args in args_by_name.items():
+        lib = cases[name]["library"]
+        if lib is None:
+            library[name] = None
+            continue
+        with f32_matmuls():
+            lib(*args)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    lib(*args)
+                torch.cuda.synchronize()
+        library[name] = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3 / reps
+    return kernel, library
+
+
+#: the probe rows whose host cost per launch probe_host_split takes apart
+HOST_SPLIT_ROWS = {"ring_dyn_index": "probe_ring_prefix", "dyn4d_scratch": "probe_dyn4d"}
+
+
+def _host_us(fn, calls=10_000):
+    """Host microseconds per call of `fn`: perf_counter_ns over `calls`
+    back-to-back calls after one warm-up, with one synchronize at the
+    end. A call that enqueues device work costs the larger of its host
+    time and its device time once the launch queue is full."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter_ns()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter_ns() - t) / calls / 1e3
+
+
+def probe_host_split(device, args_by_name):
+    """Measurement only: where the host time of one probe launch goes, for
+    the rows of HOST_SPLIT_ROWS on the probe path's inputs. Microseconds
+    per call (_host_us) of the whole wrapper and of each piece of a launch
+    path timed alone: the device guard (torch.cuda.device), the stream
+    lookup through a Stream object and as a raw handle, the wrapper's
+    checks, a row length read through a view (x[0].numel()), the output's
+    torch.empty_like, and the C launcher called through ctypes on
+    prepared integers (its CUDA calls and the kernel's enqueue); and
+    torch.cumsum(x, 0), the library call, beside them. Returns
+    {row: {piece: us}} and prints one line."""
+    from acinoset_tpu_torch.kernels import probes_cuda as pk
+
+    lib = pk._library()
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    stream = torch.cuda.current_stream(device).cuda_stream
+
+    def guard():
+        with torch.cuda.device(device):
+            pass
+
+    split = {}
+    for name, launcher in HOST_SPLIT_ROWS.items():
+        (x,) = args_by_name[name]
+        o = torch.empty_like(x)
+        fn = getattr(lib, launcher)
+        ints = (x.data_ptr(), o.data_ptr(), x.shape[0], x.numel() // x.shape[0], stream)
+        pieces = {
+            "wrapper": lambda: pk.KERNELS[name](x),
+            "device guard": guard,
+            "Stream object": lambda: torch.cuda.current_stream(device).cuda_stream,
+            "raw stream": lambda: torch._C._cuda_getCurrentRawStream(index),
+            "checks": lambda: pk._check_cuda(x),
+            "row view": lambda: x[0].numel(),
+            "empty_like": lambda: torch.empty_like(x),
+            "ctypes launch": lambda: fn(*ints),
+            "cumsum": lambda: torch.cumsum(x, 0),
+        }
+        split[name] = {piece: _host_us(f) for piece, f in pieces.items()}
+    print("[probes] host us per call (10^4 calls, one sync): " + "; ".join(
+        f"{name}: " + ", ".join(f"{p} {v:.3f}" for p, v in s.items()) for name, s in split.items()),
+        flush=True)
+    return split
 
 
 def phase_probes(device):
@@ -700,9 +797,13 @@ def phase_probes(device):
               f"(tol {case['tol']}); ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib_txt} "
               f"bound_ms {recs[name]['bound_ms']:.2e} ({recs[name]['bound_by']})", flush=True)
 
-    device_ms = probe_device_ms(cases, path_args)
+    device_ms, library_device_ms = probe_device_ms(cases, path_args)
     print("[probes] device ms per launch (torch.profiler): "
           + ", ".join(f"{k} {v:.5f}" for k, v in device_ms.items()), flush=True)
+    print("[probes] library call's device ms per call (torch.profiler): "
+          + ", ".join(f"{k} {'none' if v is None else f'{v:.5f}'}"
+                      for k, v in library_device_ms.items()), flush=True)
+    probe_host_split(device, path_args)
 
     # the probe path, through the entry points a user calls
     for f in pk.KERNELS.values():

@@ -247,19 +247,40 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take():
         pk.chain_highest(torch.zeros(9, 32, 32), 1)
     with pytest.raises(ValueError):
         pk.dyn4d_scratch(torch.zeros(5, 32, 32))
-    # a tensor that is not on the CPU goes to the kernel or raises: no fallback
+    with pytest.raises(ValueError, match="leading row axis"):
+        pk.ring_dyn_index(torch.zeros(5))
+    with pytest.raises(ValueError, match="K must be"):
+        pk.chain_highest(torch.zeros(1, 32, 32), -1)
+    # a tensor that is not on the CPU goes to the kernel or raises: no fallback. A
+    # meta tensor is on no device, so every check before the device's shows on it
     meta = torch.empty(2, 32, 32, device="meta")
     for wrapper, args in [(pk.batched_dot, (meta, meta)), (pk.value_at_set_static, (meta,)),
-                          (pk.dma_hbm_ring, (meta,)), (pk.chain_tf32, (meta, 2))]:
+                          (pk.dma_hbm_ring, (meta,)), (pk.chain_tf32, (meta, 2)),
+                          (pk.ring_dyn_index, (meta,)), (pk.batched_dot, (meta, torch.empty(2, 32, 32))),
+                          (pk.dyn4d_scratch, (meta[None],))]:
         with pytest.raises(ValueError, match="CUDA device"):
             wrapper(*args)
+    misaligned = torch.empty(2 * 32 * 32 + 1, device="meta")[1:].view(2, 32, 32)
+    for wrapper in (pk.ring_dyn_index, pk.dyn4d_scratch, pk.batched_transpose,
+                    pk.bcast_mul_lane_reduce):
+        a = meta[None] if wrapper is pk.dyn4d_scratch else meta
+        args = (a, torch.empty(2, 32, device="meta")) if wrapper is pk.bcast_mul_lane_reduce else (a,)
+        with pytest.raises(TypeError, match="float32"):
+            wrapper(*(t.double() for t in args))
+        with pytest.raises(ValueError, match="not contiguous"):
+            wrapper(a.transpose(-1, -2), *args[1:])
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            wrapper(misaligned[None] if wrapper is pk.dyn4d_scratch else misaligned, *args[1:])
+    with pytest.raises(ValueError, match="multiple of 16 bytes"):
+        pk.dma_out_any(torch.empty(4, 3, device="meta"))
 
 
 def test_probe_source_holds_one_hand_written_kernel_per_row():
     """13 kernels (rows 1-11, and row 12 at FP32 and TF32), each behind an
     extern "C" launcher the wrapper binds; row 4 loads with cp.async.bulk
     completing on an mbarrier, row 6 stores with a bulk async copy after
-    a proxy fence; no library or PyTorch header."""
+    a proxy fence, row 9 copies into its slab with 16-byte cp.async; no
+    library or PyTorch header."""
     src = pk.SOURCE.read_text()
     kernels = re.findall(r"__global__ void (\w+)\(", src)
     assert len(kernels) == 13 == len(set(kernels)) == len(pk.KERNELS)
@@ -269,6 +290,7 @@ def test_probe_source_holds_one_hand_written_kernel_per_row():
     assert "mbarrier.try_wait.parity" in src
     assert "cp.async.bulk.global.shared::cta.bulk_group" in src
     assert "fence.proxy.async.shared::cta" in src
+    assert "cp.async.cg.shared.global" in src
     assert "precision::tf32" in src
     assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in src
     for banned in ("cublas", "cudnn", "torch/", "cutlass"):

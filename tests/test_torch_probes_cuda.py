@@ -12,6 +12,8 @@ import torch
 
 import chip_smoke
 from acinoset_tpu_torch.kernels import probes_cuda as pk
+from acinoset_tpu_torch.probes import probe_mosaic as pm
+from acinoset_tpu_torch.probes import probe_mosaic2 as pm2
 
 NAMES = sorted(pk.KERNELS)
 
@@ -56,5 +58,39 @@ def test_probe_wrappers_reject_what_the_kernels_do_not_take(cuda):
         pk.batched_dot(a, a.cpu())  # mixed devices
     with pytest.raises(ValueError):
         pk.dma_hbm_ring(torch.zeros((4, 3), device=cuda))  # rows not a multiple of 16 bytes
-    with pytest.raises(RuntimeError):
-        pk.dyn4d_scratch(torch.zeros((15, 4, 32, 32), device=cuda))  # 240 KB of shared memory
+    with pytest.raises(RuntimeError):  # a CTA's slab of 114 x 128 float4: 228 KB of shared memory
+        pk.dyn4d_scratch(torch.zeros((114, 4, 32, 32), device=cuda))
+
+
+def _exact_on_the_card(cuda, wrapper, plain, shape, seed):
+    a = torch.as_tensor(np.random.default_rng(seed).normal(size=shape), dtype=torch.float32,
+                        device=cuda)
+    before = wrapper.launches
+    got = wrapper(a)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert torch.equal(got, plain(a))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (1, 16, 32),  # N = 1
+    (6, 1), (6, 3), (6, 5),  # rows of 1, 3, 5 floats: one float a thread
+    (6, 1028),  # 257 float4 columns: three CTAs of 128, the last with one thread
+    (6, 1030),  # one float a thread, nine CTAs, the last with six threads
+    (19, 16, 32), (17, 5),  # more rows than the 8 whose loads are hoisted together
+])
+def test_ring_prefix_kernel_is_exact_on_edge_shapes(cuda, shape):
+    _exact_on_the_card(cuda, pk.ring_dyn_index, pm.ring_dyn_index_plain, shape, sum(shape))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (1, 4, 32, 32),  # N = 1
+    (5, 1, 32, 32),  # two CTAs
+    (25, 2, 32, 32),  # a 50 KB slab: over the 48 KB default, so the launcher raises the limit
+    (113, 1, 32, 32),  # a 226 KB slab: the largest a CTA may have
+    (15, 4, 32, 32),  # refused while the whole 240 KB scratch sat in one CTA
+])
+def test_dyn4d_kernel_is_exact_on_edge_shapes(cuda, shape):
+    _exact_on_the_card(cuda, pk.dyn4d_scratch, pm2.dyn4d_scratch_plain, shape, sum(shape))

@@ -108,13 +108,43 @@ __global__ void scale_cols_kernel(const float4* __restrict__ a, float4* __restri
   o[q] = v;
 }
 
-// ---- row 4: probe_mosaic.k4, o[n] = x[n] + 1, each row n of x brought into
-// a 2-slot shared ring by a bulk asynchronous copy (the TPU kernel's
-// HBM -> VMEM DMA). Thread 0 starts the copy of row n + 1 into the other
-// slot before the block works on row n; each slot has an mbarrier that the
-// copy completes with its byte count, waited on with the parity of that
-// slot's use (flipping each use). Rows are a multiple of 16 bytes and
-// 16-byte aligned, as cp.async.bulk requires.
+// ---- rows 4 and 6: the bulk-copy probes. Each row of x is split into
+// column slices of BULK_THREADS float4 (2 KB; the last may be ragged, still
+// a multiple of 16 bytes), and CTA b takes slice b of every row, so the
+// grid grows with the row. A thread owns one float4 column of its slice.
+// Both are bound by the bytes they move (each row read once and written
+// once): the design keeps every CTA's copies in flight together, rather
+// than one row's round trip after another's, and keeps each CTA within the
+// 48 KB of shared memory a block has without an attribute call, so any row
+// that is a multiple of 16 bytes and 16-byte aligned is taken. At the
+// probes' own shape (4 rows of 2 KB, one CTA) they are bound instead by the
+// launch and the latency of one bulk copy.
+constexpr int BULK_THREADS = 128;
+constexpr int RING_DEPTH = 16;  // row 4's slots: 32 KB of shared memory
+constexpr int OUT_ROUND = 8;    // row 6's rows a round: two sets, 32 KB
+
+// float4 in slice `first / BULK_THREADS` of a row of `row4` float4; with
+// first = 0, the size of one shared slot
+__host__ __device__ __forceinline__ int slice_width(int row4, int first) {
+  return row4 - first < BULK_THREADS ? row4 - first : BULK_THREADS;
+}
+
+__device__ __forceinline__ float4 plus1(float4 v) {
+  return make_float4(v.x + 1.f, v.y + 1.f, v.z + 1.f, v.w + 1.f);
+}
+__device__ __forceinline__ float4 times3(float4 v) {
+  return make_float4(3.f * v.x, 3.f * v.y, 3.f * v.z, 3.f * v.w);
+}
+
+// ---- row 4: probe_mosaic.k4, o[n] = x[n] + 1, each row's slice brought
+// into a ring of D = min(N, RING_DEPTH) shared-memory slots by a bulk
+// asynchronous copy (the TPU kernel's HBM -> VMEM DMA) that completes on the
+// slot's own mbarrier with its byte count. Thread 0 issues the first D
+// copies before anyone waits, so at N <= D every copy is in flight at once:
+// one round trip. Use k of a slot completes phase k of its mbarrier, waited
+// on with parity k & 1. When every thread has read row n out of its slot
+// (one __syncthreads), thread 0 refills the slot with row n + D. Rows are
+// written with coalesced float4 stores.
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
                : "memory");
@@ -139,7 +169,7 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
-__device__ __forceinline__ void bulk_load(float* dst, const float* src, uint32_t bytes,
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
                                           uint64_t* bar) {
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
@@ -147,31 +177,35 @@ __device__ __forceinline__ void bulk_load(float* dst, const float* src, uint32_t
       : "memory");
 }
 
-__global__ void dma_ring_kernel(const float* __restrict__ x, float* __restrict__ o, int N,
-                                int row) {
-  extern __shared__ __align__(128) float ring[];  // 2 slots of `row` floats
-  __shared__ __align__(8) uint64_t bar[2];
-  const uint32_t bytes = row * sizeof(float);
-  if (threadIdx.x == 0) {
-    mbar_init(&bar[0], 1);
-    mbar_init(&bar[1], 1);
+__global__ void dma_ring_kernel(const float4* __restrict__ x, float4* __restrict__ o, int N,
+                                int row4, int depth) {
+  extern __shared__ __align__(128) float4 ring[];  // depth slots of `slot` float4
+  __shared__ __align__(8) uint64_t bar[RING_DEPTH];
+  const int slot = slice_width(row4, 0);
+  const int c0 = blockIdx.x * BULK_THREADS;
+  const int w = slice_width(row4, c0);
+  const uint32_t bytes = w * sizeof(float4);
+  const int t = threadIdx.x;
+  if (t == 0) {
+    for (int s = 0; s < depth; ++s) mbar_init(&bar[s], 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    mbar_expect_tx(&bar[0], bytes);
-    bulk_load(ring, x, bytes, &bar[0]);
+    for (int s = 0; s < depth; ++s) {
+      mbar_expect_tx(&bar[s], bytes);
+      bulk_load(ring + s * slot, x + (size_t)s * row4 + c0, bytes, &bar[s]);
+    }
   }
   __syncthreads();
   for (int n = 0; n < N; ++n) {
-    const int s = n & 1;
-    if (threadIdx.x == 0 && n + 1 < N) {
-      // slot s^1 held row n - 1, which every thread finished reading
-      // before the __syncthreads that closed iteration n - 1
-      mbar_expect_tx(&bar[s ^ 1], bytes);
-      bulk_load(ring + (s ^ 1) * row, x + (size_t)(n + 1) * row, bytes, &bar[s ^ 1]);
+    const int s = n % depth;
+    mbar_wait(&bar[s], (n / depth) & 1);
+    if (t < w) o[(size_t)n * row4 + c0 + t] = plus1(ring[s * slot + t]);
+    if (n + depth < N) {
+      __syncthreads();  // every thread has read slot s
+      if (t == 0) {
+        mbar_expect_tx(&bar[s], bytes);
+        bulk_load(ring + s * slot, x + (size_t)(n + depth) * row4 + c0, bytes, &bar[s]);
+      }
     }
-    mbar_wait(&bar[s], (n >> 1) & 1);
-    const float* buf = ring + s * row;
-    for (int t = threadIdx.x; t < row; t += blockDim.x) o[(size_t)n * row + t] = buf[t] + 1.f;
-    __syncthreads();
   }
 }
 
@@ -235,31 +269,53 @@ __global__ void ring_prefix_kernel(const float* __restrict__ a, float* __restric
     ring_prefix(a, o, N, cols);
 }
 
-// ---- row 6: probe_mosaic.k6, o[n] = 3 x[n], each row staged in a shared
-// scratch row and written out by a bulk asynchronous store (the TPU
-// kernel's VMEM -> HBM DMA). The ordinary stores into the scratch row are
-// made visible to the async proxy by fence.proxy.async before the barrier
-// that lets thread 0 issue the copy; thread 0 waits until the copy has read
-// the row before the block overwrites it.
-__global__ void dma_out_kernel(const float* __restrict__ x, float* __restrict__ o, int N,
-                               int row) {
-  extern __shared__ __align__(128) float buf[];  // one scratch row
-  const uint32_t bytes = row * sizeof(float);
-  for (int n = 0; n < N; ++n) {
-    for (int t = threadIdx.x; t < row; t += blockDim.x) buf[t] = x[(size_t)n * row + t] * 3.f;
-    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(
-                       o + (size_t)n * row),
-                   "r"(smem_addr(buf)), "r"(bytes)
-                   : "memory");
-      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-      asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+// ---- row 6: probe_mosaic.k6, o[n] = 3 x[n], each row's slice staged in a
+// shared scratch slot and written out by a bulk asynchronous store (the TPU
+// kernel's VMEM -> HBM DMA). Rows go in rounds of R = min(N, OUT_ROUND):
+// each thread issues the float4 loads of its column of the round's R rows
+// before it uses any, scales them and writes them into R slots; then one
+// fence.proxy.async (the ordinary stores made visible to the async proxy)
+// and one barrier, after which thread 0 issues the R bulk stores as one
+// group. With more than one round the slots form two sets used in turn;
+// thread 0 waits for the previous group to have read its set (wait_group
+// .read) before the barrier that lets the block rewrite that set, so a
+// round's loads overlap the previous round's stores. It waits with .read
+// again before the CTA exits: the stores need the shared memory, not each
+// other.
+__global__ void dma_out_kernel(const float4* __restrict__ x, float4* __restrict__ o, int N,
+                               int row4) {
+  extern __shared__ __align__(128) float4 buf[];  // (N > R ? 2 : 1) x R slots of `slot` float4
+  const int slot = slice_width(row4, 0);
+  const int c0 = blockIdx.x * BULK_THREADS;
+  const int w = slice_width(row4, c0);
+  const uint32_t bytes = w * sizeof(float4);
+  const int R = N < OUT_ROUND ? N : OUT_ROUND;
+  const int t = threadIdx.x;
+  for (int n0 = 0, r = 0; n0 < N; n0 += R, ++r) {
+    float4* set = buf + (r & 1) * R * slot;
+    const int rows = N - n0 < R ? N - n0 : R;
+    if (t < w) {
+      float4 v[OUT_ROUND];
+#pragma unroll
+      for (int j = 0; j < OUT_ROUND; ++j)
+        if (j < rows) v[j] = x[(size_t)(n0 + j) * row4 + c0 + t];
+#pragma unroll
+      for (int j = 0; j < OUT_ROUND; ++j)
+        if (j < rows) set[j * slot + t] = times3(v[j]);
     }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    if (t == 0) asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
     __syncthreads();
+    if (t == 0) {
+      for (int j = 0; j < rows; ++j)
+        asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(
+                         o + (size_t)(n0 + j) * row4 + c0),
+                     "r"(smem_addr(set + j * slot)), "r"(bytes)
+                     : "memory");
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    }
   }
-  if (threadIdx.x == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+  if (t == 0) asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
 }
 
 // ---- row 8: probe_mosaic.k8, transpose of the last two axes. One CTA of
@@ -456,7 +512,7 @@ int smem_limit(const void* kernel, size_t bytes, SmemLimits& set) {
   return set_err;
 }
 
-SmemLimits dma_ring_smem, dma_out_smem, dyn4d_smem, chain_fp32_smem, chain_tf32_smem;
+SmemLimits dyn4d_smem, chain_fp32_smem, chain_tf32_smem;
 
 }  // namespace
 
@@ -494,10 +550,12 @@ extern "C" int probe_scale_cols(const float* a, float* o, int B, void* stream) {
 
 extern "C" int probe_dma_ring(const float* x, float* o, int N, int row, void* stream) {
   if (N <= 0 || row <= 0 || row % 4 != 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = 2 * (size_t)row * sizeof(float);
-  const int err = smem_limit((const void*)dma_ring_kernel, smem, dma_ring_smem);
-  if (err) return err;
-  dma_ring_kernel<<<1, row < 1024 ? row : 1024, smem, (cudaStream_t)stream>>>(x, o, N, row);
+  const int row4 = row / 4;
+  const int depth = N < RING_DEPTH ? N : RING_DEPTH;
+  const size_t smem = (size_t)depth * slice_width(row4, 0) * sizeof(float4);
+  dma_ring_kernel<<<(row4 + BULK_THREADS - 1) / BULK_THREADS, BULK_THREADS, smem,
+                    (cudaStream_t)stream>>>(reinterpret_cast<const float4*>(x),
+                                            reinterpret_cast<float4*>(o), N, row4, depth);
   return launched();
 }
 
@@ -513,10 +571,12 @@ extern "C" int probe_ring_prefix(const float* a, float* o, int N, int row, void*
 
 extern "C" int probe_dma_out(const float* x, float* o, int N, int row, void* stream) {
   if (N <= 0 || row <= 0 || row % 4 != 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)row * sizeof(float);
-  const int err = smem_limit((const void*)dma_out_kernel, smem, dma_out_smem);
-  if (err) return err;
-  dma_out_kernel<<<1, row < 1024 ? row : 1024, smem, (cudaStream_t)stream>>>(x, o, N, row);
+  const int row4 = row / 4;
+  const int slots = N <= OUT_ROUND ? N : 2 * OUT_ROUND;
+  const size_t smem = (size_t)slots * slice_width(row4, 0) * sizeof(float4);
+  dma_out_kernel<<<(row4 + BULK_THREADS - 1) / BULK_THREADS, BULK_THREADS, smem,
+                   (cudaStream_t)stream>>>(reinterpret_cast<const float4*>(x),
+                                           reinterpret_cast<float4*>(o), N, row4);
   return launched();
 }
 

@@ -198,8 +198,8 @@ def _row_kernel(launcher, plain, wrapper, x, bulk=False):
 
 def dma_hbm_ring(x):
     """Row 4: o[n] = x[n] + 1, rows brought in by bulk async copies
-    through a 2-slot shared ring. x (N, ...) with rows of a multiple of
-    16 bytes and at most 113 KB."""
+    through a ring of shared slots, each CTA one 2 KB column slice of
+    every row. x (N, ...) with rows of a multiple of 16 bytes, any size."""
     return _row_kernel("probe_dma_ring", _pm.dma_hbm_ring_plain, dma_hbm_ring, x, bulk=True)
 
 
@@ -209,8 +209,9 @@ def ring_dyn_index(a):
 
 
 def dma_out_any(x):
-    """Row 6: o[n] = 3 x[n], rows written out by bulk async stores from a
-    shared scratch row. x (N, ...) with rows of a multiple of 16 bytes."""
+    """Row 6: o[n] = 3 x[n], rows written out by bulk async stores from
+    shared scratch slots, each CTA one 2 KB column slice of every row.
+    x (N, ...) with rows of a multiple of 16 bytes, any size."""
     return _row_kernel("probe_dma_out", _pm.dma_out_any_plain, dma_out_any, x, bulk=True)
 
 

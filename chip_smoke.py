@@ -12,9 +12,9 @@ Phases, one line each with its seconds:
                the flagship shape (B=96, N=100, P=25) on a
                well-conditioned and an FTE-like ill-conditioned batch,
                with its time (CUDA events and torch.profiler), the plain
-               version's, a dense torch.linalg.solve yardstick's, the
-               bound the card sets, and where a solve's time goes inside
-               the kernel (phase_split);
+               version's, a dense torch.linalg.solve yardstick's (events
+               and torch.profiler), the bound the card sets, and where a
+               solve's time goes inside the kernel (phase_split);
   4. main    - the batched flagship FTE solve (B=96, N=100, C=6, L=20,
                float32, 13 GN iterations, linear_solver='pallas') on
                bench.py's synthetic input, counting kernel launches;
@@ -25,9 +25,10 @@ Phases, one line each with its seconds:
                on the scripts' own inputs, with their times and bounds,
                their library calls' times (events and torch.profiler),
                and where the host time of a launch of rows 5 and 9 goes
-               (probe_host_split); then the probe path (every probe
-               entry point and the time_chain table at both
-               precisions), counting launches;
+               (probe_host_split), and rows 4 and 6 at the banded
+               kernel's factor-array size (probe_band_stream); then
+               the probe path (every probe entry point and the
+               time_chain table at both precisions), counting launches;
   7. sweep   - the sweep's batched FTE stage on 128 synthetic runs
                (8 rigs x 16 seeds, 80-100 frames): solve_batch in chunks
                of 96 (pcg, 13 iterations) and the rescue pass, timed;
@@ -248,6 +249,7 @@ def phase_kernel(device, B=96, N=100, P=25):
             A = dense_from_bands(b32)
             rhs = g32.reshape(B, N * P, 1)
             library_ms = _cuda_ms(lambda: torch.linalg.solve(A, rhs), reps=2)
+            library_device_ms = kernel_device_ms(lambda: torch.linalg.solve(A, rhs), reps=1)
             del A
     device_ms = kernel_device_ms(lambda: banded_solve(b32, g32), "banded_chol_kernel")
     bound_ms, bound_by = banded_bound_ms(B, N, P)
@@ -263,7 +265,8 @@ def phase_kernel(device, B=96, N=100, P=25):
            f"rel_res {out['well']['rel_residual']:.3g}; fte max_abs_err "
            f"{out['fte']['max_abs_err']:.3g} (rel {out['fte']['rel_err']:.3g}) rel_res {out['fte']['rel_residual']:.3g}; "
            f"kernel_ms {kernel_ms:.4f} (device {device_ms:.4f}) plain_ms {plain_ms:.2f} "
-           f"library_ms {library_ms:.2f} bound_ms {bound_ms:.4f} ({bound_by})")
+           f"library_ms {library_ms:.2f} (device {library_device_ms:.2f}) bound_ms {bound_ms:.4f} "
+           f"({bound_by})")
     phase_split(device, banded_cuda.build(clocked=True), bands_np, g_np)
     return rec
 
@@ -276,9 +279,10 @@ def _ms_per_launch(events, tag):
     return sum(e.self_device_time_total for e in hits) / 1e3 / n if n else float("nan")
 
 
-def kernel_device_ms(launch, name, reps=10):
-    """The __global__ function `name`'s own device time per launch, ms
-    (torch.profiler), over `reps` calls of `launch` after one warm-up."""
+def kernel_device_ms(launch, name=None, reps=10):
+    """Device ms per call of `launch` (torch.profiler), over `reps` calls
+    after one warm-up: the __global__ function `name`'s own time per
+    launch, or with no name every kernel the call launches."""
     from torch.profiler import ProfilerActivity, profile
 
     launch()
@@ -287,7 +291,9 @@ def kernel_device_ms(launch, name, reps=10):
         for _ in range(reps):
             launch()
         torch.cuda.synchronize()
-    return _ms_per_launch(prof.key_averages(), f"::{name}(")
+    if name is not None:
+        return _ms_per_launch(prof.key_averages(), f"::{name}(")
+    return sum(e.self_device_time_total for e in prof.key_averages()) / 1e3 / reps
 
 
 #: the phases between a frame's clock stamps in the banded kernel, and
@@ -682,17 +688,9 @@ def probe_device_ms(cases, args_by_name, reps=50):
     library = {}
     for name, args in args_by_name.items():
         lib = cases[name]["library"]
-        if lib is None:
-            library[name] = None
-            continue
         with f32_matmuls():
-            lib(*args)
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(reps):
-                    lib(*args)
-                torch.cuda.synchronize()
-        library[name] = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3 / reps
+            library[name] = (None if lib is None
+                             else kernel_device_ms(lambda: lib(*args), reps=reps))
     return kernel, library
 
 
@@ -759,6 +757,40 @@ def probe_host_split(device, args_by_name):
     return split
 
 
+#: rows 4 and 6 at the size where a bulk copy would matter here: the
+#: banded kernel's factor array fac, (B, N, 4, 32, 32) at the flagship
+#: batch, taken frames first (N = 100 rows of B x 4 x 32 x 32 floats)
+BAND_STREAM_SHAPE = (100, 96, 4, 32, 32)
+BAND_STREAM_ROWS = ("dma_hbm_ring", "dma_out_any")
+
+
+def probe_band_stream(device, cases, reps=20):
+    """Measurement and check: rows 4 and 6 at BAND_STREAM_SHAPE on a seeded
+    random input, each held to its plain version with torch.equal; the
+    kernel's ms by events and on the device (torch.profiler), its library
+    call's the same two ways, and the share of the bytes bound (the input
+    read once, the output written once) that each reaches."""
+    from acinoset_tpu_torch.kernels import probes_cuda as pk
+
+    x = torch.randn(BAND_STREAM_SHAPE, device=device,
+                    generator=torch.Generator(device=device).manual_seed(9))
+    bound = 1e3 * 2 * 4 * x.numel() / PEAK_BYTES_PER_S
+    for name in BAND_STREAM_ROWS:
+        case, wrapper, lib = cases[name], pk.KERNELS[name], cases[name]["library"]
+        got = wrapper(x)
+        torch.cuda.synchronize()
+        if not torch.equal(got, case["plain"](x)):
+            raise AssertionError(f"{name} differs from its plain version at {BAND_STREAM_SHAPE}")
+        del got
+        r = dict(ms=_cuda_ms(lambda: wrapper(x), reps),
+                 device_ms=kernel_device_ms(lambda: wrapper(x), case["kernel"]),
+                 library_ms=_cuda_ms(lambda: lib(x), reps),
+                 library_device_ms=kernel_device_ms(lambda: lib(x)))
+        print(f"[probes] band stream {name} {BAND_STREAM_SHAPE} ({4 * x.numel() / 1e6:.1f} MB each "
+              f"way; equal to plain): bound_ms {bound:.4f} (bytes); " + ", ".join(
+                  f"{k} {v:.4f} ({100 * bound / v:.1f}% of bound)" for k, v in r.items()), flush=True)
+
+
 def phase_probes(device):
     """Every probe kernel against its plain version, timed at the probe
     path's shapes (the scripts' inputs), then the probe path itself: every
@@ -804,6 +836,7 @@ def phase_probes(device):
           + ", ".join(f"{k} {'none' if v is None else f'{v:.5f}'}"
                       for k, v in library_device_ms.items()), flush=True)
     probe_host_split(device, path_args)
+    probe_band_stream(device, cases)
 
     # the probe path, through the entry points a user calls
     for f in pk.KERNELS.values():

@@ -278,9 +278,11 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take():
 def test_probe_source_holds_one_hand_written_kernel_per_row():
     """13 kernels (rows 1-11, and row 12 at FP32 and TF32), each behind an
     extern "C" launcher the wrapper binds; row 4 loads with cp.async.bulk
-    completing on an mbarrier, row 6 stores with a bulk async copy after
-    a proxy fence, row 9 copies into its slab with 16-byte cp.async; no
-    library or PyTorch header."""
+    completing on per-slot mbarriers, row 6 stores with bulk async copies
+    after a proxy fence and waits for their reads, both over a grid that
+    grows with the row (one CTA per 2 KB column slice), not one CTA; row 9
+    copies into its slab with 16-byte cp.async; no library or PyTorch
+    header."""
     src = pk.SOURCE.read_text()
     kernels = re.findall(r"__global__ void (\w+)\(", src)
     assert len(kernels) == 13 == len(set(kernels)) == len(pk.KERNELS)
@@ -290,6 +292,14 @@ def test_probe_source_holds_one_hand_written_kernel_per_row():
     assert "mbarrier.try_wait.parity" in src
     assert "cp.async.bulk.global.shared::cta.bulk_group" in src
     assert "fence.proxy.async.shared::cta" in src
+    assert "cp.async.bulk.wait_group.read 0" in src
+    assert "uint64_t bar[RING_DEPTH]" in src  # one mbarrier per ring slot
+    for launcher, kernel in (("probe_dma_ring", "dma_ring_kernel"), ("probe_dma_out", "dma_out_kernel")):
+        body = src[src.index(f'extern "C" int {launcher}('):]
+        body = body[:body.index("\n}\n")]
+        grid = re.search(kernel + r"<<<([^,]+),", body).group(1)
+        assert grid == "(row4 + BULK_THREADS - 1) / BULK_THREADS"
+    assert re.search(r"constexpr int BULK_THREADS = 128;", src)
     assert "cp.async.cg.shared.global" in src
     assert "precision::tf32" in src
     assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in src

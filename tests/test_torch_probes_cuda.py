@@ -58,6 +58,8 @@ def test_probe_wrappers_reject_what_the_kernels_do_not_take(cuda):
         pk.batched_dot(a, a.cpu())  # mixed devices
     with pytest.raises(ValueError):
         pk.dma_hbm_ring(torch.zeros((4, 3), device=cuda))  # rows not a multiple of 16 bytes
+    with pytest.raises(ValueError):
+        pk.dma_out_any(torch.zeros((4, 6), device=cuda))
     with pytest.raises(RuntimeError):  # a CTA's slab of 114 x 128 float4: 228 KB of shared memory
         pk.dyn4d_scratch(torch.zeros((114, 4, 32, 32), device=cuda))
 
@@ -94,3 +96,19 @@ def test_ring_prefix_kernel_is_exact_on_edge_shapes(cuda, shape):
 ])
 def test_dyn4d_kernel_is_exact_on_edge_shapes(cuda, shape):
     _exact_on_the_card(cuda, pk.dyn4d_scratch, pm2.dyn4d_scratch_plain, shape, sum(shape))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row", ["dma_hbm_ring", "dma_out_any"])
+@pytest.mark.parametrize("shape", [
+    (1, 16, 32),  # N = 1
+    (9, 16, 32), (17, 16, 32),  # just above row 6's round of 8 and row 4's ring of 16
+    (100, 512),  # well above both: rings refilled, the two sets of slots used in turn
+    (6, 4),  # a row of 4 floats: one 16-byte copy a row
+    (5, 1028), (20, 1000),  # ragged last slices of 16 bytes and 1,952 bytes
+    (4, 30000),  # 120 KB rows, over the 113 KB that a CTA holding whole rows took
+    (100, 96, 4, 32, 32),  # the band-stream shape, 157 MB: 768 CTAs
+])
+def test_bulk_copy_kernels_are_exact_on_edge_shapes(cuda, row, shape):
+    plain = {"dma_hbm_ring": pm.dma_hbm_ring_plain, "dma_out_any": pm.dma_out_any_plain}[row]
+    _exact_on_the_card(cuda, pk.KERNELS[row], plain, shape, sum(shape))

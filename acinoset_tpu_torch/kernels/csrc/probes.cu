@@ -16,9 +16,10 @@
 // 1 MFLOP, under 0.1 us of bandwidth or FP32 peak: each is bound by its
 // launch and its one pass through device memory, and the design keeps
 // that pass coalesced. The chain (row 12) does K dependent products on
-// data that stays in shared memory, so it is bound by the latency of one
-// step: a 32-long FMA chain (FP32) or four dependent tensor-core MMAs
-// (TF32) plus one __syncthreads.
+// data that stays on one SM a tile, so a step is bound by that SM: FP32 by
+// the issue of its FMAs (A in registers, one float2 of x a k), TF32 by one
+// round trip of x through shared memory around eight tensor-core MMAs a
+// warp (a fragment load, the MMAs, a store, one __syncwarp).
 //
 // Each launcher is extern "C": device pointers, sizes and a stream in, the
 // CUDA error of the launch out (0 on success). Shapes are checked by the
@@ -26,7 +27,6 @@
 // would overrun shared memory.
 
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <atomic>
 #include <cstdint>
@@ -395,89 +395,147 @@ __global__ void matvec_t_kernel(const float* __restrict__ a, const float* __rest
 }
 
 // ---- row 12: probe_mosaic2.chain_kernel, K dependent steps x <- A @ x from
-// x = A on TB tiles in one CTA, so o = A^(K+1). A and a ping-pong pair of x
-// stay in shared memory; one __syncthreads a step (the step writes the
-// other buffer, and the barrier orders every read of a buffer before its
-// next overwrite).
+// x = A on each of TB tiles, so o = A^(K+1). One CTA per tile, so the TB
+// chains run on TB SMs. Column j of the next x depends only on column j of
+// this one (and on A), so each warp owns a strip of eight columns for the
+// whole chain: it reads and writes only its own strip of the ping-pong pair
+// of x in shared memory, and a step needs one __syncwarp, no barrier over
+// the CTA. x's rows are padded to XS floats.
 //
-// HIGHEST: thread (i, j) runs the 32-long FP32 FMA chain of element (i, j)
-// of every tile.
-__global__ void chain_fp32_kernel(const float* __restrict__ a, float* __restrict__ o, int TB,
-                                  int K) {
-  extern __shared__ __align__(128) float sm[];
-  const int stride = T * LDS;
-  float* as = sm;
-  float* xc = as + TB * stride;
-  float* xn = xc + TB * stride;
-  const int i = threadIdx.y, j = threadIdx.x;
-  for (int b = 0; b < TB; ++b) {
-    const float v = a[(size_t)b * TILE + i * T + j];
-    as[b * stride + i * LDS + j] = v;
-    xc[b * stride + i * LDS + j] = v;
-  }
-  __syncthreads();
-  for (int k = 0; k < K; ++k) {
-    for (int b = 0; b < TB; ++b) {
-      const float* ab = as + b * stride + i * LDS;
-      const float* xb = xc + b * stride + j;
-      float acc = 0.f;
+// HIGHEST: four warps a tile. Lane (rq, cp) of warp w owns rows rq + 8r
+// (r = 0..3) and columns 8w + 2cp, 8w + 2cp + 1, and holds its four rows of
+// A in registers (128 floats) for all K steps. A step reads one float2 of x
+// per k (a warp reads four distinct float2, one wavefront) and issues eight
+// FP32 FMAs on it, each element's sum in q order 0..31: 256 FMAs a lane, so
+// the step is bound by FMA issue on the SM's four schedulers, one warp each
+// (256 of ~292 issue slots a step), plus the latency at its two ends.
+constexpr int XS = T + 8;  // x's row in shared memory: rows 8 banks apart
+constexpr int CHAIN_WARPS = 4;  // one 8-column strip a warp, at both precisions
+
+__global__ void __launch_bounds__(32 * CHAIN_WARPS, 1)
+    chain_fp32_kernel(const float* __restrict__ a, float* __restrict__ o, int K) {
+  __shared__ __align__(16) float xs[2][T * XS];  // step k reads xs[k & 1], writes the other
+  const int lane = threadIdx.x % 32;
+  const int rq = lane / 4, c = 8 * (threadIdx.x / 32) + 2 * (lane % 4);
+  const float* at = a + (size_t)blockIdx.x * TILE;
+  float ar[4][T];
 #pragma unroll
-      for (int q = 0; q < T; ++q) acc = fmaf(ab[q], xb[q * LDS], acc);
-      xn[b * stride + i * LDS + j] = acc;
+  for (int r = 0; r < 4; ++r) {
+    const float* row = at + (rq + 8 * r) * T;
+#pragma unroll
+    for (int q = 0; q < T; q += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(row + q);
+      ar[r][q] = v.x;
+      ar[r][q + 1] = v.y;
+      ar[r][q + 2] = v.z;
+      ar[r][q + 3] = v.w;
     }
-    __syncthreads();
-    float* tmp = xc;
-    xc = xn;
-    xn = tmp;
+    *reinterpret_cast<float2*>(xs[0] + (rq + 8 * r) * XS + c) =
+        *reinterpret_cast<const float2*>(row + c);
   }
-  for (int b = 0; b < TB; ++b) o[(size_t)b * TILE + i * T + j] = xc[b * stride + i * LDS + j];
+  __syncwarp();
+  for (int k = 0; k < K; ++k) {
+    const float* xc = xs[k & 1];
+    float* xn = xs[(k & 1) ^ 1];
+    float acc[4][2] = {};
+#pragma unroll
+    for (int q = 0; q < T; ++q) {
+      const float2 xv = *reinterpret_cast<const float2*>(xc + q * XS + c);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        acc[r][0] = fmaf(ar[r][q], xv.x, acc[r][0]);
+        acc[r][1] = fmaf(ar[r][q], xv.y, acc[r][1]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      *reinterpret_cast<float2*>(xn + (rq + 8 * r) * XS + c) = make_float2(acc[r][0], acc[r][1]);
+    __syncwarp();  // the strip's writes before its reads, its reads before its next writes
+  }
+  float* ot = o + (size_t)blockIdx.x * TILE;
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+    *reinterpret_cast<float2*>(ot + (rq + 8 * r) * T + c) =
+        *reinterpret_cast<const float2*>(xs[K & 1] + (rq + 8 * r) * XS + c);
 }
 
 // DEFAULT (the TPU's default precision is bf16 passes; Hopper's counterpart
-// is TF32 on the tensor cores): four warps per tile, warp (ti, tj) owns the
-// 16 x 16 output tile (ti, tj) and runs four m16n16k8 TF32 MMAs a step with
-// FP32 accumulation. A's fragments are loaded and rounded to TF32 once; x is
-// rounded (cvt.rna) as each step loads it. Shared tiles are unpadded
-// (wmma's ldm must be a multiple of 4 floats, its pointers 32-byte aligned).
-__global__ void chain_tf32_kernel(const float* __restrict__ a, float* __restrict__ o, int TB,
-                                  int K) {
-  using namespace nvcuda;
-  extern __shared__ __align__(128) float sm[];
-  float* as = sm;
-  float* xc = as + TB * TILE;
-  float* xn = xc + TB * TILE;
-  for (int t = threadIdx.x; t < TB * TILE; t += blockDim.x) {
-    as[t] = a[t];
-    xc[t] = a[t];
-  }
-  __syncthreads();
-  const int warp = threadIdx.x / 32;
-  const int b = warp / 4, ti = (warp / 2) % 2, tj = warp % 2;
-  wmma::fragment<wmma::matrix_a, 16, 16, 8, wmma::precision::tf32, wmma::row_major> af[4];
-  wmma::fragment<wmma::matrix_b, 16, 16, 8, wmma::precision::tf32, wmma::row_major> bf;
-  wmma::fragment<wmma::accumulator, 16, 16, 8, float> cf;
+// is TF32 on the tensor cores): raw mma.sync m16n8k8 TF32 with FP32
+// accumulation, four warps a tile, warp w owning the n-tile of columns
+// 8w..8w+7. A's fragments (two m-tiles of 16 rows x four k-steps of 8) are
+// rounded to TF32 (cvt.rna) once and held in registers; a step loads each
+// x element of the strip once as a B fragment, rounds it once, and runs two
+// chains of four dependent MMAs. Fragment layouts (PTX ISA, m16n8k8 .tf32),
+// g = lane / 4, t = lane % 4: A holds (g, t), (g + 8, t), (g, t + 4),
+// (g + 8, t + 4); B holds (t, g), (t + 4, g); C holds (g, 2t), (g, 2t + 1),
+// (g + 8, 2t), (g + 8, 2t + 1). With rows of XS = 40 floats a B load (rows
+// t, columns g) and a float2 store of C (rows g, columns 2t) each hit 32
+// distinct banks.
+__device__ __forceinline__ uint32_t tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
+  return r;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__global__ void __launch_bounds__(32 * CHAIN_WARPS, 1)
+    chain_tf32_kernel(const float* __restrict__ a, float* __restrict__ o, int K) {
+  __shared__ __align__(16) float xs[2][T * XS];  // step k reads xs[k & 1], writes the other
+  const int lane = threadIdx.x % 32, n0 = 8 * (threadIdx.x / 32);
+  const int g = lane / 4, t = lane % 4;
+  const float* at = a + (size_t)blockIdx.x * TILE;
+  uint32_t af[2][4][4];
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    wmma::load_matrix_sync(af[kk], as + b * TILE + ti * 16 * T + kk * 8, T);
-#pragma unroll
-    for (int e = 0; e < af[kk].num_elements; ++e) af[kk].x[e] = wmma::__float_to_tf32(af[kk].x[e]);
-  }
-  for (int k = 0; k < K; ++k) {
-    wmma::fill_fragment(cf, 0.f);
+  for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      wmma::load_matrix_sync(bf, xc + b * TILE + kk * 8 * T + tj * 16, T);
-#pragma unroll
-      for (int e = 0; e < bf.num_elements; ++e) bf.x[e] = wmma::__float_to_tf32(bf.x[e]);
-      wmma::mma_sync(cf, af[kk], bf, cf);
+      const float* p = at + (16 * mi + g) * T + 8 * kk + t;
+      af[mi][kk][0] = tf32(p[0]);
+      af[mi][kk][1] = tf32(p[8 * T]);
+      af[mi][kk][2] = tf32(p[4]);
+      af[mi][kk][3] = tf32(p[8 * T + 4]);
     }
-    wmma::store_matrix_sync(xn + b * TILE + ti * 16 * T + tj * 16, cf, T, wmma::mem_row_major);
-    __syncthreads();
-    float* tmp = xc;
-    xc = xn;
-    xn = tmp;
+  // lane i brings row i of the strip into x
+#pragma unroll
+  for (int h = 0; h < 8; h += 4)
+    *reinterpret_cast<float4*>(xs[0] + lane * XS + n0 + h) =
+        *reinterpret_cast<const float4*>(at + lane * T + n0 + h);
+  __syncwarp();
+  for (int k = 0; k < K; ++k) {
+    const float* xc = xs[k & 1];
+    float* xn = xs[(k & 1) ^ 1];
+    uint32_t b[4][2];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float* p = xc + (8 * kk + t) * XS + n0 + g;
+      b[kk][0] = tf32(p[0]);
+      b[kk][1] = tf32(p[4 * XS]);
+    }
+    float acc[2][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) mma_tf32(acc[mi], af[mi][kk], b[kk][0], b[kk][1]);
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      float* p = xn + (16 * mi + g) * XS + n0 + 2 * t;
+      *reinterpret_cast<float2*>(p) = make_float2(acc[mi][0], acc[mi][1]);
+      *reinterpret_cast<float2*>(p + 8 * XS) = make_float2(acc[mi][2], acc[mi][3]);
+    }
+    __syncwarp();  // the strip's writes before its reads, its reads before its next writes
   }
-  for (int t = threadIdx.x; t < TB * TILE; t += blockDim.x) o[t] = xc[t];
+  float* ot = o + (size_t)blockIdx.x * TILE;
+#pragma unroll
+  for (int h = 0; h < 8; h += 4)
+    *reinterpret_cast<float4*>(ot + lane * T + n0 + h) =
+        *reinterpret_cast<const float4*>(xs[K & 1] + lane * XS + n0 + h);
 }
 
 int launched() { return (int)cudaGetLastError(); }
@@ -512,7 +570,7 @@ int smem_limit(const void* kernel, size_t bytes, SmemLimits& set) {
   return set_err;
 }
 
-SmemLimits dyn4d_smem, chain_fp32_smem, chain_tf32_smem;
+SmemLimits dyn4d_smem;
 
 }  // namespace
 
@@ -612,18 +670,12 @@ extern "C" int probe_matvec_t(const float* a, const float* x, float* y, int B, v
 
 extern "C" int probe_chain_fp32(const float* a, float* o, int TB, int K, void* stream) {
   if (TB <= 0 || TB > 8 || K < 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = 3 * (size_t)TB * T * LDS * sizeof(float);
-  const int err = smem_limit((const void*)chain_fp32_kernel, smem, chain_fp32_smem);
-  if (err) return err;
-  chain_fp32_kernel<<<1, dim3(T, T), smem, (cudaStream_t)stream>>>(a, o, TB, K);
+  chain_fp32_kernel<<<TB, 32 * CHAIN_WARPS, 0, (cudaStream_t)stream>>>(a, o, K);
   return launched();
 }
 
 extern "C" int probe_chain_tf32(const float* a, float* o, int TB, int K, void* stream) {
   if (TB <= 0 || TB > 8 || K < 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = 3 * (size_t)TB * TILE * sizeof(float);
-  const int err = smem_limit((const void*)chain_tf32_kernel, smem, chain_tf32_smem);
-  if (err) return err;
-  chain_tf32_kernel<<<1, 128 * TB, smem, (cudaStream_t)stream>>>(a, o, TB, K);
+  chain_tf32_kernel<<<TB, 32 * CHAIN_WARPS, 0, (cudaStream_t)stream>>>(a, o, K);
   return launched();
 }

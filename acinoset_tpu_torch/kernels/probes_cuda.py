@@ -262,7 +262,7 @@ def _chain(launcher, wrapper, prec, a, K):
 
 def chain_highest(a, K):
     """Row 12, HIGHEST: K dependent steps x <- a @ x from x = a, in FP32
-    FMA, on TB <= 8 tiles a (TB, 32, 32) in one CTA; returns a^(K+1)."""
+    FMA, on TB <= 8 tiles a (TB, 32, 32), one CTA a tile; returns a^(K+1)."""
     return _chain("probe_chain_fp32", chain_highest, "highest", a, K)
 
 

@@ -28,7 +28,9 @@ Phases, one line each with its seconds:
                (probe_host_split), and rows 4 and 6 at the banded
                kernel's factor-array size (probe_band_stream); then
                the probe path (every probe entry point and the
-               time_chain table at both precisions), counting launches;
+               time_chain table at both precisions, beside each
+               precision's one-SM floor and the chain kernels'
+               registers and spills), counting launches;
   7. sweep   - the sweep's batched FTE stage on 128 synthetic runs
                (8 rigs x 16 seeds, 80-100 frames): solve_batch in chunks
                of 96 (pcg, 13 iterations) and the rescue pass, timed;
@@ -61,6 +63,7 @@ GOLDEN = os.path.join(ROOT, "tests", "golden", "fte_synthetic_n30.npz")
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
+H100_SMS = 132  # streaming multiprocessors: one SM's share of a peak is peak / 132
 
 
 def _phase(name, t0, text):
@@ -167,20 +170,27 @@ def _kernel_name(mangled):
     return mangled
 
 
-def _ptxas_summary(log):
-    """'kernel N regs' per kernel, and its spills if any, from nvcc -Xptxas -v."""
-    out, name = [], None
+def _ptxas_stats(log):
+    """{kernel: [registers, spill store bytes, spill load bytes]} from nvcc -Xptxas -v."""
+    out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             name = _kernel_name(m.group(1))
+            out[name] = [None, 0, 0]
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if m and name and m.groups() != ("0", "0"):
-            out.append(f"{name} spills {m.group(1)}/{m.group(2)} bytes")
+        if m and name:
+            out[name][1:] = [int(v) for v in m.groups()]
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            out.append(f"{name} {m.group(1)} regs")
-    return ", ".join(out)
+            out[name][0] = int(m.group(1))
+    return out
+
+
+def _ptxas_summary(log):
+    """'kernel N regs' per kernel, and its spills if any, from nvcc -Xptxas -v."""
+    return ", ".join(f"{k} {r} regs" + (f", {k} spills {st}/{ld} bytes" if st or ld else "")
+                     for k, (r, st, ld) in _ptxas_stats(log).items())
 
 
 def phase_build():
@@ -796,6 +806,7 @@ def phase_probes(device):
     path's shapes (the scripts' inputs), then the probe path itself: every
     probe entry point and the time_chain table, with the launch counts set
     to 0 just before and read just after."""
+    from acinoset_tpu_torch.kernels import _nvcc
     from acinoset_tpu_torch.kernels import probes_cuda as pk
     from acinoset_tpu_torch.probes import probe_mosaic as pm
     from acinoset_tpu_torch.probes import probe_mosaic2 as pm2
@@ -853,10 +864,19 @@ def phase_probes(device):
         raise AssertionError(f"probe kernels not launched on the probe path: {missing}")
     for name, n in launches.items():
         recs[name]["launches"] = n
-    print("[probes] time_chain ns/step (K=2000)   TB=1     TB=2     TB=4     TB=8", flush=True)
+    # a step is one 32 x 32 product a tile (2 * 32^3 operations) on one SM
+    floor = {prec: 1e9 * 2 * 32**3 * H100_SMS / (PEAK_FP32_FLOPS if prec == "highest" else
+                                                  PEAK_TF32_FLOPS) for prec in table}
+    print("[probes] time_chain ns/step (K=2000)   TB=1     TB=2     TB=4     TB=8  one-SM floor",
+          flush=True)
     for prec, row in table.items():
         label = "highest (FP32 FMA)" if prec == "highest" else "default (TF32 MMA)"
-        print(f"[probes]   {label:<30}" + "".join(f"{v:9.1f}" for v in row), flush=True)
+        print(f"[probes]   {label:<30}" + "".join(f"{v:9.1f}" for v in row)
+              + f"{floor[prec]:14.1f}", flush=True)
+    ptxas = _ptxas_stats(_nvcc.log_path(pk.LIBRARY).read_text())
+    print("[probes] chain kernels (ptxas): " + ", ".join(
+        f"{k} {r} registers, spills {st}/{ld} bytes (stores/loads)"
+        for k, (r, st, ld) in ptxas.items() if k.startswith("chain_")), flush=True)
     _phase("probes", t0, f"13 kernels match their plain versions; launches {launches}")
     return list(recs.values())
 

@@ -282,9 +282,9 @@ def test_probe_source_holds_one_hand_written_kernel_per_row():
     after a proxy fence and waits for their reads, both over a grid that
     grows with the row (one CTA per 2 KB column slice), not one CTA; row 9
     copies into its slab with 16-byte cp.async; no library or PyTorch
-    header."""
+    header; the chains run one CTA a tile, TF32 by raw mma.sync."""
     src = pk.SOURCE.read_text()
-    kernels = re.findall(r"__global__ void (\w+)\(", src)
+    kernels = re.findall(r"__global__ void (?:__launch_bounds__\([^)]*\)\s+)?(\w+)\(", src)
     assert len(kernels) == 13 == len(set(kernels)) == len(pk.KERNELS)
     for name in pk._SIGNATURES:
         assert f'extern "C" int {name}(' in src
@@ -301,7 +301,12 @@ def test_probe_source_holds_one_hand_written_kernel_per_row():
         assert grid == "(row4 + BULK_THREADS - 1) / BULK_THREADS"
     assert re.search(r"constexpr int BULK_THREADS = 128;", src)
     assert "cp.async.cg.shared.global" in src
-    assert "precision::tf32" in src
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in src
+    assert "cvt.rna.tf32.f32" in src
+    for launcher, kernel in (("probe_chain_fp32", "chain_fp32_kernel"),
+                             ("probe_chain_tf32", "chain_tf32_kernel")):
+        body = src[src.index(f'extern "C" int {launcher}('):]
+        assert re.search(kernel + r"<<<TB, ", body[:body.index("\n}\n")])  # one CTA a tile
     assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in src
     for banned in ("cublas", "cudnn", "torch/", "cutlass"):
         assert banned not in src.lower()

@@ -112,3 +112,25 @@ def test_dyn4d_kernel_is_exact_on_edge_shapes(cuda, shape):
 def test_bulk_copy_kernels_are_exact_on_edge_shapes(cuda, row, shape):
     plain = {"dma_hbm_ring": pm.dma_hbm_ring_plain, "dma_out_any": pm.dma_out_any_plain}[row]
     _exact_on_the_card(cuda, pk.KERNELS[row], plain, shape, sum(shape))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prec", ["highest", "default"])
+@pytest.mark.parametrize("K", [0, 1, 2, 3, 17])  # odd and even: the ping-pong's parity
+@pytest.mark.parametrize("tb", range(1, pk.MAX_CHAIN_TILES + 1))
+def test_chain_kernels_on_every_tile_count(cuda, tb, K, prec):
+    """One CTA per tile: each of TB tiles against the plain version, on
+    seeded 0.9 Q (chip_smoke.probe_cases' Frobenius tolerance at this K)
+    and exactly on the script's 0.999 I; two launches bit-identical."""
+    wrapper = pk.chain_highest if prec == "highest" else pk.chain_tf32
+    tol = ("frob", K * (32 * 2.0**-24 if prec == "highest" else 2.0**-10))
+    q, _ = np.linalg.qr(np.random.default_rng(100 * tb + K).normal(size=(tb, 32, 32)))
+    eye = (torch.eye(32, device=cuda)[None] * 0.999).repeat(tb, 1, 1)
+    for a, t in ((torch.as_tensor(0.9 * q, dtype=torch.float32, device=cuda), tol), (eye, "exact")):
+        before = wrapper.launches
+        got = wrapper(a, K)
+        again = wrapper(a, K)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 2
+        assert torch.equal(got, again)
+        chip_smoke.probe_error(got, pm2.chain_plain(a, K, prec), t)

@@ -46,6 +46,7 @@ _SIGNATURES = {
     "probe_matvec_t": (3, 1),
     "probe_chain_fp32": (2, 2),
     "probe_chain_tf32": (2, 2),
+    "probe_empty": (0, 0),
 }
 
 _F32 = torch.float32
@@ -233,9 +234,9 @@ def dyn4d_scratch(a):
 
 
 def write_input_ref(a):
-    """Row 10: the recurrence a[n] = 2 a[n] + a[n-1] over a (N, TB, 32, 32),
-    run in a copy: the input is left as it was."""
-    _shape("a", a, 4, TILE)
+    """Row 10: the recurrence a[n] = 2 a[n] + a[n-1] over a (N, ...) taken
+    as N rows of any size (the probe's is (N, TB, 32, 32)), run in a copy:
+    the input is left as it was."""
     return _row_kernel("probe_recur", _pm2.write_input_ref_plain, write_input_ref, a)
 
 
@@ -270,6 +271,17 @@ def chain_tf32(a, K):
     """Row 12, DEFAULT: the chain on the TF32 tensor cores (a and each x
     rounded to TF32, FP32 accumulation)."""
     return _chain("probe_chain_tf32", chain_tf32, "default", a, K)
+
+
+def empty(device):
+    """Launch the empty kernel once on CUDA device ``device``'s current
+    stream, through the probes' launch path: a measuring aid (the floor
+    under the probes' device times), not a ported kernel, so neither in
+    ``KERNELS`` nor counted."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"the empty kernel runs on a CUDA device, not {device}")
+    _launch("probe_empty", torch.cuda.current_device() if device.index is None else device.index)
 
 
 #: every wrapper, by the name chip_smoke.py and PERF.md give its kernel

@@ -24,9 +24,11 @@ Phases, one line each with its seconds:
                against their plain versions on seeded random inputs and
                on the scripts' own inputs, with their times and bounds,
                their library calls' times (events and torch.profiler),
-               and where the host time of a launch of rows 5 and 9 goes
-               (probe_host_split), and rows 4 and 6 at the banded
-               kernel's factor-array size (probe_band_stream); then
+               an empty kernel's device time (the floor under them),
+               where the host time of a launch of rows 5 and 9 goes
+               (probe_host_split), and rows 1-11 at the flagship's shape,
+               the banded kernel's factor-array size, each held to its
+               plain version (probe_band_stream); then
                the probe path (every probe entry point and the
                time_chain table at both precisions, beside each
                precision's one-SM floor and the chain kernels'
@@ -281,29 +283,42 @@ def phase_kernel(device, B=96, N=100, P=25):
     return rec
 
 
-def _ms_per_launch(events, tag):
-    """Mean device ms per launch of the kernels whose name holds `tag`,
-    from torch.profiler's key_averages(); nan if none ran."""
-    hits = [e for e in events if tag in e.key and e.self_device_time_total > 0]
+def _device_events(events, name=None):
+    """The kernels in torch.profiler's key_averages() that ran on the
+    device: those of the __global__ function `name`, or with no name all."""
+    return [e for e in events if e.self_device_time_total > 0
+            and (name is None or f"::{name}(" in e.key)]
+
+
+def _ms_per_launch(events, name):
+    """Mean device ms per launch of the __global__ function `name`, from
+    torch.profiler's key_averages(); nan if none ran."""
+    hits = _device_events(events, name)
     n = sum(e.count for e in hits)
     return sum(e.self_device_time_total for e in hits) / 1e3 / n if n else float("nan")
 
 
-def kernel_device_ms(launch, name=None, reps=10):
+def kernel_device_ms(launch, name=None, reps=10, tries=3):
     """Device ms per call of `launch` (torch.profiler), over `reps` calls
     after one warm-up: the __global__ function `name`'s own time per
-    launch, or with no name every kernel the call launches."""
+    launch, or with no name every kernel the call launches. The profiler
+    now and then drops device events: a session whose count of kernels is
+    not a whole multiple of `reps` (for `name`, not `reps`) is run again,
+    up to `tries` sessions; nan if none was whole."""
     from torch.profiler import ProfilerActivity, profile
 
     launch()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            launch()
-        torch.cuda.synchronize()
-    if name is not None:
-        return _ms_per_launch(prof.key_averages(), f"::{name}(")
-    return sum(e.self_device_time_total for e in prof.key_averages()) / 1e3 / reps
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                launch()
+            torch.cuda.synchronize()
+        hits = _device_events(prof.key_averages(), name)
+        n = sum(e.count for e in hits)
+        if n == reps if name is not None else n > 0 and n % reps == 0:
+            return sum(e.self_device_time_total for e in hits) / 1e3 / reps
+    return float("nan")
 
 
 #: the phases between a frame's clock stamps in the banded kernel, and
@@ -512,14 +527,18 @@ CHAIN_K_RANDOM = 16
 def probe_cases():
     """Per probe kernel: its __global__ function, its plain version, the
     TPU kernel it replaces, inputs at the probe path's shapes (seeded
-    random, and the scripts' own), the tolerance, its operations and the
-    one PyTorch call that computes the same function. For
+    random, and the scripts' own), the tolerance, its operations as a
+    function of its inputs, and the one PyTorch call that computes the
+    same function, timed and never held to the kernel. For
     value_at_set_static that call is torch.mul(a, s) with the constant
     (32,) row s = [2, 2, 2, 2, 1, ..., 1], made once per device on the
     first call (the warm-up), as dma_hbm_ring's is torch.add(x, 1.0).
-    There is none for write_input_ref (a weighted scan) or the chains
-    (torch.linalg.matrix_power reaches a^(K+1) by log2 K squarings: other
-    work than the K dependent steps the probe times).
+    write_input_ref computes 2 * cumsum(a, 0); its call is
+    torch.cumsum(a, 0), without the x2, which flatters the library by
+    one pass. The chains' is torch.linalg.matrix_power(a, K + 1), under
+    f32_matmuls() at HIGHEST and with TF32 matmuls allowed at DEFAULT: it
+    reaches a^(K+1) by about log2 K squarings, other work than the K
+    dependent steps the probe times.
 
     Tolerances, against the plain version on the same card: 'exact' for
     the rows that move or scale data and for the recurrences (the same
@@ -573,77 +592,96 @@ def probe_cases():
             return torch.mul(a, s)
         return call
 
+    def numel(a):
+        return a.numel()
+
+    def chain_flops(a, k):
+        return k * a.shape[0] * 2 * P**3
+
+    def matrix_power(a, k):
+        return torch.linalg.matrix_power(a, k + 1)
+
+    def matrix_power_tf32(a, k):
+        saved = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            return torch.linalg.matrix_power(a, k + 1)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = saved
+
     PM, PM2 = "scripts/probe_mosaic.py", "scripts/probe_mosaic2.py"
     rt = ("rtol", 1e-5)
     return {
         "batched_dot": dict(
             kernel="batched_dot_kernel",
-            replaces=f"{PM}:34", plain=pm.batched_dot_plain, tol=rt, flops=2 * B * P**3,
-            random=[rnd(*S3), rnd(*S3)], script=[ones(*S3), ones(*S3)],
-            library=lambda a, b: torch.bmm(a, b)),
+            replaces=f"{PM}:34", plain=pm.batched_dot_plain, tol=rt,
+            flops=lambda a, b: 2 * a.numel() * P, random=[rnd(*S3), rnd(*S3)],
+            script=[ones(*S3), ones(*S3)], library=lambda a, b: torch.bmm(a, b)),
         "bcast_mul_lane_reduce": dict(
             kernel="lane_reduce_kernel",
             replaces=f"{PM}:49", plain=pm.bcast_mul_lane_reduce_plain, tol=rt,
-            flops=2 * B * P * P, random=[rnd(*S3), rnd(B, P)],
+            flops=lambda a, v: 2 * a.numel(), random=[rnd(*S3), rnd(B, P)],
             script=[ones(*S3), ones(B, P, v=2.0)],
             library=lambda a, v: torch.matmul(a, v[..., None])),
         "value_at_set_static": dict(
             kernel="scale_cols_kernel",
             replaces=f"{PM}:67", plain=pm.value_at_set_static_plain, tol="exact",
-            flops=B * P * 4, random=[rnd(*S3)], script=[ones(*S3)], library=col_scale_mul()),
+            flops=lambda a: a.numel() // P * 4, random=[rnd(*S3)], script=[ones(*S3)],
+            library=col_scale_mul()),
         "dma_hbm_ring": dict(
             kernel="dma_ring_kernel",
-            replaces=f"{PM}:90", plain=pm.dma_hbm_ring_plain, tol="exact", flops=4 * B * P,
+            replaces=f"{PM}:90", plain=pm.dma_hbm_ring_plain, tol="exact", flops=numel,
             random=[rnd(4, B, P)], script=[arange(4, B, P)],
             library=lambda x: torch.add(x, 1.0)),
         "ring_dyn_index": dict(
             kernel="ring_prefix_kernel",
-            replaces=f"{PM}:117", plain=pm.ring_dyn_index_plain, tol="exact", flops=6 * B * P,
+            replaces=f"{PM}:117", plain=pm.ring_dyn_index_plain, tol="exact", flops=numel,
             random=[rnd(6, B, P)], script=[ones(6, B, P)],
             library=lambda a: torch.cumsum(a, 0)),
         "dma_out_any": dict(
             kernel="dma_out_kernel",
-            replaces=f"{PM}:141", plain=pm.dma_out_any_plain, tol="exact", flops=4 * B * P,
+            replaces=f"{PM}:141", plain=pm.dma_out_any_plain, tol="exact", flops=numel,
             random=[rnd(4, B, P)], script=[ones(4, B, P)],
             library=lambda x: torch.mul(x, 3.0)),
         "batched_matvec": dict(
             kernel="matvec_kernel",
-            replaces=f"{PM}:161", plain=pm.batched_matvec_plain, tol=rt, flops=2 * B * P * P,
-            random=[rnd(*S3), rnd(B, P)], script=[ones(*S3), ones(B, P, v=2.0)],
+            replaces=f"{PM}:161", plain=pm.batched_matvec_plain, tol=rt,
+            flops=lambda a, v: 2 * a.numel(), random=[rnd(*S3), rnd(B, P)],
+            script=[ones(*S3), ones(B, P, v=2.0)],
             library=lambda a, v: torch.bmm(a, v[..., None])),
         "batched_transpose": dict(
             kernel="transpose_kernel",
-            replaces=f"{PM}:176", plain=pm.batched_transpose_plain, tol="exact", flops=0,
-            random=[rnd(*S3)], script=[arange(*S3)],
+            replaces=f"{PM}:176", plain=pm.batched_transpose_plain, tol="exact",
+            flops=lambda a: 0, random=[rnd(*S3)], script=[arange(*S3)],
             library=lambda a: a.transpose(-1, -2).contiguous()),
         "dyn4d_scratch": dict(
             kernel="dyn4d_kernel",
             replaces=f"{PM2}:44", plain=pm2.dyn4d_scratch_plain, tol="exact",
-            flops=5 * TB * P * P, random=[rnd(5, TB, P, P)], script=[ones(5, TB, P, P)],
+            flops=numel, random=[rnd(5, TB, P, P)], script=[ones(5, TB, P, P)],
             library=lambda a: torch.cumsum(a, 0)),
         "write_input_ref": dict(
             kernel="recur_kernel",
             replaces=f"{PM2}:66", plain=pm2.write_input_ref_plain, tol="exact",
-            flops=2 * 5 * TB * P * P, random=[rnd(5, TB, P, P)], script=[ones(5, TB, P, P)],
-            library=None),
+            flops=lambda a: 2 * a.numel(), random=[rnd(5, TB, P, P)],
+            script=[ones(5, TB, P, P)], library=lambda a: torch.cumsum(a, 0)),
         "matvec_transposed_contract": dict(
             kernel="matvec_t_kernel",
             replaces=f"{PM2}:84", plain=pm2.matvec_transposed_contract_plain, tol=rt,
-            flops=2 * TB * P * P, random=[rnd(TB, P, P), rnd(TB, P)],
+            flops=lambda a, v: 2 * a.numel(), random=[rnd(TB, P, P), rnd(TB, P)],
             script=[arange(TB, P, P, div=100.0), ones(TB, P)],
             library=lambda a, v: torch.bmm(a.mT, v[..., None])),
         "chain_highest": dict(
             kernel="chain_fp32_kernel",
             replaces=f"{PM2}:108", plain=lambda a, k: pm2.chain_plain(a, k, "highest"),
             tol=("frob", CHAIN_K_RANDOM * 32 * 2.0**-24),
-            flops=K * 8 * 2 * P**3, random=[orth(8), const(CHAIN_K_RANDOM)],
-            script=[eye(8), const(K)], library=None, script_tol="exact"),
+            flops=chain_flops, random=[orth(8), const(CHAIN_K_RANDOM)],
+            script=[eye(8), const(K)], library=matrix_power, script_tol="exact"),
         "chain_tf32": dict(
             kernel="chain_tf32_kernel",
             replaces=f"{PM2}:108", plain=lambda a, k: pm2.chain_plain(a, k, "default"),
-            tol=("frob", CHAIN_K_RANDOM * 2.0**-10), flops=K * 8 * 2 * P**3, peak=PEAK_TF32_FLOPS,
-            random=[orth(8), const(CHAIN_K_RANDOM)], script=[eye(8), const(K)], library=None,
-            script_tol="exact"),
+            tol=("frob", CHAIN_K_RANDOM * 2.0**-10), flops=chain_flops, peak=PEAK_TF32_FLOPS,
+            random=[orth(8), const(CHAIN_K_RANDOM)], script=[eye(8), const(K)],
+            library=matrix_power_tf32, script_tol="exact"),
     }
 
 
@@ -694,7 +732,7 @@ def probe_device_ms(cases, args_by_name, reps=50):
                 pk.KERNELS[name](*args)
         torch.cuda.synchronize()
     events = prof.key_averages()
-    kernel = {name: _ms_per_launch(events, f"::{cases[name]['kernel']}(") for name in args_by_name}
+    kernel = {name: _ms_per_launch(events, cases[name]["kernel"]) for name in args_by_name}
     library = {}
     for name, args in args_by_name.items():
         lib = cases[name]["library"]
@@ -767,38 +805,81 @@ def probe_host_split(device, args_by_name):
     return split
 
 
-#: rows 4 and 6 at the size where a bulk copy would matter here: the
-#: banded kernel's factor array fac, (B, N, 4, 32, 32) at the flagship
-#: batch, taken frames first (N = 100 rows of B x 4 x 32 x 32 floats)
+#: the probe rows at the flagship's shape: the banded kernel's factor
+#: array fac, (B, N, 4, 32, 32) at the flagship batch (157.3 MB). The rows
+#: that scan or stream rows take it frames first, N = 100 rows of
+#: 96 x 4 x 32 x 32 floats (rows 9 and 10 as (100, 384, 32, 32)); the tile
+#: rows take it as its 38,400 tiles of 32 x 32, with a (38,400, 32) vector
+#: where the row has one
 BAND_STREAM_SHAPE = (100, 96, 4, 32, 32)
-BAND_STREAM_ROWS = ("dma_hbm_ring", "dma_out_any")
+_TILES = (100 * 96 * 4, 32, 32)
+_VECS = (100 * 96 * 4, 32)
+BAND_STREAM_INPUTS = {
+    "batched_dot": [_TILES, _TILES],
+    "bcast_mul_lane_reduce": [_TILES, _VECS],
+    "value_at_set_static": [_TILES],
+    "dma_hbm_ring": [BAND_STREAM_SHAPE],
+    "ring_dyn_index": [BAND_STREAM_SHAPE],
+    "dma_out_any": [BAND_STREAM_SHAPE],
+    "batched_matvec": [_TILES, _VECS],
+    "batched_transpose": [_TILES],
+    "dyn4d_scratch": [(100, 384, 32, 32)],
+    "write_input_ref": [(100, 384, 32, 32)],
+    "matvec_transposed_contract": [_TILES, _VECS],
+}
+#: tiles a chunk of a tile row's plain version takes at a time: row 1's
+#: broadcast product of all 38,400 tiles would hold 5 GB at once
+PLAIN_CHUNK = 4096
+
+
+def _plain_at(case, name, args):
+    """The case's plain version on `args`, in chunks of PLAIN_CHUNK tiles
+    for the tile rows (each tile's result depends on that tile alone)."""
+    if BAND_STREAM_INPUTS[name][0] != _TILES:
+        return case["plain"](*args)
+    return torch.cat([case["plain"](*(a[i:i + PLAIN_CHUNK] for a in args))
+                      for i in range(0, args[0].shape[0], PLAIN_CHUNK)])
 
 
 def probe_band_stream(device, cases, reps=20):
-    """Measurement and check: rows 4 and 6 at BAND_STREAM_SHAPE on a seeded
-    random input, each held to its plain version with torch.equal; the
-    kernel's ms by events and on the device (torch.profiler), its library
-    call's the same two ways, and the share of the bytes bound (the input
-    read once, the output written once) that each reaches."""
+    """Measurement and check: every probe row 1-11 at the flagship's shape
+    (BAND_STREAM_INPUTS) on seeded random inputs, each held to its plain
+    version with the case's tolerance; the kernel's ms by events and on
+    the device (torch.profiler), its library call's the same two ways,
+    and the share of the bound (each input read once, the output written
+    once, against the operations at the case's peak) that each reaches.
+    Returns {row: {"bound_ms", "bound_by", "ms", "device_ms",
+    "library_ms", "library_device_ms", "max_abs_err"}}."""
     from acinoset_tpu_torch.kernels import probes_cuda as pk
+    from acinoset_tpu_torch.utils.precision import f32_matmuls
 
-    x = torch.randn(BAND_STREAM_SHAPE, device=device,
-                    generator=torch.Generator(device=device).manual_seed(9))
-    bound = 1e3 * 2 * 4 * x.numel() / PEAK_BYTES_PER_S
-    for name in BAND_STREAM_ROWS:
+    gen = torch.Generator(device=device).manual_seed(9)
+    out = {}
+    for name, shapes in BAND_STREAM_INPUTS.items():
         case, wrapper, lib = cases[name], pk.KERNELS[name], cases[name]["library"]
-        got = wrapper(x)
-        torch.cuda.synchronize()
-        if not torch.equal(got, case["plain"](x)):
-            raise AssertionError(f"{name} differs from its plain version at {BAND_STREAM_SHAPE}")
-        del got
-        r = dict(ms=_cuda_ms(lambda: wrapper(x), reps),
-                 device_ms=kernel_device_ms(lambda: wrapper(x), case["kernel"]),
-                 library_ms=_cuda_ms(lambda: lib(x), reps),
-                 library_device_ms=kernel_device_ms(lambda: lib(x)))
-        print(f"[probes] band stream {name} {BAND_STREAM_SHAPE} ({4 * x.numel() / 1e6:.1f} MB each "
-              f"way; equal to plain): bound_ms {bound:.4f} (bytes); " + ", ".join(
-                  f"{k} {v:.4f} ({100 * bound / v:.1f}% of bound)" for k, v in r.items()), flush=True)
+        args = [torch.randn(shape, device=device, generator=gen) for shape in shapes]
+        with f32_matmuls():
+            got = wrapper(*args)
+            torch.cuda.synchronize()
+            err = probe_error(got, _plain_at(case, name, args), case["tol"])
+            nbytes = 4 * (sum(a.numel() for a in args) + got.numel())
+            del got
+            t_ops = case["flops"](*args) / case.get("peak", PEAK_FP32_FLOPS)
+            t_bytes = nbytes / PEAK_BYTES_PER_S
+            r = dict(ms=_cuda_ms(lambda: wrapper(*args), reps),
+                     device_ms=kernel_device_ms(lambda: wrapper(*args), case["kernel"], reps),
+                     library_ms=_cuda_ms(lambda: lib(*args), reps),
+                     library_device_ms=kernel_device_ms(lambda: lib(*args), reps=reps))
+        bound = 1e3 * max(t_ops, t_bytes)
+        bound_by = "operations" if t_ops >= t_bytes else "bytes"
+        print(f"[probes] flagship shape {name} {[tuple(a.shape) for a in args]} "
+              f"({nbytes / 1e6:.1f} MB moved; max_abs_err {err:.3g}, tol {case['tol']}): "
+              f"bound_ms {bound:.4f} ({bound_by}); " + ", ".join(
+                  f"{k} {v:.4f} ({100 * bound / v:.1f}% of bound)" for k, v in r.items()),
+              flush=True)
+        out[name] = dict(r, bound_ms=bound, bound_by=bound_by, max_abs_err=err)
+        del args
+    return out
 
 
 def phase_probes(device):
@@ -828,7 +909,7 @@ def phase_probes(device):
             library_ms = _cuda_ms(lambda: lib(*args), reps=200, warmup=2) if lib else None
         tensors = [a for a in args if torch.is_tensor(a)]
         nbytes = 4 * (sum(a.numel() for a in tensors) + n_out)
-        t_ops = case["flops"] / case.get("peak", PEAK_FP32_FLOPS)
+        t_ops = case["flops"](*args) / case.get("peak", PEAK_FP32_FLOPS)
         t_bytes = nbytes / PEAK_BYTES_PER_S
         recs[name] = dict(
             name=name, route="cuda", source="acinoset_tpu_torch/kernels/csrc/probes.cu",
@@ -846,6 +927,10 @@ def phase_probes(device):
     print("[probes] library call's device ms per call (torch.profiler): "
           + ", ".join(f"{k} {'none' if v is None else f'{v:.5f}'}"
                       for k, v in library_device_ms.items()), flush=True)
+    floor_ms = kernel_device_ms(lambda: pk.empty(device), "empty_kernel", reps=50)
+    print(f"[probes] floor: empty kernel {floor_ms:.5f} device ms per launch (torch.profiler, "
+          f"50 launches); at the scripts' shapes torch.add {library_device_ms['dma_hbm_ring']:.5f}, "
+          f"torch.mul {library_device_ms['dma_out_any']:.5f}", flush=True)
     probe_host_split(device, path_args)
     probe_band_stream(device, cases)
 

@@ -139,6 +139,46 @@ def test_write_input_ref_leaves_its_input_unchanged():
     assert not torch.equal(out, a)
 
 
+#: edge shapes the wrappers take, each against its Pallas body: row 1 at
+#: one tile and an odd count of tiles; row 10 at one row (the body runs its
+#: fixed 5 steps; the recurrence is causal, so the first n rows of its
+#: result are the n-row result) and at rows of 9 floats, not a multiple of
+#: 4 (the body run with its module's TB and P set to 1 and 3)
+EDGE_CASES = [("batched_dot", (1, P, P)), ("batched_dot", (7, P, P)),
+              ("write_input_ref", (1, TB, P, P)), ("write_input_ref", (5, 1, 3, 3)),
+              ("write_input_ref", (1, 1, 3, 3))]
+
+
+@pytest.mark.parametrize("name, shape", EDGE_CASES)
+def test_probe_matches_pallas_body_on_edge_shapes(name, shape, monkeypatch):
+    r = np.random.default_rng(sum(shape))
+    if name == "batched_dot":
+        xs = [r.normal(size=shape).astype(np.float32) for _ in range(2)]
+        got = pk.batched_dot(*(torch.tensor(x) for x in xs)).numpy()
+        _compare(got, _pallas(PM.k1, shape, [VMEM] * 2)(*xs), exact=False)
+        return
+    n, tb, p, _ = shape
+    monkeypatch.setattr(PM2, "TB", tb)
+    monkeypatch.setattr(PM2, "P", p)
+    a = r.normal(size=(5, tb, p, p)).astype(np.float32)
+    got = pk.write_input_ref(torch.tensor(a[:n])).numpy()
+    _compare(got, _pallas(PM2.k2, a.shape, [VMEM])(a)[:n], exact=True)
+
+
+def test_write_input_ref_is_twice_cumsum_within_summation_order():
+    """2 * torch.cumsum(a, 0), row 10's library call, computes the plain
+    loop's function: 2 a[n] is exact, and two float32 sums of the same n
+    terms in different orders differ by at most 2 n 2^-24 of the sum of
+    the terms' magnitudes. On the CPU cumsum does not add in the loop's
+    order, so the two are close, not equal."""
+    a = torch.tensor(np.random.default_rng(6).normal(size=(5, TB, P, P)), dtype=torch.float32)
+    want = tpm2.write_input_ref_plain(a)
+    got = 2 * torch.cumsum(a, 0)
+    n = torch.arange(1, 6, dtype=torch.float32).reshape(5, 1, 1, 1)
+    bound = 2 * n * 2.0**-24 * torch.cumsum(2 * a.abs(), 0)
+    assert torch.all((got - want).abs() <= bound)
+
+
 def _chain_pallas(a, K, prec):
     return _pallas(partial(PM2.chain_kernel, K=K, prec=prec), a.shape, [VMEM])(a)
 
@@ -281,10 +321,13 @@ def test_probe_source_holds_one_hand_written_kernel_per_row():
     completing on per-slot mbarriers, row 6 stores with bulk async copies
     after a proxy fence and waits for their reads, both over a grid that
     grows with the row (one CTA per 2 KB column slice), not one CTA; row 9
-    copies into its slab with 16-byte cp.async; no library or PyTorch
-    header; the chains run one CTA a tile, TF32 by raw mma.sync."""
+    copies into its slab with 16-byte cp.async; row 1 runs register tiles
+    and row 10 one pass; no library or PyTorch header; the chains run one
+    CTA a tile, TF32 by raw mma.sync; beside them, one empty kernel, a
+    measuring aid."""
     src = pk.SOURCE.read_text()
     kernels = re.findall(r"__global__ void (?:__launch_bounds__\([^)]*\)\s+)?(\w+)\(", src)
+    kernels.remove("empty_kernel")  # the floor under the probes' device times, not a port
     assert len(kernels) == 13 == len(set(kernels)) == len(pk.KERNELS)
     for name in pk._SIGNATURES:
         assert f'extern "C" int {name}(' in src
@@ -308,6 +351,12 @@ def test_probe_source_holds_one_hand_written_kernel_per_row():
         body = src[src.index(f'extern "C" int {launcher}('):]
         assert re.search(kernel + r"<<<TB, ", body[:body.index("\n}\n")])  # one CTA a tile
     assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in src
+    # row 1: one CTA of 128 threads a tile, each a 2 x 4 block of registers; row 10:
+    # row 5's grid of float4 columns, o[n-1] carried in registers, never read back
+    assert "batched_dot_kernel<<<B, DOT_THREADS, " in src and "float acc[2][4]" in src
+    assert re.search(r"recur_kernel<<<\(cols \+ RING_THREADS - 1\) / RING_THREADS, RING_THREADS", src)
+    recur = src[src.index("void recur("):src.index("__global__ void recur_kernel")]
+    assert "o[" in recur and "= o[" not in recur and "+ o[" not in recur
     for banned in ("cublas", "cudnn", "torch/", "cutlass"):
         assert banned not in src.lower()
     assert pk.LIBRARY.parent.name == "_build" and pk.LIBRARY.name == "libprobes.so"

@@ -115,6 +115,38 @@ def test_bulk_copy_kernels_are_exact_on_edge_shapes(cuda, row, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (1, 4, 32, 32),  # N = 1
+    (6, 5), (17, 3),  # rows of 5 and 3 floats: one float a thread; 17 rows, past 2 x 8 hoisted
+    (6, 1030),  # one float a thread, nine CTAs, the last with six threads
+    (19, 16, 32), (9, 4),  # float4 columns: 19 rows; one column
+    (5, 4, 32, 32),  # the probe's shape
+    (100, 384, 32, 32),  # the flagship's, 157 MB: 768 CTAs
+])
+def test_recur_kernel_is_exact_on_edge_shapes(cuda, shape):
+    _exact_on_the_card(cuda, pk.write_input_ref, pm2.write_input_ref_plain, shape, sum(shape))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [
+    1, 7, 16,  # one tile, an odd count, the probe's
+    133, 2113,  # one CTA a tile: one past the 132 SMs; an odd count over many waves
+    38400,  # the flagship's 100 x 96 x 4 tiles
+])
+def test_batched_dot_kernel_matches_plain_on_edge_batches(cuda, B):
+    cases = chip_smoke.probe_cases()
+    gen = torch.Generator(device=cuda).manual_seed(B)
+    a, b = (torch.randn((B, 32, 32), device=cuda, generator=gen) for _ in range(2))
+    before = pk.batched_dot.launches
+    got = pk.batched_dot(a, b)
+    torch.cuda.synchronize()
+    assert pk.batched_dot.launches == before + 1
+    want = chip_smoke._plain_at(cases["batched_dot"], "batched_dot", [a, b])
+    chip_smoke.probe_error(got, want, cases["batched_dot"]["tol"])
+    assert torch.equal(got, pk.batched_dot(a, b))  # every sum in one order: deterministic
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("prec", ["highest", "default"])
 @pytest.mark.parametrize("K", [0, 1, 2, 3, 17])  # odd and even: the ping-pong's parity
 @pytest.mark.parametrize("tb", range(1, pk.MAX_CHAIN_TILES + 1))

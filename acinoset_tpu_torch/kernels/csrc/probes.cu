@@ -50,12 +50,6 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                : "memory");
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int s = 16; s > 0; s >>= 1) v += __shfl_xor_sync(0xffffffffu, v, s);
-  return v;
-}
-
 // ---- row 1: probe_mosaic.k1, batched dot (B,32,32) @ (B,32,32), HIGHEST:
 // FP32 FMAs, no TF32. One CTA of DOT_THREADS = 128 threads a tile. Its
 // threads first copy both operands into shared memory with 16-byte
@@ -124,28 +118,65 @@ __global__ void __launch_bounds__(DOT_THREADS)
         make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
 }
 
-// ---- rows 2 and 7: y[r] = sum_j a[r, j] v[r / 32, j] over the rows r of a
-// (B,32,32). One warp per row: lane j holds one product, __shfl_xor_sync
-// folds the 32 into the sum. probe_mosaic.k2 (broadcast multiply + lane
-// reduction) and probe_mosaic.k7 (batched matvec) compute the same function
-// and keep separate kernels, as the probes did.
-__device__ __forceinline__ void row_dot(const float* __restrict__ a, const float* __restrict__ v,
-                                        float* __restrict__ y, int rows) {
-  const int r = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
-  const int lane = threadIdx.x & 31;
-  if (r >= rows) return;  // the whole warp leaves together
-  const float s = warp_sum(a[(size_t)r * T + lane] * v[(size_t)(r / T) * T + lane]);
-  if (lane == 0) y[r] = s;
+// ---- rows 2 and 7: y[b, i] = sum_j a[b, i, j] v[b, j], a (B,32,32), v (B,32).
+// probe_mosaic.k2 (broadcast multiply + lane reduction) and probe_mosaic.k7
+// (batched matvec) compute the same function and keep separate kernels, as the
+// probes did, behind one device function. Bound by the bytes (each tile read
+// once), so the design keeps each tile's bytes in flight together. One CTA of
+// one warp a tile. Lane l takes the tile's float4 number l + 32k for k = 0..7,
+// that is row (l >> 3) + 4k, columns 4(l & 7)..+3: each of the eight loads is
+// one coalesced 512-byte warp access, and all eight are issued before any is
+// used: 4 KB a warp, and with 32 such CTAs resident an SM (the most it holds)
+// up to 128 KB an SM in flight, well above the ~20 KB that 3.35 TB/s over 132
+// SMs needs at ~0.7 us of load latency. Lane l reads v's float4 number l & 7
+// once and forms eight partial row sums of four products each (j order). A
+// reduce-scatter over the eight lanes of a row group (shuffle distances 4, 2,
+// 1; 4 + 2 + 1 values sent) leaves lane l the whole sum of row
+// (l >> 3) + 4(l & 7), and the warp writes its 32 sums as one 128-byte store.
+// The order of every sum is fixed: the result is the same on every launch.
+// Eight tiles a CTA ran as fast at 38,400 tiles but 0.2 us slower at 16, where
+// they put the 16 tiles on 2 SMs rather than 16.
+
+// one of two partial sums plus the same one from the lane whose bit `d`
+// differs: the lane with bit d clear keeps `lo` and sends `hi`, its partner
+// the reverse
+__device__ __forceinline__ float fold(float lo, float hi, int d) {
+  const bool up = threadIdx.x & d;
+  return (up ? hi : lo) + __shfl_xor_sync(0xffffffffu, up ? lo : hi, d);
 }
 
-__global__ void lane_reduce_kernel(const float* __restrict__ a, const float* __restrict__ v,
-                                   float* __restrict__ y, int rows) {
-  row_dot(a, v, y, rows);
+__device__ __forceinline__ void tile_matvec(const float* __restrict__ a,
+                                            const float* __restrict__ v,
+                                            float* __restrict__ y) {
+  const size_t b = blockIdx.x;
+  const int lane = threadIdx.x, q = lane & 7;
+  const float4* at = reinterpret_cast<const float4*>(a + b * TILE) + lane;
+  float4 t[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) t[k] = at[32 * k];
+  const float4 w = reinterpret_cast<const float4*>(v + b * T)[q];
+  float p[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    p[k] = fmaf(t[k].w, w.w, fmaf(t[k].z, w.z, fmaf(t[k].y, w.y, t[k].x * w.x)));
+  float r[4], s[2];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) r[k] = fold(p[k], p[k + 4], 4);  // sum k + (q & 4)
+#pragma unroll
+  for (int k = 0; k < 2; ++k) s[k] = fold(r[k], r[k + 2], 2);  // sum k + (q & 6)
+  y[b * T + (lane >> 3) + 4 * q] = fold(s[0], s[1], 1);  // sum q
 }
 
-__global__ void matvec_kernel(const float* __restrict__ a, const float* __restrict__ v,
-                              float* __restrict__ y, int rows) {
-  row_dot(a, v, y, rows);
+__global__ void __launch_bounds__(32)
+    lane_reduce_kernel(const float* __restrict__ a, const float* __restrict__ v,
+                       float* __restrict__ y) {
+  tile_matvec(a, v, y);
+}
+
+__global__ void __launch_bounds__(32)
+    matvec_kernel(const float* __restrict__ a, const float* __restrict__ v,
+                  float* __restrict__ y) {
+  tile_matvec(a, v, y);
 }
 
 // ---- row 3: probe_mosaic.k3, columns 0..3 of every tile times 2. Columns
@@ -671,15 +702,13 @@ extern "C" int probe_batched_dot(const float* a, const float* b, float* o, int B
 
 extern "C" int probe_lane_reduce(const float* a, const float* v, float* y, int B, void* stream) {
   if (B <= 0) return (int)cudaErrorInvalidValue;
-  const int rows = B * T;
-  lane_reduce_kernel<<<(rows + 7) / 8, 256, 0, (cudaStream_t)stream>>>(a, v, y, rows);
+  lane_reduce_kernel<<<B, 32, 0, (cudaStream_t)stream>>>(a, v, y);
   return launched();
 }
 
 extern "C" int probe_matvec(const float* a, const float* v, float* y, int B, void* stream) {
   if (B <= 0) return (int)cudaErrorInvalidValue;
-  const int rows = B * T;
-  matvec_kernel<<<(rows + 7) / 8, 256, 0, (cudaStream_t)stream>>>(a, v, y, rows);
+  matvec_kernel<<<B, 32, 0, (cudaStream_t)stream>>>(a, v, y);
   return launched();
 }
 

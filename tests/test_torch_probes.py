@@ -139,12 +139,17 @@ def test_write_input_ref_leaves_its_input_unchanged():
     assert not torch.equal(out, a)
 
 
-#: edge shapes the wrappers take, each against its Pallas body: row 1 at
-#: one tile and an odd count of tiles; row 10 at one row (the body runs its
-#: fixed 5 steps; the recurrence is causal, so the first n rows of its
-#: result are the n-row result) and at rows of 9 floats, not a multiple of
-#: 4 (the body run with its module's TB and P set to 1 and 3)
+#: the tile rows' Pallas bodies: row 1's takes two tiles, rows 2 and 7 a
+#: tile and a vector
+TILE_ROWS = {"batched_dot": PM.k1, "bcast_mul_lane_reduce": PM.k2, "batched_matvec": PM.k7}
+#: edge shapes the wrappers take, each against its Pallas body: rows 1, 2
+#: and 7 at one tile and at odd counts of tiles; row 10 at one row (the
+#: body runs its fixed 5 steps; the recurrence is causal, so the first n
+#: rows of its result are the n-row result) and at rows of 9 floats, not a
+#: multiple of 4 (the body run with its module's TB and P set to 1 and 3)
 EDGE_CASES = [("batched_dot", (1, P, P)), ("batched_dot", (7, P, P)),
+              *[(name, (b, P, P)) for name in ("bcast_mul_lane_reduce", "batched_matvec")
+                for b in (1, 7, 9)],
               ("write_input_ref", (1, TB, P, P)), ("write_input_ref", (5, 1, 3, 3)),
               ("write_input_ref", (1, 1, 3, 3))]
 
@@ -152,10 +157,11 @@ EDGE_CASES = [("batched_dot", (1, P, P)), ("batched_dot", (7, P, P)),
 @pytest.mark.parametrize("name, shape", EDGE_CASES)
 def test_probe_matches_pallas_body_on_edge_shapes(name, shape, monkeypatch):
     r = np.random.default_rng(sum(shape))
-    if name == "batched_dot":
-        xs = [r.normal(size=shape).astype(np.float32) for _ in range(2)]
-        got = pk.batched_dot(*(torch.tensor(x) for x in xs)).numpy()
-        _compare(got, _pallas(PM.k1, shape, [VMEM] * 2)(*xs), exact=False)
+    if name in TILE_ROWS:
+        second = shape if name == "batched_dot" else shape[:2]
+        xs = [r.normal(size=s).astype(np.float32) for s in (shape, second)]
+        got = pk.KERNELS[name](*(torch.tensor(x) for x in xs)).numpy()
+        _compare(got, _pallas(TILE_ROWS[name], got.shape, [VMEM] * 2)(*xs), exact=False)
         return
     n, tb, p, _ = shape
     monkeypatch.setattr(PM2, "TB", tb)
@@ -323,8 +329,9 @@ def test_probe_source_holds_one_hand_written_kernel_per_row():
     grows with the row (one CTA per 2 KB column slice), not one CTA; row 9
     copies into its slab with 16-byte cp.async; row 1 runs register tiles
     and row 10 one pass; no library or PyTorch header; the chains run one
-    CTA a tile, TF32 by raw mma.sync; beside them, one empty kernel, a
-    measuring aid."""
+    CTA a tile, TF32 by raw mma.sync; rows 2 and 7 run one warp a tile, a
+    grid in tiles, with float4 loads of the tile, through one device
+    function; beside them, one empty kernel, a measuring aid."""
     src = pk.SOURCE.read_text()
     kernels = re.findall(r"__global__ void (?:__launch_bounds__\([^)]*\)\s+)?(\w+)\(", src)
     kernels.remove("empty_kernel")  # the floor under the probes' device times, not a port
@@ -357,6 +364,18 @@ def test_probe_source_holds_one_hand_written_kernel_per_row():
     assert re.search(r"recur_kernel<<<\(cols \+ RING_THREADS - 1\) / RING_THREADS, RING_THREADS", src)
     recur = src[src.index("void recur("):src.index("__global__ void recur_kernel")]
     assert "o[" in recur and "= o[" not in recur and "+ o[" not in recur
+    callees = set()
+    for launcher, kernel in (("probe_lane_reduce", "lane_reduce_kernel"),
+                             ("probe_matvec", "matvec_kernel")):
+        body = src[src.index(f'extern "C" int {launcher}('):]
+        body = body[:body.index("\n}\n")]
+        assert re.search(kernel + r"<<<B, 32, ", body)  # a grid of tiles, one warp each
+        body = src[src.index(f"{kernel}(const float*"):]
+        callees.update(re.findall(r"(\w+)\(", body[body.index("{"):body.index("\n}\n")]))
+    (device_fn,) = callees  # both kernels are one call of the same device function
+    mv = src[src.index(f"void {device_fn}("):]
+    assert re.search(r"__device__\s+(?:__forceinline__\s+)?$", src[:src.index(f"void {device_fn}(")])
+    assert "float4" in mv[:mv.index("\n}\n")]
     for banned in ("cublas", "cudnn", "torch/", "cutlass"):
         assert banned not in src.lower()
     assert pk.LIBRARY.parent.name == "_build" and pk.LIBRARY.name == "libprobes.so"

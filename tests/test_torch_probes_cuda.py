@@ -147,6 +147,34 @@ def test_batched_dot_kernel_matches_plain_on_edge_batches(cuda, B):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B", [
+    1, 7, 8, 9,  # one tile; odd and even counts
+    16, 133,  # the probe's; one CTA a tile: one past the 132 SMs
+    38400,  # the flagship's 100 x 96 x 4 tiles
+])
+def test_matvec_kernels_match_plain_on_edge_batches(cuda, B):
+    """Rows 2 and 7, one function through one device function: each within
+    rtol 1e-5 of the largest output of its plain version, bit-identical on
+    a second launch, and the two kernels bit-identical to each other."""
+    cases = chip_smoke.probe_cases()
+    gen = torch.Generator(device=cuda).manual_seed(B)
+    a = torch.randn((B, 32, 32), device=cuda, generator=gen)
+    v = torch.randn((B, 32), device=cuda, generator=gen)
+    outs = []
+    for name in ("bcast_mul_lane_reduce", "batched_matvec"):
+        wrapper = pk.KERNELS[name]
+        before = wrapper.launches
+        got, again = wrapper(a, v), wrapper(a, v)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 2
+        want = chip_smoke._plain_at(cases[name], name, [a, v])
+        chip_smoke.probe_error(got, want, cases[name]["tol"])
+        assert torch.equal(got, again)
+        outs.append(got)
+    assert torch.equal(*outs)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("prec", ["highest", "default"])
 @pytest.mark.parametrize("K", [0, 1, 2, 3, 17])  # odd and even: the ping-pong's parity
 @pytest.mark.parametrize("tb", range(1, pk.MAX_CHAIN_TILES + 1))

@@ -35,7 +35,6 @@
 namespace {
 
 constexpr int T = 32;        // tile edge
-constexpr int LDS = T + 1;   // padded shared-memory row: a column read hits 32 banks
 constexpr int TILE = T * T;  // floats per tile
 constexpr int MAX_SMEM = 232448;  // bytes of shared memory a block may have on sm_90
 
@@ -406,16 +405,51 @@ __global__ void dma_out_kernel(const float4* __restrict__ x, float4* __restrict_
   if (t == 0) asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
 }
 
-// ---- row 8: probe_mosaic.k8, transpose of the last two axes. One CTA of
-// 32 x 32 threads per tile: coalesced row read into a shared tile padded to
-// 33 floats a row, coalesced row write of its columns without bank
-// conflicts.
-__global__ void transpose_kernel(const float* __restrict__ a, float* __restrict__ o) {
-  __shared__ float t[T][LDS];
-  const size_t off = (size_t)blockIdx.x * TILE;
-  t[threadIdx.y][threadIdx.x] = a[off + threadIdx.y * T + threadIdx.x];
+// ---- row 8: probe_mosaic.k8, the last two axes of (B, 32, 32) swapped. A
+// copy, bound by the bytes: each tile read once and written once, 314.6 MB
+// at the flagship's 38,400 tiles, 0.0939 ms at 3.35 TB/s. A CTA of 1,024
+// threads a tile, one float each, let an SM hold two tiles (8 KB) of loads
+// in flight, well under the ~20 KB that 3.35 TB/s over 132 SMs needs at
+// ~0.7 us of load latency. Here a CTA of TRANSPOSE_WARPS = 4 warps takes a
+// tile: lane l of warp w loads the tile's float4 number l + 32k for
+// k = 2w, 2w + 1 (row (l >> 3) + 4k, columns 4(l & 7)..+3), coalesced
+// 512-byte warp loads, all issued before any is used: 4 KB a CTA, and with
+// 16 such CTAs resident 64 KB an SM in flight. They go whole into the CTA's
+// 4 KB shared tile, unpadded, so that every float4 slot stays 16-byte
+// aligned; element (i, c) sits in slot (c >> 2) ^ ((i >> 2) & 7) of row i.
+// With that swizzle a quarter warp's float4 stores fill one row's eight
+// slots, and lane l's scalar reads of the output's float4 number l + 32k
+// (input rows 4(l & 7)..+3 at column (l >> 3) + 4k) fall on 32 distinct
+// banks at each step. After one barrier each warp writes its two float4 a
+// lane as coalesced 512-byte stores. One warp a tile (the same 4 KB in
+// flight) ran as fast at 38,400 tiles but 0.09 us slower at 16 tiles.
+constexpr int TRANSPOSE_WARPS = 4;
+constexpr int TRANSPOSE_K = TILE / 4 / 32 / TRANSPOSE_WARPS;  // float4 a lane
+
+__global__ void __launch_bounds__(32 * TRANSPOSE_WARPS)
+    transpose_kernel(const float4* __restrict__ a, float4* __restrict__ o) {
+  __shared__ __align__(16) float4 t[TILE / 4];  // 32 rows of 8 float4 slots
+  const int lane = threadIdx.x & 31, q = lane & 7, r = lane >> 3;
+  const int k0 = (threadIdx.x >> 5) * TRANSPOSE_K;
+  const size_t base = (size_t)blockIdx.x * (TILE / 4) + lane;
+  float4 v[TRANSPOSE_K];
+#pragma unroll
+  for (int j = 0; j < TRANSPOSE_K; ++j) v[j] = a[base + 32 * (k0 + j)];
+#pragma unroll
+  for (int j = 0; j < TRANSPOSE_K; ++j) {
+    const int k = k0 + j;  // row r + 4k: (i >> 2) = k
+    t[(r + 4 * k) * 8 + (q ^ k)] = v[j];
+  }
   __syncthreads();
-  o[off + threadIdx.y * T + threadIdx.x] = t[threadIdx.x][threadIdx.y];
+  // output row r + 4k is input column c = r + 4k: c >> 2 = k, c & 3 = r;
+  // input rows 4q..4q + 3 have (i >> 2) = q
+  const float* f = reinterpret_cast<const float*>(t) + 4 * q * T + r;
+#pragma unroll
+  for (int j = 0; j < TRANSPOSE_K; ++j) {
+    const int k = k0 + j;
+    const float* c = f + 4 * (k ^ q);
+    o[base + 32 * k] = make_float4(c[0], c[T], c[2 * T], c[3 * T]);
+  }
 }
 
 // ---- row 9: probe_mosaic2.k1, the (N, TB, 32, 32) scratch in dynamic shared
@@ -754,7 +788,8 @@ extern "C" int probe_dma_out(const float* x, float* o, int N, int row, void* str
 
 extern "C" int probe_transpose(const float* a, float* o, int B, void* stream) {
   if (B <= 0) return (int)cudaErrorInvalidValue;
-  transpose_kernel<<<B, dim3(T, T), 0, (cudaStream_t)stream>>>(a, o);
+  transpose_kernel<<<B, 32 * TRANSPOSE_WARPS, 0, (cudaStream_t)stream>>>(
+      reinterpret_cast<const float4*>(a), reinterpret_cast<float4*>(o));
   return launched();
 }
 

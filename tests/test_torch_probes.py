@@ -10,6 +10,7 @@ products (rows 1, 2, 7, 11, 12) are held at rtol 1e-5 against the
 largest value, as their sums run in another order.
 """
 import importlib.util
+import math
 import os
 import re
 from functools import partial
@@ -140,15 +141,17 @@ def test_write_input_ref_leaves_its_input_unchanged():
 
 
 #: the tile rows' Pallas bodies: row 1's takes two tiles, rows 2 and 7 a
-#: tile and a vector
-TILE_ROWS = {"batched_dot": PM.k1, "bcast_mul_lane_reduce": PM.k2, "batched_matvec": PM.k7}
-#: edge shapes the wrappers take, each against its Pallas body: rows 1, 2
-#: and 7 at one tile and at odd counts of tiles; row 10 at one row (the
+#: tile and a vector, row 8 a tile
+TILE_ROWS = {"batched_dot": PM.k1, "bcast_mul_lane_reduce": PM.k2, "batched_matvec": PM.k7,
+             "batched_transpose": PM.k8}
+#: edge shapes the wrappers take, each against its Pallas body: rows 1, 2,
+#: 7 and 8 at one tile and at odd counts of tiles; row 10 at one row (the
 #: body runs its fixed 5 steps; the recurrence is causal, so the first n
 #: rows of its result are the n-row result) and at rows of 9 floats, not a
 #: multiple of 4 (the body run with its module's TB and P set to 1 and 3)
 EDGE_CASES = [("batched_dot", (1, P, P)), ("batched_dot", (7, P, P)),
-              *[(name, (b, P, P)) for name in ("bcast_mul_lane_reduce", "batched_matvec")
+              *[(name, (b, P, P)) for name in ("bcast_mul_lane_reduce", "batched_matvec",
+                                               "batched_transpose")
                 for b in (1, 7, 9)],
               ("write_input_ref", (1, TB, P, P)), ("write_input_ref", (5, 1, 3, 3)),
               ("write_input_ref", (1, 1, 3, 3))]
@@ -158,10 +161,11 @@ EDGE_CASES = [("batched_dot", (1, P, P)), ("batched_dot", (7, P, P)),
 def test_probe_matches_pallas_body_on_edge_shapes(name, shape, monkeypatch):
     r = np.random.default_rng(sum(shape))
     if name in TILE_ROWS:
-        second = shape if name == "batched_dot" else shape[:2]
-        xs = [r.normal(size=s).astype(np.float32) for s in (shape, second)]
+        others = {"batched_dot": [shape], "batched_transpose": []}.get(name, [shape[:2]])
+        xs = [r.normal(size=s).astype(np.float32) for s in (shape, *others)]
         got = pk.KERNELS[name](*(torch.tensor(x) for x in xs)).numpy()
-        _compare(got, _pallas(TILE_ROWS[name], got.shape, [VMEM] * 2)(*xs), exact=False)
+        want = _pallas(TILE_ROWS[name], got.shape, [VMEM] * len(xs))(*xs)
+        _compare(got, want, exact=name == "batched_transpose")
         return
     n, tb, p, _ = shape
     monkeypatch.setattr(PM2, "TB", tb)
@@ -331,7 +335,9 @@ def test_probe_source_holds_one_hand_written_kernel_per_row():
     and row 10 one pass; no library or PyTorch header; the chains run one
     CTA a tile, TF32 by raw mma.sync; rows 2 and 7 run one warp a tile, a
     grid in tiles, with float4 loads of the tile, through one device
-    function; beside them, one empty kernel, a measuring aid."""
+    function; row 8 runs a grid in tiles, a CTA of a few warps a tile (no
+    longer 32 x 32 threads), with float4 accesses; beside them, one empty
+    kernel, a measuring aid."""
     src = pk.SOURCE.read_text()
     kernels = re.findall(r"__global__ void (?:__launch_bounds__\([^)]*\)\s+)?(\w+)\(", src)
     kernels.remove("empty_kernel")  # the floor under the probes' device times, not a port
@@ -376,6 +382,15 @@ def test_probe_source_holds_one_hand_written_kernel_per_row():
     mv = src[src.index(f"void {device_fn}("):]
     assert re.search(r"__device__\s+(?:__forceinline__\s+)?$", src[:src.index(f"void {device_fn}(")])
     assert "float4" in mv[:mv.index("\n}\n")]
+    body = src[src.index('extern "C" int probe_transpose('):]
+    body = body[:body.index("\n}\n")]
+    grid, block = re.search(r"transpose_kernel<<<\s*([^,]+),\s*([^,]+),", body).groups()
+    consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
+    threads = math.prod(int(consts.get(f.strip(), f)) for f in block.split("*"))
+    assert grid.strip() == "B" and threads % 32 == 0 and threads <= 256  # a CTA of warps a tile
+    assert not re.search(r"dim3\s*\(\s*T\s*,\s*T\s*\)", src)
+    tr = src[src.index("transpose_kernel(const"):]
+    assert "float4" in tr[:tr.index("\n}\n")]
     for banned in ("cublas", "cudnn", "torch/", "cutlass"):
         assert banned not in src.lower()
     assert pk.LIBRARY.parent.name == "_build" and pk.LIBRARY.name == "libprobes.so"

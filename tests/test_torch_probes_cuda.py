@@ -175,6 +175,27 @@ def test_matvec_kernels_match_plain_on_edge_batches(cuda, B):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B", [
+    1, 7, 8, 9,  # one tile; odd and even counts
+    16, 133,  # the probe's; one CTA a tile: one past the 132 SMs
+    38400,  # the flagship's 100 x 96 x 4 tiles
+])
+def test_transpose_kernel_is_exact_on_edge_batches(cuda, B):
+    """Row 8, a copy: bit-identical to its plain version and on a second
+    launch, and applied twice it gives its input back."""
+    gen = torch.Generator(device=cuda).manual_seed(B)
+    a = torch.randn((B, 32, 32), device=cuda, generator=gen)
+    before = pk.batched_transpose.launches
+    got, again = pk.batched_transpose(a), pk.batched_transpose(a)
+    back = pk.batched_transpose(got)
+    torch.cuda.synchronize()
+    assert pk.batched_transpose.launches == before + 3
+    assert torch.equal(got, pm.batched_transpose_plain(a))
+    assert torch.equal(got, again)
+    assert torch.equal(back, a)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("prec", ["highest", "default"])
 @pytest.mark.parametrize("K", [0, 1, 2, 3, 17])  # odd and even: the ping-pong's parity
 @pytest.mark.parametrize("tb", range(1, pk.MAX_CHAIN_TILES + 1))

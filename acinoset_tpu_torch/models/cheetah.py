@@ -10,6 +10,7 @@ package vmaps.
 """
 from __future__ import annotations
 
+import functools
 from collections import OrderedDict
 
 import numpy as np
@@ -86,6 +87,24 @@ N_ACTIVE = len(ACTIVE_IDX)  # 25
 MEAS_STD_PX = 5.0
 REDESC_A, REDESC_B, REDESC_C = 3.0, 10.0, 20.0
 
+#: EKF process-noise base std-devs per active parameter, in dense-25
+#: order (the reference's qb_list, src/all_optimizations.py:734-746)
+EKF_QB = np.array(
+    [
+        5.0, 5.0, 5.0,
+        10.0, 10.0, 10.0,
+        5.0, 25.0, 5.0,
+        50.0,
+        5.0, 50.0, 25.0,
+        100.0, 30.0,
+        140.0, 40.0,
+        350.0, 200.0,
+        350.0, 200.0,
+        450.0, 400.0,
+        450.0, 400.0,
+    ]
+)
+
 
 def get_markers():
     """The 20 marker names in FK order."""
@@ -132,6 +151,8 @@ FTE_SAVE_ORDER = np.argsort(ACTIVE_IDX_ORDERED)
 #: or the appended zero (index 25) for an unused DoF
 _EXPAND_SRC = np.full(N_POSE, N_ACTIVE)
 _EXPAND_SRC[ACTIVE_IDX_ORDERED] = np.arange(N_ACTIVE)
+#: marker offsets (L, 3) in their frame joints, MARKER_SPECS' order
+_MARKER_OFFSETS = np.array([spec[3] for spec in MARKER_SPECS])
 
 
 def to_fte_order(x25):
@@ -149,7 +170,7 @@ def expand_pose(x25):
     """Dense active pose (..., 25) -> full 45 layout (unused slots zero).
     A gather, so it also runs under torch.func transforms."""
     padded = torch.cat([x25, torch.zeros_like(x25[..., :1])], dim=-1)
-    return padded[..., torch.as_tensor(_EXPAND_SRC, device=x25.device)]
+    return padded[..., _device_table("expand_src", torch.int64, x25.device)]
 
 
 def compress_pose(x45):
@@ -187,10 +208,10 @@ def fk(x45):
         Rl = _local_rotation(has_phi, has_theta, has_psi, phi[..., j], theta[..., j], psi[..., j])
         R.append(Rl if parent < 0 else mm3(Rl, R[parent]))
     positions = []
-    for _name, base_idx, frame_j, offset in MARKER_SPECS:
+    offsets = _device_table("offsets", x45.dtype, x45.device)
+    for m, (_name, base_idx, frame_j, _offset) in enumerate(MARKER_SPECS):
         base = root if base_idx < 0 else positions[base_idx]
-        off = torch.tensor(offset, dtype=x45.dtype, device=x45.device)
-        positions.append(base + mvT3(R[frame_j], off))
+        positions.append(base + mvT3(R[frame_j], offsets[m]))
     return torch.stack(positions, dim=-2)
 
 
@@ -244,6 +265,15 @@ if list(_JAC_COLS) != list(range(3, N_ACTIVE)):
 _JAC_MSA = np.einsum("ms,sa->msa", _JAC_SEG_MASK, _JAC_ANC_MASK)
 
 
+@functools.lru_cache(maxsize=None)
+def _device_table(name, dtype, device):
+    """One of the model's constant tables as a tensor on ``device``, made
+    once per (table, dtype, device): a copy from the host synchronises
+    the stream, and FK runs in every frame of the EKF's loop. Read only."""
+    table = {"expand_src": _EXPAND_SRC, "offsets": _MARKER_OFFSETS, "msa": _JAC_MSA}[name]
+    return torch.as_tensor(table, dtype=dtype, device=device)
+
+
 def fk25_and_jac(x25):
     """FK positions (..., 20, 3) and the analytic Jacobian (..., 20, 3, 25)
     in one pass: each Euler angle at joint a rotates everything below it
@@ -262,8 +292,9 @@ def fk25_and_jac(x25):
 
     positions, segs = [], []
     root = x45[..., :3]
-    for _name, base_idx, frame_j, offset in MARKER_SPECS:
-        v = mvT3(R[frame_j], torch.tensor(offset, dtype=dtype, device=device))
+    offsets = _device_table("offsets", dtype, device)
+    for m, (_name, base_idx, frame_j, _offset) in enumerate(MARKER_SPECS):
+        v = mvT3(R[frame_j], offsets[m])
         segs.append(v)
         base = root if base_idx < 0 else positions[base_idx]
         positions.append(base + v)
@@ -281,7 +312,7 @@ def fk25_and_jac(x25):
             omegas.append(c[..., None] * Rpar[j][..., 0, :] - s[..., None] * Rpar[j][..., 2, :])
     W = torch.stack(omegas, dim=-2)  # (..., A, 3)
 
-    msa = torch.as_tensor(_JAC_MSA, dtype=dtype, device=device)
+    msa = _device_table("msa", dtype, device)
     T = torch.einsum("msa,...sx->...max", msa, V)  # (..., L, A, 3)
     Wb = W[..., None, :, :]  # broadcast over markers
     # frame rotations: dR/dtheta = -S R, so omega x v

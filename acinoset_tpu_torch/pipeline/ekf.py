@@ -1,11 +1,17 @@
-"""Measurement functions of the EKF/FTE pipeline on torch tensors, the
-counterpart of the array functions of acinoset_tpu.pipeline.ekf
-(the EKF itself is not ported yet).
+"""The EKF pipeline's array level on torch tensors, the counterpart of
+acinoset_tpu.pipeline.ekf: the measurement functions shared with the
+FTE, the per-marker error bars from a smoothed covariance, and
+``run_cheetah_ekf``, the EKF + RTS smoother over one run with the
+reference's initial covariance (AcinoSet src/all_optimizations.py:
+713-731).
 
 Every measurement function maps poses (..., 25) with any leading batch
-dimensions through FK and the fisheye rig.
+dimensions through FK and the fisheye rig. The file-level ``ekf`` (DLC
+``.h5`` input, pickles and plots out) is not ported yet.
 """
 from __future__ import annotations
+
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -13,6 +19,7 @@ import torch
 from .. import convert
 from ..models import cheetah
 from ..ops import camera as cam_ops
+from ..solvers import ekf as ekf_solver
 from ..utils.device import resolve_device
 
 
@@ -72,3 +79,95 @@ def make_hj_parts_fn(k_arr, d_arr, r_arr, t_arr, dtype=torch.float64, device=Non
         return hj_parts_aux(pose25, aux)
 
     return hj_parts
+
+
+def make_hj_fn(k_arr, d_arr, r_arr, t_arr, dtype=torch.float64, device=None):
+    """Fused (pixels, Jacobian) by the chain rule, J = J_proj @ J_fk, for
+    ``solvers.ekf.run_ekf``: poses (..., 25) -> (h (..., C*L*2),
+    J (..., C*L*2, 25)), with the rig on ``device`` (CUDA unless given)."""
+    hj_parts = make_hj_parts_fn(k_arr, d_arr, r_arr, t_arr, dtype, device)
+
+    def hj(pose25):
+        return assemble_hj(*hj_parts(pose25))
+
+    return hj
+
+
+def assemble_hj(h, Jp, Jfk):
+    """(h, Jp (..., C, L, 2, 3), Jfk (..., L, 3, 25)) -> (h, J (..., C*L*2, 25))."""
+    J = torch.einsum("...clij,...ljk->...clik", Jp, Jfk)
+    return h, J.reshape(*h.shape, -1)
+
+
+def make_marker_std_fn(fk_and_jac, n_pose):
+    """Per-frame per-marker 1-sigma error bars from a smoothed covariance:
+    ``one(x (..., n_pose), Pf (..., S, S)) -> (..., L, 3)`` std in meters,
+    sqrt(diag(J_fk Sigma_pose J_fk^T)) at the smoothed pose."""
+
+    def one(x, Pf):
+        _pts, J = fk_and_jac(x)  # (..., L, 3, n_pose)
+        S = Pf[..., None, :n_pose, :n_pose]
+        mc = J @ S @ J.mT
+        return torch.sqrt(torch.clamp(torch.diagonal(mc, dim1=-2, dim2=-1), min=0.0))
+
+    return one
+
+
+def marker_std_from_smoothed(smoothed_x, smoothed_P, device=None) -> np.ndarray:
+    """Per-marker 1-sigma position error bars (N, L, 3) in meters from the
+    RTS-smoothed covariance (see make_marker_std_fn), in float64 on
+    ``device`` (CUDA unless given)."""
+    device = resolve_device(device)
+    one = make_marker_std_fn(cheetah.fk25_and_jac, cheetah.N_ACTIVE)
+    x = torch.tensor(np.asarray(smoothed_x), dtype=torch.float64, device=device)
+    P = torch.tensor(np.asarray(smoothed_P), dtype=torch.float64, device=device)
+    return one(x, P).cpu().numpy()
+
+
+def ekf_P0(n_pose: int) -> np.ndarray:
+    """The reference's initial state covariance (:713-731)."""
+    p_ang = np.ones(n_pose - 3)
+    p_ang_acc = p_ang * 9.0
+    p_ang_acc[10:] = 25.0
+    return np.diag(np.concatenate([
+        np.ones(3) * 9.0, p_ang * (np.pi / 4) ** 2,
+        np.ones(3) * 25.0, p_ang * 9.0,
+        np.ones(3) * 9.0, p_ang_acc,
+    ]))
+
+
+def run_cheetah_ekf(
+    pixels: np.ndarray,  # (N, C, L, 2)
+    likelihood: np.ndarray,  # (N, C, L)
+    k_arr, d_arr, r_arr, t_arr,
+    fps: float,
+    cam_res,
+    dlc_thresh: float,
+    x0_pose: Optional[np.ndarray] = None,
+    dtype=torch.float64,
+    device=None,
+) -> Dict:
+    """EKF + RTS over one run on ``device`` (CUDA unless given). Returns
+    the states dict of ``solvers.ekf.run_ekf`` as host numpy arrays
+    ((N, 25) states, (N, 25, 25) pose covariances, outliers a scalar)."""
+    device = resolve_device(device)
+    n_pose = cheetah.N_ACTIVE
+    cfg = ekf_solver.EkfConfig(
+        dt=1.0 / fps,
+        dlc_thresh=dlc_thresh,
+        meas_std_px=cheetah.MEAS_STD_PX,
+        max_pixel_err=float(cam_res[0]),
+    )
+    x0 = np.zeros(3 * n_pose)
+    if x0_pose is not None:
+        x0[: len(x0_pose)] = np.asarray(x0_pose).reshape(-1)[: 3 * n_pose]
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    out = ekf_solver.run_ekf(
+        make_hj_fn(k_arr, d_arr, r_arr, t_arr, dtype, device),
+        t(pixels)[None], t(np.nan_to_num(likelihood, nan=-1.0))[None], t(x0)[None],
+        t(ekf_P0(n_pose)), cheetah.EKF_QB, cfg,
+    )
+    return {k: v[0].cpu().numpy() for k, v in out.items()}

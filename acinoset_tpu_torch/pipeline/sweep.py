@@ -1,15 +1,19 @@
-"""The sweep's batched FTE stage for the cheetah, the counterpart of the
+"""The sweep's batched stages for the cheetah, the counterpart of the
 array-level part of acinoset_tpu.pipeline.sweep: a group of runs (same
 fps) padded to one (frames, cameras) shape and solved as one batch, in
-chunks of at most ``MAX_PROGRAM_BATCH`` runs, and the rescue pass that
-re-solves the runs whose stationarity test failed.
+chunks of at most ``MAX_PROGRAM_BATCH`` runs. Two stages: the FTE
+(``solve_batch``, with the rescue pass that re-solves the runs whose
+stationarity test failed) and the EKF + RTS smoother
+(``solve_batch_ekf``, whose smoothed poses are the FTE's warm start,
+``ekf_warm_starts``).
 
 Per-run camera rigs ride along as batched inputs: the measurement
 pieces are ``pipeline.ekf.hj_parts_aux`` with each run's rig broadcast
-over its frames. ``fte_solve`` is natively batched, so where the JAX
-package caches one jitted program per configuration, the port calls the
-stage directly. The file-level ``sweep``, ``discover_runs`` and
-``load_run`` read DLC ``.h5`` files and are not ported yet.
+over its frames. ``fte_solve`` and ``run_ekf`` are natively batched, so
+where the JAX package caches one jitted program per configuration, the
+port calls the stage directly (``solve_stage``, ``ekf_stage``). The
+file-level ``sweep``, ``discover_runs`` and ``load_run`` read DLC
+``.h5`` files and are not ported yet.
 """
 from __future__ import annotations
 
@@ -22,9 +26,10 @@ import torch
 
 from ..models import cheetah
 from ..ops import camera as cam_ops
+from ..solvers import ekf as ekf_solver
 from ..solvers import trajopt
 from ..utils.device import resolve_device
-from .ekf import hj_parts_aux
+from .ekf import assemble_hj, ekf_P0, hj_parts_aux, make_marker_std_fn
 from .fte import default_config
 
 
@@ -57,12 +62,44 @@ def _pad_run(run: RunData, N: int, C: int):
     return pix, lik, (K, D, R, T), n0
 
 
+def _pack_runs(runs, N: int, C: int):
+    """The stages' packed inputs, each run padded by ``_pad_run``: pixels
+    and likelihood (B, C, N, L, 3), rigs (B, C, 25) (K 9, D 4, R 9, T 3)
+    and the frames of each run (B,)."""
+    packed, auxp, n_valid = [], [], []
+    for run in runs:
+        pix, lik, (K, D, R, T), n0 = _pad_run(run, N, C)
+        packed.append(np.concatenate([pix, lik[..., None]], axis=-1))
+        auxp.append(np.concatenate([
+            K.reshape(C, 9), D.reshape(C, 4), R.reshape(C, 9), np.asarray(T).reshape(C, 3),
+        ], axis=1))
+        n_valid.append(n0)
+    return np.stack(packed), np.stack(auxp), np.asarray(n_valid)
+
+
 #: per-batch cap: groups larger than this solve as sequential chunks of
 #: exactly this size, the last padded with repeats of its final run. The
 #: value is the JAX package's, measured on a TPU v5e (its throughput knee
 #: and a compiler safety wall there); it is still to be re-measured on
 #: the H100, where the port compiles nothing per shape.
 MAX_PROGRAM_BATCH = 96
+
+#: device-memory budget (bytes) for the EKF chunk cap below: the JAX
+#: package's share of its TPU v5e (13e9 of 15.75e9 bytes, 82.5%) applied
+#: to the H100's 80e9, leaving the same headroom for the measurement
+#: buffers and the allocator
+EKF_HBM_BUDGET = 66e9
+
+
+def _ekf_mem_cap(N: int, n_pose: int) -> int:
+    """Largest batch of runs the EKF + RTS stage fits in device memory,
+    at ~9.5 full-state (N, 3n, 3n) float32 buffers a run: the JAX
+    package's coefficient, calibrated from an out-of-memory failure on a
+    TPU (the filter history, the smoother's predicted covariances,
+    gains and doubling-scan levels). Groups beyond the cap chunk through
+    ``_solve_chunked``."""
+    bytes_per_run = 9.5 * N * (3 * n_pose) ** 2 * 4
+    return max(1, int(EKF_HBM_BUDGET / bytes_per_run))
 
 
 def _solve_chunked(runs, max_batch, solve_chunk, X0_override=None):
@@ -216,18 +253,10 @@ def solve_batch(
     if uncertainty:
         raise NotImplementedError("uncertainty (the Laplace-posterior pass) is not ported yet")
 
-    packed_b, auxp_b, n_valid, X0_b = [], [], [], []
-    for run in runs:
-        pix, lik, cams, n0 = _pad_run(run, N, C)
-        packed_b.append(np.concatenate([pix, lik[..., None]], axis=-1))
-        K, D, R, T = cams
-        auxp_b.append(np.concatenate([
-            K.reshape(C, 9), D.reshape(C, 4), R.reshape(C, 9),
-            np.asarray(T).reshape(C, 3),
-        ], axis=1))
-        n_valid.append(n0)
+    packed, auxp, n_valid = _pack_runs(runs, N, C)
     X0 = None
     if X0_override is not None:
+        X0_b = []
         for i in range(len(runs)):
             Xw = np.asarray(X0_override[i], np.float64)
             Xp = np.zeros((N, Xw.shape[1]))
@@ -238,8 +267,8 @@ def solve_batch(
 
     X, pts, info = solve_stage(
         cfg,
-        torch.as_tensor(np.stack(packed_b), dtype=dtype, device=device),
-        torch.as_tensor(np.stack(auxp_b), dtype=dtype, device=device),
+        torch.as_tensor(packed, dtype=dtype, device=device),
+        torch.as_tensor(auxp, dtype=dtype, device=device),
         torch.as_tensor(n_valid, dtype=torch.int64, device=device),
         dlc_thresh, X0,
     )
@@ -274,6 +303,110 @@ def solve_batch(
                 grad_norm=float(status["grad_norm"][i]),
             )
         )
+    return results
+
+
+def ekf_stage(cfg, packed, auxp, n_valid, P0):
+    """The fused EKF stage over a batch of padded runs, the counterpart of
+    ``_cached_batch_ekf_solver``'s ``one`` vmapped over runs.
+
+    packed (B, C, N, L, 3) pixels and likelihood, auxp (B, C, 25) each
+    run's rig, n_valid (B,) frames per run, P0 (S, S) the initial
+    covariance; ``cfg.max_pixel_err`` holds a (B,) tensor, one value per
+    run. All on one device, in the stage's dtype. The initial state is
+    the nose track's straight line at frame 0 (x, y, z), its yaw and its
+    velocity. Returns the ``run_ekf`` dict (outliers (B,)) with
+    ``marker_std`` and the smoothed marker ``positions`` (B, N, L, 3)."""
+    B, C, Nn = packed.shape[:3]
+    dtype, device = packed.dtype, packed.device
+    n_pose = cheetah.N_ACTIVE
+    pp = cheetah.get_pose_params()
+    cams = _unpack_rig(auxp)
+    pix, lik = packed[..., :2], packed[..., 2]
+    live = torch.arange(Nn, device=device)[None] < n_valid.reshape(B, 1)
+    nose = cheetah.get_markers().index("nose")
+    slope, intercept = _track_linreg(pix, lik, cams, nose, float(cfg.dlc_thresh), live)
+    line_cols = [pp["x_0"], pp["y_0"], pp["z_0"]]
+    x0 = torch.zeros((B, 3 * n_pose), dtype=dtype, device=device)
+    x0[:, line_cols] = intercept
+    x0[:, pp["psi_0"]] = torch.atan2(slope[:, 1], slope[:, 0])
+    x0[:, [n_pose + c for c in line_cols]] = slope * (1.0 / float(cfg.dt))  # per second
+
+    def hj(p):
+        return assemble_hj(*hj_parts_aux(p, cams))
+
+    out = ekf_solver.run_ekf(hj, pix.transpose(1, 2), lik.transpose(1, 2), x0, P0,
+                             cheetah.EKF_QB, cfg)
+    out["marker_std"] = make_marker_std_fn(cheetah.fk25_and_jac, n_pose)(
+        out["smoothed_x"], out["smoothed_P"])
+    out["positions"] = cheetah.fk25(out["smoothed_x"])
+    return out
+
+
+def solve_batch_ekf(
+    runs: Sequence[RunData],
+    dlc_thresh: float,
+    device=None,
+    dtype=torch.float32,
+    max_batch: Optional[int] = MAX_PROGRAM_BATCH,
+    pad_frames: Optional[int] = None,
+    pad_cams: Optional[int] = None,
+) -> List[Dict]:
+    """Batched EKF + RTS across a group of runs (same fps) on ``device``
+    (CUDA unless the caller names another; raises without CUDA when none
+    is given), padded as ``solve_batch`` pads them. Groups beyond
+    ``max_batch`` or the memory cap (``_ekf_mem_cap``, which holds even
+    at ``max_batch=None``) chunk. Each run's untrusted-measurement sigma
+    is its own camera width. Returns one dict per run: ``states`` (the
+    six state arrays and ``marker_std``, cut to the run's length),
+    ``positions``, ``max_pixel_err`` and ``outliers`` (gated pairs)."""
+    device = resolve_device(device)
+    fps = runs[0].fps
+    N = pad_frames or max(r.pixels.shape[1] for r in runs)
+    C = pad_cams or max(r.pixels.shape[0] for r in runs)
+    n_pose = cheetah.N_ACTIVE
+    cap = _ekf_mem_cap(N, n_pose)
+    eff_max = min(max_batch, cap) if max_batch else cap
+    if len(runs) > eff_max:
+        return _solve_chunked(
+            runs, eff_max,
+            lambda chunk, _Xc: solve_batch_ekf(
+                chunk, dlc_thresh, device=device, dtype=dtype,
+                max_batch=None, pad_frames=N, pad_cams=C,
+            ),
+        )
+
+    packed, auxp, n_valid = _pack_runs(runs, N, C)
+    mpe = np.asarray([float(r.cam_res[0]) for r in runs])
+
+    def up(a, dt=dtype):
+        return torch.as_tensor(np.asarray(a), dtype=dt, device=device)
+
+    cfg = ekf_solver.EkfConfig(dt=1.0 / fps, dlc_thresh=dlc_thresh,
+                               meas_std_px=cheetah.MEAS_STD_PX, max_pixel_err=up(mpe))
+    out = ekf_stage(cfg, up(packed), up(auxp), up(n_valid, torch.int64), up(ekf_P0(n_pose)))
+    # one download for the whole group
+    B = len(runs)
+    keys = ("x", "dx", "ddx", "smoothed_x", "smoothed_dx", "smoothed_ddx", "marker_std",
+            "positions")
+    flat = torch.cat([out[k].reshape(B, -1) for k in keys]
+                     + [out["outliers"].to(dtype).reshape(B, 1)], dim=1).cpu().numpy()
+    host, o = {}, 0
+    for k in keys:
+        shape = out[k].shape[1:]
+        size = int(np.prod(shape))
+        host[k] = flat[:, o:o + size].reshape(B, *shape)
+        o += size
+    pos_all = host.pop("positions")
+    results = []
+    for i, run in enumerate(runs):
+        n0 = n_valid[i]
+        results.append(dict(
+            data_dir=run.data_dir, positions=pos_all[i, :n0].astype(np.float64),
+            states={k: v[i][:n0] for k, v in host.items()},
+            start_frame=run.start_frame, scene_fpath=run.scene_fpath,
+            max_pixel_err=float(mpe[i]), outliers=int(flat[i, o]),
+        ))
     return results
 
 

@@ -39,6 +39,36 @@ def _chol_inv_unrolled(A):
     return L, Linv
 
 
+def _chol_inv_blocked3(A, p: int):
+    """Cholesky factor and inverse of SPD matrices (..., 3p, 3p) over a
+    3 x 3 grid of (p, p) blocks: three ``_chol_inv_unrolled`` diagonal
+    factorizations and batched (p, p) products for the rest, the
+    arithmetic of the JAX version (the RTS smoother's gains)."""
+    T = lambda m: m.mT  # noqa: E731
+
+    def blk(i, j):
+        return A[..., i * p:(i + 1) * p, j * p:(j + 1) * p]
+
+    L11, L11i = _chol_inv_unrolled(blk(0, 0))
+    L21 = blk(1, 0) @ T(L11i)
+    L31 = blk(2, 0) @ T(L11i)
+    L22, L22i = _chol_inv_unrolled(blk(1, 1) - L21 @ T(L21))
+    L32 = (blk(2, 1) - L31 @ T(L21)) @ T(L22i)
+    L33, L33i = _chol_inv_unrolled(blk(2, 2) - L31 @ T(L31) - L32 @ T(L32))
+
+    # block lower-triangular inverse
+    Li21 = -L22i @ L21 @ L11i
+    Li32 = -L33i @ L32 @ L22i
+    Li31 = -L33i @ (L31 @ L11i + L32 @ Li21)
+
+    z = torch.zeros_like(L11)
+    L = torch.cat([torch.cat([L11, z, z], -1), torch.cat([L21, L22, z], -1),
+                   torch.cat([L31, L32, L33], -1)], -2)
+    Linv = torch.cat([torch.cat([L11i, z, z], -1), torch.cat([Li21, L22i, z], -1),
+                      torch.cat([Li31, Li32, L33i], -1)], -2)
+    return L, Linv
+
+
 def block_banded_solve_unrolled(bands: Sequence[torch.Tensor], b: torch.Tensor) -> torch.Tensor:
     """Factor and solve the bandwidth-3 SPD system A x = b, bands
     [A0..A3] (..., N, P, P), b (..., N, P). The factor recurrence:

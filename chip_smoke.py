@@ -36,7 +36,14 @@ Phases, one line each with its seconds:
   7. sweep   - the sweep's batched FTE stage on 128 synthetic runs
                (8 rigs x 16 seeds, 80-100 frames): solve_batch in chunks
                of 96 (pcg, 13 iterations) and the rescue pass, timed;
-  8. profile - measurement only: the main path's time with each linear
+  8. ekf     - the EKF slice: float64 run_cheetah_ekf against
+               tests/golden/ekf_synthetic_n50.npz (the JAX package's
+               outputs); the sweep's batched EKF stage (solve_batch_ekf,
+               float32) on the sweep phase's 128 runs, with runs/s, peak
+               memory a run, device ops a frame and the marker error;
+               then the warm path, solve_batch from the EKF's smoothed
+               poses, beside the cold sweep;
+  9. profile - measurement only: the main path's time with each linear
                solver and a torch.profiler breakdown of one solve.
 
 Any failed check raises. The line before the last is the kernels' JSON
@@ -1038,6 +1045,8 @@ def phase_sweep(device, iters=13):
     mk = float(np.mean(errs))
     if not mk <= 0.02:
         raise AssertionError(f"sweep mean marker error {mk} m exceeds 0.02 m")
+    mk_before = float(np.mean([np.mean(np.linalg.norm(r["positions"] - pts, axis=-1))
+                               for r, pts in zip(before, truth)]))
     _phase("sweep", t0, f"{len(runs)} runs (8 rigs x 16 seeds, 80-100 frames, C=6, f32, pcg, "
            f"iters={iters}, plain_iters=5; made in {t_make:.2f} s): rescue-inclusive traj/s "
            f"{len(runs) / secs:.2f} (solve {t_solve:.4f} s + rescue {t_rescue:.4f} s); "
@@ -1045,12 +1054,146 @@ def phase_sweep(device, iters=13):
            f"{n_after}/{len(runs)}; rescued {rescued}; max_grad_norm "
            f"{max(r['grad_norm'] for r in after):.4g}; mean_marker_err_m {mk:.5f} "
            f"(worst run {max(errs):.5f})")
+    return dict(runs=runs, truth=truth, n_before=n_before, mk_before=mk_before)
+
+
+# ---- ekf: the EKF + RTS smoother and the sweep's batched EKF stage ----
+
+GOLDEN_EKF = os.path.join(ROOT, "tests", "golden", "ekf_synthetic_n50.npz")
+#: the JAX package's float32 EKF stage on eight of make_sweep_runs()'s
+#: runs (the first of each rig): the median of their mean smoothed marker
+#: errors, measured on the CPU by tests/test_torch_ekf.py::
+#: test_chip_smoke_marker_bound_is_set_from_jax_float32 (which holds this
+#: value to that run at 2%). The ekf phase bounds the median over all
+#: 128 runs by 1.25 times it: the cold line-fit init loses track of some
+#: runs in both packages, so the mean is not a statistic to hold.
+EKF_JAX_F32_MEDIAN_ERR_M = 0.0397969
+EKF_MARKER_ERR_BOUND_M = 1.25 * EKF_JAX_F32_MEDIAN_ERR_M
+
+
+def _ekf_golden_check(device):
+    """The port's float64 run_cheetah_ekf on the card against the JAX
+    package's outputs in GOLDEN_EKF, at tests/test_torch_ekf.py's
+    tolerances; returns the largest error relative to each key's scale."""
+    from acinoset_tpu_torch.pipeline.ekf import marker_std_from_smoothed, run_cheetah_ekf
+
+    g = np.load(GOLDEN_EKF)
+    out = run_cheetah_ekf(g["pixels"], g["likelihood"], g["k"], g["d"], g["r"], g["t"],
+                          fps=float(g["fps"]), cam_res=(float(g["cam_width"]), 0),
+                          dlc_thresh=float(g["dlc_thresh"]), x0_pose=g["x0_pose"],
+                          dtype=torch.float64, device=device)
+    got = {k: out[k] for k in ("x", "dx", "ddx", "smoothed_x", "smoothed_dx", "smoothed_ddx")}
+    for k in ("P", "smoothed_P"):
+        got[f"{k}_diag"] = np.diagonal(out[k], axis1=-2, axis2=-1)
+    worst = 0.0
+    for k, v in got.items():
+        w = g[k]
+        np.testing.assert_allclose(v, w, rtol=1e-6 if k.endswith("_diag") else 1e-8,
+                                   atol=1e-9 * np.abs(w).max(), err_msg=k)
+        worst = max(worst, float(np.abs(v - w).max() / np.abs(w).max()))
+    ms = marker_std_from_smoothed(out["smoothed_x"], out["smoothed_P"], device=device)
+    np.testing.assert_allclose(ms, g["marker_std"], rtol=1e-8, atol=1e-12, err_msg="marker_std")
+    if int(out["outliers"]) != int(g["outliers"]):
+        raise AssertionError(f"golden EKF outliers {out['outliers']} vs {g['outliers']}")
+    return worst, int(out["outliers"])
+
+
+def _run_errs(results, truth):
+    return np.array([np.mean(np.linalg.norm(r["positions"] - pts, axis=-1))
+                     for r, pts in zip(results, truth)])
+
+
+def phase_ekf(device, sweep, iters=13):
+    """The EKF slice: the float64 golden check on the card, then the
+    sweep's batched EKF stage (float32) on the sweep phase's 128 runs, in
+    chunks of 96 (96, then 32 padded to 96): runs/s from the second of two
+    calls, the peak memory a run beside _ekf_mem_cap's model, and a
+    torch.profiler count of the device ops of one chunk; then the warm
+    path, solve_batch from the EKF's smoothed poses (plain_iters=4), read
+    beside the cold sweep. Fails on a golden mismatch, a non-finite or
+    misshapen result, hand-kernel launches (the EKF reaches none), or a
+    median marker error over EKF_MARKER_ERR_BOUND_M."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from acinoset_tpu_torch.kernels import probes_cuda as pk
+    from acinoset_tpu_torch.kernels.banded_cuda import banded_solve
+    from acinoset_tpu_torch.models import cheetah
+    from acinoset_tpu_torch.pipeline.sweep import (MAX_PROGRAM_BATCH, ekf_warm_starts, solve_batch,
+                                                   solve_batch_ekf)
+
+    t0 = time.perf_counter()
+    worst, n_out = _ekf_golden_check(device)
+    _phase("ekf", t0, f"golden (float64, N=50, C=4): states within {worst:.3g} of each key's "
+           f"scale (tol 1e-9 + rtol); outliers {n_out} as the JAX package")
+
+    runs, truth = sweep["runs"], sweep["truth"]
+    N = max(r.pixels.shape[1] for r in runs)
+    n_states = 3 * cheetah.N_ACTIVE
+    solve_batch_ekf(runs, 0.5, device=device)  # warm-up: allocator, cuBLAS handles
+    _phase("ekf", t0, f"warm-up call ({len(runs)} runs) done")
+    counted = [banded_solve] + list(pk.KERNELS.values())
+    for f in counted:
+        f.launches = 0
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    res = solve_batch_ekf(runs, 0.5, device=device)
+    secs = time.perf_counter() - t1
+    B = min(len(runs), MAX_PROGRAM_BATCH)  # the runs of one chunk
+    per_run = (torch.cuda.max_memory_allocated() - base) / B
+    hand = sum(f.launches for f in counted)
+    if hand:
+        raise AssertionError(f"the EKF path launched {hand} hand kernels")
+    model = 9.5 * N * n_states ** 2 * 4
+    for r, pts in zip(res, truth):
+        st = r["states"]
+        if not (all(np.isfinite(v).all() for v in st.values()) and np.isfinite(r["positions"]).all()):
+            raise AssertionError(f"non-finite EKF result for {r['data_dir']}")
+        if st["smoothed_x"].shape != (len(pts), cheetah.N_ACTIVE) or r["positions"].shape != pts.shape:
+            raise AssertionError(f"misshapen EKF result for {r['data_dir']}")
+    errs = _run_errs(res, truth)
+    med = float(np.median(errs))
+    if not med <= EKF_MARKER_ERR_BOUND_M:
+        raise AssertionError(f"EKF median marker error {med} m exceeds {EKF_MARKER_ERR_BOUND_M} m")
+
+    # device activity only: a chunk launches ~117k kernels, and reading
+    # back their CPU-side op events as well is the slow part
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t2 = time.perf_counter()
+        solve_batch_ekf(runs[:B], 0.5, device=device)
+        torch.cuda.synchronize()
+        chunk_s = time.perf_counter() - t2
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    dev_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    _phase("ekf", t0, f"sweep stage: {len(runs)} runs (N={N}, C=6, f32, chunks of {B}): runs/s "
+           f"{len(runs) / secs:.2f} ({secs:.4f} s); peak {per_run / 1e6:.2f} MB a run "
+           f"(cap model 9.5 x N x {n_states}^2 x 4 B = {model / 1e6:.2f} MB); one chunk profiled: "
+           f"{len(dev)} device ops, {len(dev) / N:.1f} a frame, device busy {dev_ms:.1f} ms of "
+           f"{chunk_s * 1e3:.1f} ms wall; outliers {sum(r['outliers'] for r in res)}; marker error "
+           f"median {med:.5f} m (bound {EKF_MARKER_ERR_BOUND_M:.5f}), mean {errs.mean():.5f}, "
+           f"runs over 0.1 m {int((errs > 0.1).sum())}; hand-kernel launches {hand}")
+
+    t3 = time.perf_counter()
+    warm = solve_batch(runs, 0.5, num_iters=iters, X0_override=ekf_warm_starts(res),
+                       plain_iters=4, device=device)
+    warm_s = time.perf_counter() - t3
+    if not all(np.isfinite(r["positions"]).all() and r["x"].shape == (len(p), cheetah.N_ACTIVE)
+               for r, p in zip(warm, truth)):
+        raise AssertionError("non-finite or misshapen warm-path results")
+    werrs = _run_errs(warm, truth)
+    _phase("ekf", t0, f"warm path (solve_batch from the EKF, plain_iters=4, iters={iters}, "
+           f"{warm_s:.4f} s): converged before rescue {sum(r['converged'] for r in warm)}/"
+           f"{len(runs)} (cold {sweep['n_before']}); mean marker error {werrs.mean():.5f} m, "
+           f"median {np.median(werrs):.5f} (cold before rescue: mean {sweep['mk_before']:.5f})")
 
 
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device is available")
-    if not os.path.isdir(os.path.join(ROOT, "acinoset_tpu_torch")) or not os.path.exists(GOLDEN):
+    if not (os.path.isdir(os.path.join(ROOT, "acinoset_tpu_torch")) and os.path.exists(GOLDEN)
+            and os.path.exists(GOLDEN_EKF)):
         sys.exit("chip_smoke.py: run it from a checkout of the repository")
     sys.path.insert(0, ROOT)
     t_all = time.perf_counter()
@@ -1061,7 +1204,8 @@ def main():
     rec["launches"] = phase_main(device)
     phase_golden(device)
     probe_recs = phase_probes(device)
-    phase_sweep(device)
+    sweep = phase_sweep(device)
+    phase_ekf(device, sweep)
     phase_profile(device)
     print(f"[total] {time.perf_counter() - t_all:.2f} s", flush=True)
     print(json.dumps({"kernels": [rec] + probe_recs}), flush=True)

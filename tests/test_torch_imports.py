@@ -29,7 +29,7 @@ def test_port_and_chip_smoke_import_no_jax_nor_io_stack():
         m.name for m in pkgutil.walk_packages(acinoset_tpu_torch.__path__, "acinoset_tpu_torch.")
     )
     for m in ("kernels.banded_cuda", "kernels._nvcc", "kernels.probes_cuda", "probes.probe_mosaic",
-              "probes.probe_mosaic2", "pipeline.sweep"):
+              "probes.probe_mosaic2", "pipeline.sweep", "solvers.ekf"):
         assert f"acinoset_tpu_torch.{m}" in modules
     code = (
         "import importlib, sys\n"
@@ -75,6 +75,13 @@ ENTRY_POINTS = {
     "initial_trajectory_batch": lambda: tfte.initial_trajectory_batch(
         _pixels()[1][None], _pixels()[2][None], [a[None] for a in _pixels()[0]], np.arange(8), 0.5),
     "solve_batch": lambda: tsweep.solve_batch(_sweep_runs(), 0.5, num_iters=1),
+    "solve_batch_ekf": lambda: tsweep.solve_batch_ekf(_sweep_runs(), 0.5),
+    "make_hj_fn": lambda: tekf.make_hj_fn(*_pixels()[0]),
+    "run_cheetah_ekf": lambda: tekf.run_cheetah_ekf(
+        _pixels()[1].transpose(1, 0, 2, 3), _pixels()[2].transpose(1, 0, 2), *_pixels()[0],
+        fps=90.0, cam_res=(2704, 1520), dlc_thresh=0.5),
+    "marker_std_from_smoothed": lambda: tekf.marker_std_from_smoothed(
+        np.zeros((2, 25)), np.tile(np.eye(25), (2, 1, 1))),
     "time_chain": lambda: tpm2.time_chain(1, K=1),
     **{f"probe_mosaic.{name}": t for name, t in tpm.PROBES},
     **{f"probe_mosaic2.{name}": t for name, t in tpm2.PROBES},

@@ -83,9 +83,13 @@ def fte_run(
     num_iters: int = 60,
     dtype=torch.float64,
     device=None,
+    uncertainty: bool = False,
 ) -> Dict:
     """Solve one trajectory with the default config; returns positions,
-    states and the solver status as numpy values."""
+    states and the solver status as numpy values. ``uncertainty`` adds
+    the Laplace posterior (``fte_solve(compute_cov=True)``):
+    ``marker_std`` (N, L, 3), per-marker 1-sigma error bars in metres,
+    and ``pose_cov`` (N, P, P)."""
     device = resolve_device(device)
     C, N, L, _ = pixels.shape
     frames = frames if frames is not None else np.arange(N)
@@ -98,7 +102,7 @@ def fte_run(
     w_meas = torch.as_tensor((lik > dlc_thresh) / cfg.meas_std_px, dtype=dtype, device=device)
     X, info = trajopt.fte_solve(
         hj_parts, torch.as_tensor(X0, dtype=dtype, device=device)[None], meas[None],
-        w_meas[None], cfg, device=device,
+        w_meas[None], cfg, compute_cov=uncertainty, device=device,
     )
     X = X[0]
     dx, ddx = trajopt.derivatives_from_trajectory(X, cfg.Ts)
@@ -106,7 +110,7 @@ def fte_run(
     def host(t):
         return t.detach().cpu().numpy()
 
-    return dict(
+    out = dict(
         positions=host(cheetah.fk25(X)),
         x=host(X),
         dx=host(dx),
@@ -117,3 +121,7 @@ def fte_run(
         converged=bool(info["converged"][0]),
         grad_norm=float(info["grad_norm"][0]),
     )
+    if uncertainty:
+        out["marker_std"] = host(info["marker_std"][0])
+        out["pose_cov"] = host(info["pose_cov"][0])
+    return out

@@ -164,7 +164,7 @@ def _unpack_rig(auxp):
             auxp[..., 13:22].reshape(*lead, 3, 3), auxp[..., 22:25])
 
 
-def solve_stage(cfg, packed, auxp, n_valid, dlc_thresh, X0=None):
+def solve_stage(cfg, packed, auxp, n_valid, dlc_thresh, X0=None, compute_cov=False):
     """The fused FTE stage over a batch of padded runs, the counterpart of
     ``_cached_batch_solver``'s ``solve_one`` vmapped over runs.
 
@@ -173,8 +173,9 @@ def solve_stage(cfg, packed, auxp, n_valid, dlc_thresh, X0=None):
     (B, N, P) or None for the cold init: the nose track's straight line
     and yaw, held at the last valid frame through padding. All on one
     device, in the solve's dtype. Weights are ``lik > dlc_thresh`` over
-    ``cfg.meas_std_px`` on live frames. Returns (X (B, N, P), marker
-    positions (B, N, L, 3), fte_solve's info)."""
+    ``cfg.meas_std_px`` on live frames. ``compute_cov`` adds fte_solve's
+    Laplace posterior to its info. Returns (X (B, N, P), marker positions
+    (B, N, L, 3), fte_solve's info)."""
     B, C, Nn = packed.shape[:3]
     dtype, device = packed.dtype, packed.device
     K, D, R, T = _unpack_rig(auxp)
@@ -198,7 +199,7 @@ def solve_stage(cfg, packed, auxp, n_valid, dlc_thresh, X0=None):
         X0[..., pp["psi_0"]] = torch.atan2(slope[:, 1], slope[:, 0])[:, None]
     rig = tuple(a[:, None] for a in (K, D, R, T))  # (B, 1, C, ...): broadcast over frames
     X, info = trajopt.fte_solve(lambda x: hj_parts_aux(x, rig), X0, meas, wT, cfg,
-                                n_valid=n[:, 0], device=device)
+                                n_valid=n[:, 0], compute_cov=compute_cov, device=device)
     return X, cheetah.fk25(X), info
 
 
@@ -225,10 +226,12 @@ def solve_batch(
     the padded shapes (used by the chunk recursion). ``X0_override`` (one
     (n_i, P) array per run) replaces the cold init; rows beyond each run's
     length are held at its last frame. ``plain_iters`` overrides the
-    graduated-robustness schedule. Returns one dict per run with
+    graduated-robustness schedule; ``relinearize_every`` forwards to
+    FteConfig (lagged Jacobians). Returns one dict per run with
     positions, x, dx, ddx (host numpy, float64) and the solver status.
-    ``uncertainty=True`` and ``relinearize_every > 1`` are not ported yet
-    and raise, as ``fte_solve`` does."""
+    ``uncertainty`` adds fte_solve's Laplace posterior: each dict gains
+    ``marker_std`` (n_i, L, 3), per-marker 1-sigma error bars, and the
+    run's ``cov_ridge_shrink`` and ``cov_ridge_frac`` (0 in float64)."""
     device = resolve_device(device)
     fps = runs[0].fps
     N = pad_frames or max(r.pixels.shape[1] for r in runs)
@@ -250,8 +253,6 @@ def solve_batch(
         cfg = dc_replace(cfg, relinearize_every=relinearize_every)
     if plain_iters is not None:
         cfg = dc_replace(cfg, plain_iters=plain_iters)
-    if uncertainty:
-        raise NotImplementedError("uncertainty (the Laplace-posterior pass) is not ported yet")
 
     packed, auxp, n_valid = _pack_runs(runs, N, C)
     X0 = None
@@ -270,10 +271,16 @@ def solve_batch(
         torch.as_tensor(packed, dtype=dtype, device=device),
         torch.as_tensor(auxp, dtype=dtype, device=device),
         torch.as_tensor(n_valid, dtype=torch.int64, device=device),
-        dlc_thresh, X0,
+        dlc_thresh, X0, compute_cov=uncertainty,
     )
     Xb, positions_b = X.cpu().numpy(), pts.cpu().numpy()
-    status = {k: info[k].cpu().numpy() for k in ("cost", "cost0", "converged", "grad_norm")}
+    keys = ("cost", "cost0", "converged", "grad_norm")
+    if uncertainty:
+        keys += ("marker_std", "cov_ridge_shrink")
+    status = {k: info[k].cpu().numpy() for k in keys}
+    if uncertainty:  # float64 has no ridge and no cov_ridge_frac: 0
+        status["cov_ridge_frac"] = info.get(
+            "cov_ridge_frac", torch.zeros_like(info["cov_ridge_shrink"])).cpu().numpy()
 
     results = []
     Ts = 1.0 / fps
@@ -303,6 +310,12 @@ def solve_batch(
                 grad_norm=float(status["grad_norm"][i]),
             )
         )
+        if uncertainty:
+            results[-1].update(
+                marker_std=status["marker_std"][i, :n0].astype(np.float64),
+                cov_ridge_shrink=float(status["cov_ridge_shrink"][i]),
+                cov_ridge_frac=float(status["cov_ridge_frac"][i]),
+            )
     return results
 
 

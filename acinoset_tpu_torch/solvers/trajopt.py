@@ -27,11 +27,19 @@ from ..kernels.banded_cuda import banded_solve
 from ..ops import losses
 from ..utils.device import resolve_device
 from ..utils.precision import f32_matmuls
-from .banded import block_banded_solve_unrolled, pcg_solve, spectral_minv
+from .banded import (
+    banded_cg_solve,
+    banded_solve_grouped,
+    block_banded_cholesky,
+    block_banded_marginal_covariance,
+    block_banded_solve,
+    block_banded_solve_unrolled,
+    pcg_solve,
+    spectral_minv,
+)
+from .cyclic import banded_solve_cr
 
-#: linear solvers the port takes; the JAX package's 'cg', 'chol',
-#: 'grouped' and 'cr' are not ported yet
-LINEAR_SOLVERS = ("pcg", "chol_unrolled", "pallas")
+LINEAR_SOLVERS = ("pcg", "cg", "chol", "chol_unrolled", "grouped", "cr", "pallas")
 MEAS_LOSSES = ("redescending", "l1", "quadratic")
 
 
@@ -49,9 +57,13 @@ class FteConfig:
     meas_loss: str = "redescending"
     num_iters: int = 60
     plain_iters: int = 15
-    #: 'pcg' (spectrally preconditioned CG), 'chol_unrolled' (the banded
-    #: Cholesky in plain PyTorch) or 'pallas' (the hand-written CUDA
-    #: kernel, kernels/banded_cuda.py; its plain version on CPU tensors)
+    #: 'pcg' (spectrally preconditioned CG on the unscaled system), or a
+    #: solve of the Jacobi-scaled bands: 'cg' (plain CG), 'chol' (library
+    #: Cholesky and triangular solves), 'chol_unrolled' (the banded
+    #: Cholesky in plain PyTorch), 'grouped' (3-frame super-blocks), 'cr'
+    #: (block cyclic reduction, solvers/cyclic.py) or 'pallas' (the
+    #: hand-written CUDA kernel, kernels/banded_cuda.py; its plain
+    #: version on CPU tensors)
     linear_solver: str = "chol_unrolled"
     cg_iters: int = 50
     pcg_iters: int = 16
@@ -140,19 +152,13 @@ def fte_objective(X, h_fn, meas, w_meas, cfg: FteConfig):
     return model_term + meas_term + cfg.limit_penalty * torch.sum(viol**2, dim=(-2, -1))
 
 
-def _check_config(cfg: FteConfig, compute_cov: bool):
+def _check_config(cfg: FteConfig):
     if cfg.linear_solver not in LINEAR_SOLVERS:
-        raise ValueError(
-            f"unknown or unported linear_solver {cfg.linear_solver!r}; choose from {LINEAR_SOLVERS}"
-        )
+        raise ValueError(f"unknown linear_solver {cfg.linear_solver!r}; choose from {LINEAR_SOLVERS}")
     if cfg.meas_loss not in MEAS_LOSSES:
         raise ValueError(f"unknown meas_loss {cfg.meas_loss!r}; choose from {MEAS_LOSSES}")
     if cfg.assembly not in ("auto", "einsum"):
         raise ValueError(f"assembly {cfg.assembly!r} is not ported; use 'einsum'")
-    if compute_cov:
-        raise NotImplementedError("compute_cov (the Laplace-posterior pass) is not ported yet")
-    if int(cfg.relinearize_every) > 1:
-        raise NotImplementedError("relinearize_every > 1 (lagged Jacobians) is not ported yet")
     if cfg.pcg_meas_bf16:
         raise NotImplementedError("pcg_meas_bf16 is not ported yet")
 
@@ -181,18 +187,37 @@ def fte_solve(
     (padded frames then carry zero measurement weight and zero model
     coupling and stay at their initialisation). ``converged`` tests the
     Jacobi-scaled gradient inf-norm at the final accepted solution
-    against ``cfg.stat_tol``."""
-    _check_config(cfg, compute_cov)
+    against ``cfg.stat_tol``.
+
+    ``compute_cov`` adds the Laplace posterior at the solution before the
+    final clamp: ``pose_cov`` (B, N, P, P), the per-frame diagonal blocks
+    of the inverse objective Hessian (``banded.
+    block_banded_marginal_covariance``), and the per-marker ``marker_cov``
+    (B, N, L, 3, 3) and ``marker_std`` (B, N, L, 3) in metres. In float32
+    a ridge of 1e-6 on the Jacobi-scaled diagonal keeps the recurrence's
+    pivots positive; the recurrence also runs at twice the ridge, and the
+    Richardson extrapolation of each variance to no ridge gives the
+    per-run ``cov_ridge_shrink`` (the worst relative variance deficit of
+    a live pose direction), ``marker_std_ridge_shrink`` (B, N, L, 3) and
+    ``cov_ridge_frac`` (the share of live marker cells understated by
+    more than 10% in variance). In float64 there is no ridge and
+    ``cov_ridge_shrink`` is 0.
+
+    With ``cfg.relinearize_every = k > 1`` the Jacobians refresh on
+    iterations k-1, 2k-1, ... and after a rejected step, per run; the
+    residual stays exact every iteration: every run takes the h of the
+    iteration's one ``hj_parts_fn`` pass."""
+    _check_config(cfg)
     device = resolve_device(device)
     X0 = torch.as_tensor(X0, device=device)
     dtype = X0.dtype
     meas = torch.as_tensor(meas, dtype=dtype, device=device)
     w_meas = torch.as_tensor(w_meas, dtype=dtype, device=device)
     with f32_matmuls():
-        return _fte_solve(hj_parts_fn, X0, meas, w_meas, cfg, n_valid)
+        return _fte_solve(hj_parts_fn, X0, meas, w_meas, cfg, n_valid, compute_cov)
 
 
-def _fte_solve(hj_parts_fn, X0, meas, w_meas, cfg, n_valid):
+def _fte_solve(hj_parts_fn, X0, meas, w_meas, cfg, n_valid, compute_cov):
     B, N, P = X0.shape
     dtype, device = X0.dtype, X0.device
     _, _, C, Lm, _ = meas.shape
@@ -213,9 +238,11 @@ def _fte_solve(hj_parts_fn, X0, meas, w_meas, cfg, n_valid):
     # third-difference row mask (row r involves frames r..r+3), per run
     if n_valid is None:
         row_mask = torch.ones((B, max(N - 3, 0)), dtype=dtype, device=device)
+        live = torch.ones((B, N), dtype=torch.bool, device=device)
     else:
         nv = torch.as_tensor(n_valid, device=device).reshape(B, 1)
         row_mask = ((torch.arange(N - 3, device=device) + 3) < nv).to(dtype)
+        live = torch.arange(N, device=device) < nv
 
     # gram bands of D3^T diag(row_mask) D3:
     # band_k[n] = sum_{j=k..3} c_j c_{j-k} row_mask[n-j]
@@ -277,6 +304,19 @@ def _fte_solve(hj_parts_fn, X0, meas, w_meas, cfg, n_valid):
         diag0 = diag_model + torch.diagonal(H_meas, dim1=-2, dim2=-1) + h_lim
         return g, diag0, h_lim
 
+    def hessian_bands(H_meas, h_lim):
+        """Undamped objective-Hessian bands: 2x the model gram, the
+        measurement GN blocks and the active limit-penalty diagonal."""
+        bands = [torch.diag_embed(2.0 * gram_bands[k][..., None] * wq) for k in range(4)]
+        bands[0] = bands[0] + H_meas + torch.diag_embed(h_lim)
+        return bands
+
+    def jacobi_scale(bands, diag):
+        """Bands scaled to unit diagonal, and the scale s (B, N, P)."""
+        s = 1.0 / torch.sqrt(torch.clamp(diag, min=1e-20))
+        s_shift = [s] + [F.pad(s[..., :-k, :], (0, 0, k, 0)) for k in range(1, 4)]
+        return [bands[k] * s[..., :, None] * s_shift[k][..., None, :] for k in range(4)], s
+
     def solve_step(H_meas, g, diag0, damp, h_lim):
         if cfg.linear_solver == "pcg":
             # the unscaled system as a structured operator: the model term
@@ -294,29 +334,43 @@ def _fte_solve(hj_parts_fn, X0, meas, w_meas, cfg, n_valid):
             c_pc = torch.clamp(torch.mean(diag_extra, dim=-2), min=1e-12)  # (B, P)
             return pcg_solve(A_mul, spectral_minv(U_pc, e_pc, wq, c_pc), -g,
                              num_iters=cfg.pcg_iters)
-        # undamped bands: 2x model gram + measurement blocks + limit diagonal
-        bands = [torch.diag_embed(2.0 * gram_bands[k][..., None] * wq) for k in range(4)]
-        bands[0] = bands[0] + H_meas + torch.diag_embed(h_lim) + torch.diag_embed(damp)
+        bands = hessian_bands(H_meas, h_lim)
+        bands[0] = bands[0] + torch.diag_embed(damp)
         # Jacobi scaling to unit diagonal: the model terms carry 1/Ts^4
         # (~1e7 at 90 fps) against O(1e4) measurement terms
-        s = 1.0 / torch.sqrt(torch.clamp(diag0 + damp, min=1e-20))  # (B, N, P)
-        s_shift = [s] + [F.pad(s[..., :-k, :], (0, 0, k, 0)) for k in range(1, 4)]
-        bands = [bands[k] * s[..., :, None] * s_shift[k][..., None, :] for k in range(4)]
+        bands, s = jacobi_scale(bands, diag0 + damp)
+        rhs = -g * s
+        if cfg.linear_solver == "cg":
+            return banded_cg_solve(bands, rhs, num_iters=cfg.cg_iters) * s
+        if cfg.linear_solver == "chol":
+            return block_banded_solve(block_banded_cholesky(bands), rhs) * s
+        if cfg.linear_solver == "grouped":
+            return banded_solve_grouped(bands, rhs) * s
+        if cfg.linear_solver == "cr":
+            return banded_solve_cr(bands, rhs) * s
         if cfg.linear_solver == "pallas":
-            return banded_solve(bands, -g * s) * s
-        return block_banded_solve_unrolled(bands, -g * s) * s
+            return banded_solve(bands, rhs) * s
+        return block_banded_solve_unrolled(bands, rhs) * s
 
     def where_run(ok, a, b):
         return torch.where(ok.reshape((B,) + (1,) * (a.dim() - 1)), a, b)
 
+    lag = max(int(cfg.relinearize_every), 1)
+
     def gn_step(state, it):
-        X, hX, JX, lam, cost = state
+        X, hX, JX, lam, cost, need_refresh = state
         H_meas, g_meas = meas_normal_pieces(hX, JX, it >= cfg.plain_iters)
         g, diag0, h_lim = objective_grad_and_diag(X, H_meas, g_meas)
         damp = lam[:, None, None] * torch.clamp(diag0, min=1e-8)  # LM damping
         dX = solve_step(H_meas, g, diag0, damp, h_lim)
         X_new = X + dX
         h_new, J_new = hj_batch(X_new)  # the iteration's one measurement pass
+        if lag > 1:
+            # lagged Jacobians: a run refreshes on schedule or after a
+            # rejected step and otherwise keeps its factors (the JAX
+            # package's per-run cond under vmap, which runs both branches)
+            refresh = need_refresh | (it % lag == lag - 1)
+            J_new = tuple(where_run(refresh, a, b) for a, b in zip(J_new, JX))
         new_cost = objective_from_h(X_new, h_new)
         ok = (new_cost < cost) & torch.isfinite(dX).all(dim=-1).all(dim=-1)
         X = where_run(ok, X_new, X)
@@ -324,18 +378,74 @@ def _fte_solve(hj_parts_fn, X0, meas, w_meas, cfg, n_valid):
         JX = tuple(where_run(ok, a, b) for a, b in zip(J_new, JX))
         cost = torch.where(ok, new_cost, cost)
         lam = torch.clamp(torch.where(ok, lam * cfg.lam_down, lam * cfg.lam_up), 1e-10, 1e10)
-        return X, hX, JX, lam, cost
+        return X, hX, JX, lam, cost, ~ok
 
     def hj_batch(X):
         h, Jp, Jfk = hj_parts_fn(X)
         return h, (Jp, Jfk)
+
+    def posterior(X, hX, JX):
+        """The Laplace posterior at the final accepted (X, hX, JX): the
+        undamped Hessian bands, Jacobi-scaled, selected-inverted, scaled
+        back, and pushed through the FK Jacobian to the markers."""
+        H_f, _ = meas_normal_pieces(hX, JX, cfg.num_iters > cfg.plain_iters)
+        bands = hessian_bands(H_f, limit_hessian(X)[2])
+        eye = torch.eye(P, dtype=dtype, device=device)
+        # padded frames hold an all-zero block, whose inverse would poison
+        # the backward recurrence: pin them to identity precision
+        bands[0] = bands[0] + (~live).to(dtype)[..., None, None] * eye
+        bands, s = jacobi_scale(bands, torch.diagonal(bands[0], dim1=-2, dim2=-1))
+        # float32: the scaled Hessian's ~1e8 conditioning exceeds 1/eps,
+        # and rounding would drive Schur pivots negative; a weak ridge of
+        # 1e-6 of the unit diagonal keeps them positive
+        ridge = 1e-6 if dtype == torch.float32 else 0.0
+        if ridge:
+            bands[0] = bands[0] + ridge * eye
+            # the same recurrence at twice the ridge, for the shrink
+            # diagnostic below: one batch of 2B systems
+            pair = [torch.stack([bands[0], bands[0] + ridge * eye])]
+            Z, Z2 = block_banded_marginal_covariance(pair + [torch.stack([bk, bk]) for bk in bands[1:]])
+        else:
+            Z = block_banded_marginal_covariance(bands)
+        pose_cov = Z * s[..., :, None] * s[..., None, :]
+        _Jp, Jfk = JX
+
+        def marker_var(pc):
+            return torch.clamp(torch.einsum("rnlxa,rnab,rnlxb->rnlx", Jfk, pc, Jfk), min=0.0)
+
+        v1 = marker_var(pose_cov)
+        out = dict(pose_cov=pose_cov,
+                   marker_cov=torch.einsum("rnlxa,rnab,rnlyb->rnlxy", Jfk, pose_cov, Jfk),
+                   marker_std=torch.sqrt(v1))
+        if not ridge:
+            out["cov_ridge_shrink"] = torch.zeros((B,), dtype=dtype, device=device)
+            return out
+
+        def shrink(v1, v2):
+            """Relative deficit of the variance v1 = v(r) against its
+            extrapolation to r = 0, v0 ~ v(r) + (v(r) - v(2r)): 0 where the
+            ridge does not matter, towards 1 for near-floppy directions."""
+            return torch.clamp((v1 - v2) / torch.clamp(2.0 * v1 - v2, min=1e-30), 0.0, 1.0)
+
+        rel_pose = shrink(torch.diagonal(Z, dim1=-2, dim2=-1), torch.diagonal(Z2, dim1=-2, dim2=-1))
+        rel_pose = torch.where(live[..., None], rel_pose, torch.zeros_like(rel_pose))
+        out["cov_ridge_shrink"] = torch.amax(rel_pose, dim=(-2, -1))
+        rel = shrink(v1, marker_var(Z2 * s[..., :, None] * s[..., None, :]))
+        out["marker_std_ridge_shrink"] = rel
+        live_cells = live[..., None, None].to(dtype).expand_as(rel)
+        hit = (rel > 0.1).to(dtype) * live_cells
+        out["cov_ridge_frac"] = (torch.sum(hit, dim=(1, 2, 3))
+                                 / torch.clamp(torch.sum(live_cells, dim=(1, 2, 3)), min=1.0))
+        return out
 
     n_polish = min(max(int(cfg.polish_iters), 0), int(cfg.num_iters))
     n_main = int(cfg.num_iters) - n_polish
     h0, J0 = hj_batch(X0)
     cost0 = objective_from_h(X0, h0)
     lam_start = cfg.lam0 if cfg.lam_init is None else cfg.lam_init
-    state = (X0, h0, J0, torch.full((B,), lam_start, dtype=dtype, device=device), cost0)
+    no_refresh = torch.zeros((B,), dtype=torch.bool, device=device)
+    state = (X0, h0, J0, torch.full((B,), lam_start, dtype=dtype, device=device), cost0,
+             no_refresh)
     cost_hist = []
     for it in range(n_main):
         state = gn_step(state, it)
@@ -348,16 +458,18 @@ def _fte_solve(hj_parts_fn, X0, meas, w_meas, cfg, n_valid):
         X_m = state[0]
         h_p, J_p = hj_batch(X_m)
         lam_p = torch.clamp(state[3], max=cfg.lam0)
-        state = (X_m, h_p, J_p, lam_p, objective_from_h(X_m, h_p))
+        state = (X_m, h_p, J_p, lam_p, objective_from_h(X_m, h_p), no_refresh)
         for it in range(n_main, n_main + n_polish):
             state = gn_step(state, it)
             cost_hist.append(state[4])
-    X, hX, JX, lam, cost = state
+    X, hX, JX, lam, cost, _ = state
+    extra = posterior(X, hX, JX) if compute_cov else {}
 
     # status: Jacobi-scaled gradient inf-norm of the loss the last
     # iteration optimised, at the final accepted solution (the polish
-    # tail's carried h/J are evaluations at that solution)
-    h_st, J_st = (hX, JX) if n_polish > 0 else hj_batch(X)
+    # tail's carried h/J are evaluations at that solution, unless lagged
+    # Jacobians let an accepted polish step skip the refresh)
+    h_st, J_st = (hX, JX) if n_polish > 0 and lag == 1 else hj_batch(X)
     H_st, g_meas_st = meas_normal_pieces(h_st, J_st, cfg.num_iters > cfg.plain_iters)
     g_st, diag_st, _ = objective_grad_and_diag(X, H_st, g_meas_st)
     grad_norm = torch.amax(
@@ -368,7 +480,7 @@ def _fte_solve(hj_parts_fn, X0, meas, w_meas, cfg, n_valid):
     return X, dict(
         cost=cost, cost0=cost0,
         cost_history=torch.stack(cost_hist, dim=-1) if cost_hist else empty,
-        lam=lam, converged=grad_norm <= cfg.stat_tol, grad_norm=grad_norm,
+        lam=lam, converged=grad_norm <= cfg.stat_tol, grad_norm=grad_norm, **extra,
     )
 
 

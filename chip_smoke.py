@@ -43,8 +43,23 @@ Phases, one line each with its seconds:
                memory a run, device ops a frame and the marker error;
                then the warm path, solve_batch from the EKF's smoothed
                poses, beside the cold sweep;
-  9. profile - measurement only: the main path's time with each linear
-               solver and a torch.profiler breakdown of one solve.
+  9. uncertainty - the main path's solve with compute_cov=True (the
+               Laplace posterior), timed in turns with the plain solve,
+               its error bars checked for symmetry, calibration against
+               the ground truth and against a float64 solve on the card,
+               and its float32 ridge diagnostics checked per run;
+ 10. solvers - the main path's input through 'chol', 'grouped', 'cr',
+               'cg' and 'pcg' with relinearize_every=3, timed once each;
+ 11. sweep uncertainty - the sweep's 128 runs once with
+               uncertainty=True, beside the plain solve's time;
+ 12. profile - measurement only: the main path's time with 'pallas',
+               'pcg' and 'chol_unrolled' (the solvers phase times the
+               others) and a torch.profiler breakdown of one solve.
+
+The phases run in the sweep's own stage order: the EKF stage (8) before
+the FTE stage with uncertainty (9-11). ekf_after_posterior, which the
+script does not run, times the EKF stage after the posterior in one
+process.
 
 Any failed check raises. The line before the last is the kernels' JSON
 record; the last line is {"ok": true, "device": {...}}. Imports nothing
@@ -395,9 +410,10 @@ def phase_split(device, library, bands_np, g_np, skip=3):
     return split
 
 
-def _main_inputs(device, B, N, C, iters, solver):
+def _main_inputs(device, B, N, C, iters, solver, dt=torch.float32, **cfg_kw):
     """bench.py's flagship input, through the port's entry points: the
-    batched initial trajectory, the measurement pieces and the config."""
+    batched initial trajectory, the measurement pieces and the config
+    (``cfg_kw`` overrides its fields). Replica i is the same for every B."""
     from acinoset_tpu_torch.pipeline.ekf import make_hj_parts_fn
     from acinoset_tpu_torch.pipeline.fte import default_config, initial_trajectory_batch
     from acinoset_tpu_torch.utils import synthetic
@@ -408,7 +424,8 @@ def _main_inputs(device, B, N, C, iters, solver):
     pixels, likelihood, pts3d = synthetic.render_measurements(
         X_true, cams, noise_px=1.5, outlier_frac=0.02, bad_lik_frac=0.05, seed=0
     )
-    cfg = replace(default_config(90.0, num_iters=iters), plain_iters=5, linear_solver=solver)
+    cfg = replace(default_config(90.0, num_iters=iters), plain_iters=5, linear_solver=solver,
+                  **cfg_kw)
     aux = [np.broadcast_to(a, (B,) + a.shape) for a in (k_arr, d_arr, r_arr, t_arr)]
     X0s = initial_trajectory_batch(
         np.broadcast_to(pixels, (B,) + pixels.shape),
@@ -420,7 +437,6 @@ def _main_inputs(device, B, N, C, iters, solver):
     meas = np.broadcast_to(pixels.transpose(1, 0, 2, 3), (B, N, C) + pixels.shape[2:])
     w = (likelihood.transpose(1, 0, 2) > 0.5) / cfg.meas_std_px
     wb = np.broadcast_to(w, (B,) + w.shape)
-    dt = torch.float32
     hj_parts = make_hj_parts_fn(k_arr, d_arr, r_arr, t_arr, dt, device)
     args = (torch.as_tensor(X0b, dtype=dt, device=device),
             torch.as_tensor(np.ascontiguousarray(meas), dtype=dt, device=device),
@@ -428,13 +444,13 @@ def _main_inputs(device, B, N, C, iters, solver):
     return cfg, hj_parts, args, pts3d
 
 
-def _solve_and_score(device, cfg, hj_parts, args, pts3d):
+def _solve_and_score(device, cfg, hj_parts, args, pts3d, compute_cov=False):
     """One synchronised solve: (seconds, X, info, mean marker error m)."""
     from acinoset_tpu_torch.models import cheetah
     from acinoset_tpu_torch.solvers.trajopt import fte_solve
 
     t1 = time.perf_counter()
-    X, info = fte_solve(hj_parts, *args, cfg, device=device)
+    X, info = fte_solve(hj_parts, *args, cfg, compute_cov=compute_cov, device=device)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t1
     mk = cheetah.fk25(X).cpu().numpy()
@@ -470,10 +486,155 @@ def phase_main(device, B=96, N=100, C=6, iters=13, reps=3):
     return launches
 
 
+#: the calibration rule of tests/test_fte.py's posterior test: frames
+#: trimmed at each end, the bounds on std(z) and the share within 3 sigma
+CAL_TRIM, CAL_STD_Z, CAL_IN_3SIGMA = 3, (0.2, 1.5), 0.99
+
+
+def phase_uncertainty(device, B=96, N=100, C=6, iters=13, reps=3, n64=8):
+    """The Laplace-posterior pass on the main path's input ('pallas',
+    float32, fte_solve(compute_cov=True)): one warm-up, then reps turns of
+    a plain solve and a compute_cov solve, every kernel count set to 0
+    before the first compute_cov solve and read after it. Fails unless
+    marker_std is finite and positive, pose_cov is symmetric to 1e-6 of
+    its scale, the error bars are calibrated against the ground truth
+    (tests/test_fte.py's rule), the banded kernel ran at least once a GN
+    iteration, and on the first n64 runs the float32 marker_std over a
+    float64 solve's ('chol': the kernel takes float32) has a median ratio
+    in [0.9, 1.1]. The float32 ridge diagnostics must reduce over each
+    run: cov_ridge_frac is the share of the run's cells whose
+    marker_std_ridge_shrink exceeds 0.1 (recounted on the host, 1e-6),
+    cov_ridge_shrink lies in [0, 1], and the first n64 runs solved again
+    as a batch of B copies of them (the same shapes, so the same
+    rounding) read each run's diagnostics within 1e-6."""
+    from acinoset_tpu_torch.kernels import probes_cuda as pk
+    from acinoset_tpu_torch.kernels.banded_cuda import banded_solve
+    from acinoset_tpu_torch.models import cheetah
+
+    t0 = time.perf_counter()
+    inputs = _main_inputs(device, B, N, C, iters, "pallas")
+    pts3d = inputs[-1]
+    _solve_and_score(device, *inputs, compute_cov=True)  # warm-up
+    counted = [banded_solve] + list(pk.KERNELS.values())
+    plain, cov = [], []
+    for rep in range(reps):
+        plain.append(_solve_and_score(device, *inputs)[0])
+        if rep == 0:
+            for f in counted:
+                f.launches = 0
+        secs, X, info, mk_err = _solve_and_score(device, *inputs, compute_cov=True)
+        if rep == 0:
+            launches = banded_solve.launches
+            others = sum(f.launches for f in counted[1:])
+        cov.append(secs)
+    if not (launches >= iters and others == 0):
+        raise AssertionError(f"compute_cov path: banded_chol launched {launches} times in {iters} "
+                             f"GN iterations, probe kernels {others}")
+    ms = info["marker_std"].double()
+    if not (torch.isfinite(ms).all() and float(ms.min()) > 0):
+        raise AssertionError("marker_std is not finite and positive")
+    pc = info["pose_cov"]
+    asym = float((pc - pc.mT).abs().max() / pc.abs().max())
+    if not asym <= 1e-6:
+        raise AssertionError(f"pose_cov asymmetric by {asym} of its scale")
+    std = ms.cpu().numpy()
+    err = cheetah.fk25(X).double().cpu().numpy() - pts3d[None]
+    z = (err / std)[:, CAL_TRIM:-CAL_TRIM]
+    z = z[np.isfinite(z)]
+    std_z, inside = float(np.std(z)), float(np.mean(np.abs(z) < 3.0))
+    if not (CAL_STD_Z[0] < std_z < CAL_STD_Z[1] and inside > CAL_IN_3SIGMA):
+        raise AssertionError(f"error bars not calibrated: std(z) {std_z}, within 3 sigma {inside}")
+    rel, frac = info["marker_std_ridge_shrink"], info["cov_ridge_frac"]
+    frac_gap = float((frac.double() - (rel > 0.1).double().mean(dim=(1, 2, 3))).abs().max())
+    shrink = info["cov_ridge_shrink"]
+    if not (frac_gap <= 1e-6 and bool(((shrink >= 0) & (shrink <= 1)).all())):
+        raise AssertionError(f"cov_ridge_frac {frac_gap} from its recount, or cov_ridge_shrink "
+                             "outside [0, 1]")
+    copies = torch.arange(B, device=device) // (B // n64)  # run j fills rows j*B/n64 ...
+    cfg, hj_parts, args, _pts = inputs
+    _s, _X, info_c, _e = _solve_and_score(device, cfg, hj_parts, tuple(a[copies] for a in args),
+                                          pts3d, compute_cov=True)
+    rows = torch.arange(n64, device=device) * (B // n64)
+    copy_gap = max(float((info_c[k][rows] - info[k][:n64]).abs().max())
+                   for k in ("cov_ridge_shrink", "cov_ridge_frac", "marker_std_ridge_shrink"))
+    if not copy_gap <= 1e-6:
+        raise AssertionError(f"the ridge diagnostics of {n64} runs solved as copies differ by "
+                             f"{copy_gap} from the batch's")
+    in64 = _main_inputs(device, n64, N, C, iters, "chol", dt=torch.float64)
+    _s, _X, info64, _e = _solve_and_score(device, *in64, compute_cov=True)
+    ratio = float(np.median(std[:n64] / info64["marker_std"].cpu().numpy()))
+    if not 0.9 <= ratio <= 1.1:
+        raise AssertionError(f"float32 / float64 marker_std median ratio {ratio} outside [0.9, 1.1]")
+    med_plain, med_cov = float(np.median(plain)), float(np.median(cov))
+    _phase("uncertainty", t0, f"B={B} N={N} C={C} f32 iters={iters} pallas compute_cov: "
+           f"uncertainty_sec median {med_cov:.4f} (solve s {', '.join(f'{t:.4f}' for t in cov)}) "
+           f"against plain {med_plain:.4f} ({', '.join(f'{t:.4f}' for t in plain)}), in turns: "
+           f"overhead {med_cov - med_plain:.4f} s ({100 * (med_cov / med_plain - 1):.1f}%); "
+           f"marker_std median {1e3 * float(np.median(std)):.3f} mm; max cov_ridge_frac "
+           f"{float(info['cov_ridge_frac'].max()):.4g}; max cov_ridge_shrink "
+           f"{float(shrink.max()):.4g} (runs 0-{n64 - 1}: "
+           f"{', '.join(f'{float(x):.4f}' for x in shrink[:n64])}); ridge diagnostics per run: "
+           f"frac recount gap {frac_gap:.3g}, copies gap {copy_gap:.3g}; calibration std(z) "
+           f"{std_z:.4f}, within "
+           f"3 sigma {inside:.5f}; pose_cov asymmetry {asym:.3g}; f32/f64 marker_std median "
+           f"ratio {ratio:.4f} on {n64} runs; banded_chol launches {launches}; "
+           f"mean_marker_err_m {mk_err:.5f}")
+
+
+#: 'cg' (50 unpreconditioned inner iterations) ends far from the optimum
+#: after 13 GN iterations in the JAX package as well: its float32 solve
+#: of replica 0 of the flagship input reaches a mean marker error of
+#: 0.0496156 m on the CPU (tests/test_torch_solvers.py::
+#: test_chip_smoke_cg_bound_is_set_from_jax_float32 holds this value to
+#: that run at 2%). The solvers phase bounds 'cg' by 1.1 times it and the
+#: other solvers by the main path's 0.02 m.
+CG_JAX_F32_ERR_M = 0.0496156
+CG_MARKER_ERR_BOUND_M = 1.1 * CG_JAX_F32_ERR_M
+
+#: the linear solvers of the solvers phase: (label, linear_solver, config fields)
+OTHER_SOLVERS = (("chol", "chol", {}), ("grouped", "grouped", {}), ("cr", "cr", {}),
+                 ("cg", "cg", {}), ("pcg lag 3", "pcg", {"relinearize_every": 3}))
+
+
+def phase_solvers(device, B=96, N=100, C=6, iters=13):
+    """The main path's input through the other linear solvers and through
+    'pcg' with lagged Jacobians: one warm-up, then one timed solve each,
+    every kernel count set to 0 before it and read after it (none of
+    these paths reaches a hand kernel). Fails on a non-finite result, a
+    hand-kernel launch or a mean marker error over 0.02 m ('cg':
+    CG_MARKER_ERR_BOUND_M)."""
+    from acinoset_tpu_torch.kernels import probes_cuda as pk
+    from acinoset_tpu_torch.kernels.banded_cuda import banded_solve
+
+    t0 = time.perf_counter()
+    counted = [banded_solve] + list(pk.KERNELS.values())
+    for label, solver, kw in OTHER_SOLVERS:
+        inputs = _main_inputs(device, B, N, C, iters, solver, **kw)
+        _solve_and_score(device, *inputs)  # warm-up
+        for f in counted:
+            f.launches = 0
+        secs, X, info, mk_err = _solve_and_score(device, *inputs)
+        hand = sum(f.launches for f in counted)
+        if hand:
+            raise AssertionError(f"the {label} path launched {hand} hand kernels")
+        if not torch.isfinite(X).all():
+            raise AssertionError(f"the {label} solve is not finite")
+        bound = CG_MARKER_ERR_BOUND_M if solver == "cg" else 0.02
+        if not mk_err <= bound:
+            raise AssertionError(f"the {label} solve's mean marker error {mk_err} m exceeds {bound} m")
+        print(f"[solvers] {label}: solve s {secs:.4f} traj/s {B / secs:.2f} n_converged "
+              f"{int(info['converged'].sum())}/{B} max_grad_norm "
+              f"{float(info['grad_norm'].max()):.4g} mean_marker_err_m {mk_err:.5f}", flush=True)
+    _phase("solvers", t0, f"B={B} N={N} C={C} f32 iters={iters}: "
+           f"{', '.join(label for label, _s, _k in OTHER_SOLVERS)} finite, no hand-kernel "
+           f"launch, marker error under 0.02 m (cg: {CG_MARKER_ERR_BOUND_M:.5f} m)")
+
+
 def phase_profile(device, B=96, N=100, C=6, iters=13):
     """Measurement only, after the main path's counts are read: the main
-    path's time with each linear solver (one warm-up, then one timed
-    solve; the plain 'chol_unrolled' solve runs once, unwarmed), and a
+    path's time with 'pallas', 'pcg' and 'chol_unrolled' (one warm-up,
+    then one timed solve; the plain 'chol_unrolled' solve runs once,
+    unwarmed; phase_solvers times the other solvers), and a
     torch.profiler breakdown of one 'pallas' solve (device busy share and
     the kernels that hold the most device time)."""
     from torch.profiler import ProfilerActivity, profile
@@ -1054,7 +1215,31 @@ def phase_sweep(device, iters=13):
            f"{n_after}/{len(runs)}; rescued {rescued}; max_grad_norm "
            f"{max(r['grad_norm'] for r in after):.4g}; mean_marker_err_m {mk:.5f} "
            f"(worst run {max(errs):.5f})")
-    return dict(runs=runs, truth=truth, n_before=n_before, mk_before=mk_before)
+    return dict(runs=runs, truth=truth, n_before=n_before, mk_before=mk_before, t_solve=t_solve)
+
+
+def phase_sweep_uncertainty(device, sweep, iters=13):
+    """The sweep phase's 128 runs through solve_batch once with
+    uncertainty=True (no rescue), timed beside that phase's plain solve.
+    Fails if a run's marker_std is misshapen, not finite or not positive
+    on its frames."""
+    from acinoset_tpu_torch.pipeline.sweep import solve_batch
+
+    t0 = time.perf_counter()
+    unc = solve_batch(sweep["runs"], 0.5, num_iters=iters, plain_iters=5, device=device,
+                      uncertainty=True)
+    t_unc = time.perf_counter() - t0
+    for r, pts in zip(unc, sweep["truth"]):
+        ms = r["marker_std"]
+        if not (ms.shape == pts.shape and np.isfinite(ms).all() and ms.min() > 0):
+            raise AssertionError(f"marker_std of {r['data_dir']} is misshapen, non-finite or not "
+                                 "positive")
+    ms_all = np.concatenate([r["marker_std"].ravel() for r in unc])
+    _phase("sweep", t0, f"{len(unc)} runs with uncertainty=True (no rescue): {t_unc:.4f} s against "
+           f"the plain solve's {sweep['t_solve']:.4f} s; marker_std median "
+           f"{1e3 * float(np.median(ms_all)):.3f} mm; max cov_ridge_frac "
+           f"{max(r['cov_ridge_frac'] for r in unc):.4g}; max cov_ridge_shrink "
+           f"{max(r['cov_ridge_shrink'] for r in unc):.4g}")
 
 
 # ---- ekf: the EKF + RTS smoother and the sweep's batched EKF stage ----
@@ -1189,6 +1374,84 @@ def phase_ekf(device, sweep, iters=13):
            f"median {np.median(werrs):.5f} (cold before rescue: mean {sweep['mk_before']:.5f})")
 
 
+def ekf_after_posterior(device=None, reps=2, iters=13):
+    """Measurement only, not run by main(): does the posterior slow the
+    EKF stage that runs after it in the same process? On the sweep
+    phase's 128 runs, solve_batch_ekf is timed reps times fresh, after a
+    plain solve_batch, after solve_batch(uncertainty=True), after each of
+    the two once more, and after gc.collect() and
+    torch.cuda.empty_cache(). Each call prints its seconds, the caching
+    allocator's segments, reserved bytes and cudaMalloc/cudaFree calls
+    during the call, the Python objects gc tracks and the gc pauses
+    during the call; a cProfile of one call fresh and one after the
+    posterior prints its top functions by own time.
+
+        python3 -c "import chip_smoke as c; c.ekf_after_posterior()"
+    """
+    import cProfile
+    import gc
+    import io
+    import pstats
+
+    from acinoset_tpu_torch.pipeline.sweep import solve_batch, solve_batch_ekf
+
+    device = device or torch.device("cuda")
+    runs, _truth = make_sweep_runs()
+    pauses, started = [], [0.0]
+
+    def on_gc(phase, _info):
+        if phase == "start":
+            started[0] = time.perf_counter()
+        else:
+            pauses.append(time.perf_counter() - started[0])
+
+    def ekf_calls(label):
+        for _ in range(reps):
+            pauses.clear()
+            s0 = torch.cuda.memory_stats()
+            t = time.perf_counter()
+            solve_batch_ekf(runs, 0.5, device=device)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            s1 = torch.cuda.memory_stats()
+            print(f"[ekf_after_posterior] {label}: {secs:.4f} s ({len(runs) / secs:.2f} runs/s); "
+                  f"segments {s1['segment.all.current']}, reserved "
+                  f"{s1['reserved_bytes.all.current'] / 1e6:.1f} MB, cudaMalloc "
+                  f"{s1['num_device_alloc'] - s0['num_device_alloc']}, cudaFree "
+                  f"{s1['num_device_free'] - s0['num_device_free']}; gc objects "
+                  f"{len(gc.get_objects())}, gc passes {len(pauses)} "
+                  f"({1e3 * sum(pauses):.1f} ms)", flush=True)
+
+    def profiled(label):
+        prof = cProfile.Profile()
+        prof.enable()
+        solve_batch_ekf(runs, 0.5, device=device)
+        torch.cuda.synchronize()
+        prof.disable()
+        out = io.StringIO()
+        st = pstats.Stats(prof, stream=out)
+        print(f"[ekf_after_posterior] cProfile {label}: {st.total_tt:.3f} s", flush=True)
+        st.sort_stats("tottime").print_stats(8)
+        print("\n".join(ln for ln in out.getvalue().splitlines()[-10:] if ln.strip()), flush=True)
+
+    gc.callbacks.append(on_gc)
+    try:
+        solve_batch_ekf(runs, 0.5, device=device)  # warm-up: allocator, cuBLAS handles
+        ekf_calls("fresh")
+        profiled("fresh")
+        for round_ in (1, 2):
+            for unc in (False, True):
+                solve_batch(runs, 0.5, num_iters=iters, plain_iters=5, device=device,
+                            uncertainty=unc)
+                ekf_calls(f"after {'the posterior' if unc else 'a plain solve'} ({round_})")
+        profiled(f"after the posterior and {reps} EKF calls")
+        gc.collect()
+        torch.cuda.empty_cache()
+        ekf_calls("after gc.collect() and empty_cache()")
+    finally:
+        gc.callbacks.remove(on_gc)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device is available")
@@ -1206,6 +1469,9 @@ def main():
     probe_recs = phase_probes(device)
     sweep = phase_sweep(device)
     phase_ekf(device, sweep)
+    phase_uncertainty(device)
+    phase_solvers(device)
+    phase_sweep_uncertainty(device, sweep)
     phase_profile(device)
     print(f"[total] {time.perf_counter() - t_all:.2f} s", flush=True)
     print(json.dumps({"kernels": [rec] + probe_recs}), flush=True)

@@ -194,9 +194,7 @@ def test_fte_run_reproduces_golden_fixture():
 @pytest.mark.parametrize(
     "change,error",
     [
-        (dict(linear_solver="cr"), ValueError),
         (dict(assembly="vpu"), ValueError),
-        (dict(relinearize_every=2), NotImplementedError),
         (dict(pcg_meas_bf16=True), NotImplementedError),
     ],
 )
@@ -206,10 +204,3 @@ def test_unported_options_raise(batch, change, error):
     with pytest.raises(error):
         ttraj.fte_solve(tekf.make_hj_parts_fn(*rig, device="cpu"), X0b, measb, wb, cfg, device="cpu")
 
-
-def test_compute_cov_raises(batch):
-    rig, X0b, measb, wb, _nv = batch
-    cfg = convert.fte_config_from_dict(asdict(_cfg("pcg")))
-    with pytest.raises(NotImplementedError):
-        ttraj.fte_solve(tekf.make_hj_parts_fn(*rig, device="cpu"), X0b, measb, wb, cfg, compute_cov=True,
-                        device="cpu")

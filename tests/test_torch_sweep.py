@@ -255,8 +255,3 @@ def test_warm_start_helpers_match_jax():
     for v in ("auto", True, False, 1, 0):
         assert tsweep.resolve_warm_start(v) is jsweep.resolve_warm_start(v)
 
-
-@pytest.mark.parametrize("kw", [dict(uncertainty=True), dict(relinearize_every=2)])
-def test_solve_batch_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError):
-        tsweep.solve_batch(_small_runs(1), THRESH, num_iters=1, device="cpu", **kw)

@@ -8,9 +8,12 @@ cv2). Tests hold every ported function to its JAX counterpart on the
 same inputs.
 
 Entry points (``solvers.trajopt.fte_solve``, ``pipeline.fte.fte_run``,
-``pipeline.fte.initial_trajectory_batch``) run on ``cuda`` unless the
-caller passes ``device="cpu"``, and raise when no device is given and
-no CUDA device exists. The banded-Cholesky kernel wrapper
+``pipeline.fte.initial_trajectory_batch``, the sweep's stages
+``pipeline.sweep.solve_batch`` and ``solve_batch_ekf``, and for generic
+skeletons (``models.skeleton``) ``pipeline.generic.fte_generic_run``,
+``pipeline.sweep.solve_batch_generic`` and ``solve_batch_ekf_generic``)
+run on ``cuda`` unless the caller passes ``device="cpu"``, and raise
+when no device is given and no CUDA device exists. The banded-Cholesky kernel wrapper
 (``kernels.banded_cuda.banded_solve``) launches its CUDA kernel on CUDA
 tensors and runs its plain PyTorch version on CPU tensors.
 """

@@ -365,3 +365,35 @@ def pose_limits_45():
 def pose_limits_25():
     lo45, hi45 = pose_limits_45()
     return lo45[ACTIVE_IDX_ORDERED], hi45[ACTIVE_IDX_ORDERED]
+
+
+def to_skeleton_dict():
+    """The cheetah as a skeleton dictionary for the generic builder
+    (``models.skeleton.build_skeleton_model``): rest positions are the
+    zero-pose marker layout, dofs come from each marker's frame joint.
+
+    The generic link FK composes each marker's rotation from its own
+    part's dofs, a different factorisation from ``fk`` (where the eyes
+    and nose ride the head frame), so the dict is for interchange and
+    visualisation and carries ``fk_equivalent=False``: the builder
+    refuses it unless called with ``allow_fk_mismatch=True``."""
+    zero = fk(torch.zeros(N_POSE, dtype=torch.float64)).numpy()
+    positions = {m: list(map(float, zero[i])) for i, m in enumerate(MARKERS)}
+    joint_names = list(JOINTS)
+    dof_map = {}
+    for name, _base, frame_j, _off in MARKER_SPECS:
+        _parent, hx, hy, hz = JOINTS[joint_names[frame_j]]
+        dof_map[name] = [int(hx), int(hy), int(hz)]
+    links = [
+        ["nose", "neck_base"], ["neck_base", "spine"], ["spine", "tail_base"],
+        ["tail_base", "tail1"], ["tail1", "tail2"],
+        ["neck_base", "l_shoulder"], ["l_shoulder", "l_front_knee"],
+        ["l_front_knee", "l_front_ankle"],
+        ["neck_base", "r_shoulder"], ["r_shoulder", "r_front_knee"],
+        ["r_front_knee", "r_front_ankle"],
+        ["tail_base", "l_hip"], ["l_hip", "l_back_knee"], ["l_back_knee", "l_back_ankle"],
+        ["tail_base", "r_hip"], ["r_hip", "r_back_knee"], ["r_back_knee", "r_back_ankle"],
+        ["nose", "l_eye"], ["nose", "r_eye"],
+    ]
+    return dict(links=links, dofs=dof_map, positions=positions, markers=list(MARKERS),
+                model="cheetah_fte", fk_equivalent=False)

@@ -55,16 +55,40 @@ def make_h_fn(k_arr, d_arr, r_arr, t_arr, dtype=torch.float64, device=None):
     return h
 
 
-def hj_parts_aux(pose25, aux):
-    """Measurement pieces with the rig as an argument: ``aux = (K, D, R, T)``
-    with leading dimensions that broadcast against the poses' (for
-    per-run rigs). Returns (h (..., C*L*2), Jp (..., C, L, 2, 3),
-    Jfk (..., L, 3, 25))."""
-    K, D, R, T = aux
-    D = D.reshape(*K.shape[:-2], -1)[..., :4]
-    pts, Jfk = cheetah.fk25_and_jac(pose25)
-    h, Jp = cam_ops.project_rig_and_jac(pts, K, D, R, T)
-    return h.reshape(*h.shape[:-3], -1), Jp, Jfk
+def make_h_fn_aux_generic(fk):
+    """Measurement function of any FK with the rig as an argument:
+    ``h(pose (..., P), aux) -> pixels (..., C, L, 2)``, ``aux = (K, D, R,
+    T)`` with leading dimensions that broadcast against the poses' (for
+    per-run rigs)."""
+
+    def h(pose, aux):
+        K, D, R, T = aux
+        D = D.reshape(*K.shape[:-2], -1)[..., :4]
+        pts = fk(pose)[..., None, :, :]  # (..., 1, L, 3)
+        return cam_ops.project_points_fisheye(
+            pts, K[..., None, :, :], D[..., None, :], R[..., None, :, :], T[..., None, :])
+
+    return h
+
+
+def make_hj_parts_aux_generic(fk_and_jac):
+    """Measurement pieces of any FK with its Jacobian, the rig as an
+    argument (see ``make_h_fn_aux_generic``): ``hj(pose (..., P), aux)
+    -> (h (..., C*L*2), Jp (..., C, L, 2, 3), Jfk (..., L, 3, P))``."""
+
+    def hj(pose, aux):
+        K, D, R, T = aux
+        D = D.reshape(*K.shape[:-2], -1)[..., :4]
+        pts, Jfk = fk_and_jac(pose)
+        h, Jp = cam_ops.project_rig_and_jac(pts, K, D, R, T)
+        return h.reshape(*h.shape[:-3], -1), Jp, Jfk
+
+    return hj
+
+
+#: the cheetah's measurement pieces with the rig as an argument:
+#: poses (..., 25) -> (h, Jp, Jfk (..., L, 3, 25))
+hj_parts_aux = make_hj_parts_aux_generic(cheetah.fk25_and_jac)
 
 
 def make_hj_parts_fn(k_arr, d_arr, r_arr, t_arr, dtype=torch.float64, device=None):

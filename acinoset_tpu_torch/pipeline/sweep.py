@@ -1,19 +1,22 @@
-"""The sweep's batched stages for the cheetah, the counterpart of the
-array-level part of acinoset_tpu.pipeline.sweep: a group of runs (same
-fps) padded to one (frames, cameras) shape and solved as one batch, in
-chunks of at most ``MAX_PROGRAM_BATCH`` runs. Two stages: the FTE
-(``solve_batch``, with the rescue pass that re-solves the runs whose
-stationarity test failed) and the EKF + RTS smoother
-(``solve_batch_ekf``, whose smoothed poses are the FTE's warm start,
-``ekf_warm_starts``).
+"""The sweep's batched stages, the counterpart of the array-level part
+of acinoset_tpu.pipeline.sweep: a group of runs (same fps) padded to one
+(frames, cameras) shape and solved as one batch, in chunks of at most
+``MAX_PROGRAM_BATCH`` runs. Two stages, each for the cheetah and for any
+generic skeleton (``models.skeleton``): the FTE (``solve_batch``,
+``solve_batch_generic``, each with the rescue pass that re-solves the
+runs whose stationarity test failed) and the EKF + RTS smoother
+(``solve_batch_ekf``, ``solve_batch_ekf_generic``, whose smoothed poses
+are the FTE's warm start, ``ekf_warm_starts``).
 
 Per-run camera rigs ride along as batched inputs: the measurement
-pieces are ``pipeline.ekf.hj_parts_aux`` with each run's rig broadcast
-over its frames. ``fte_solve`` and ``run_ekf`` are natively batched, so
-where the JAX package caches one jitted program per configuration, the
-port calls the stage directly (``solve_stage``, ``ekf_stage``). The
-file-level ``sweep``, ``discover_runs`` and ``load_run`` read DLC
-``.h5`` files and are not ported yet.
+pieces are ``pipeline.ekf.hj_parts_aux`` (or, for a skeleton,
+``make_hj_parts_aux_generic`` of its FK with Jacobian) with each run's
+rig broadcast over its frames. ``fte_solve`` and ``run_ekf`` are
+natively batched, so where the JAX package caches one jitted program per
+configuration, the port calls the stage directly (``solve_stage``,
+``ekf_stage``, ``solve_stage_generic``, ``ekf_stage_generic``). The
+file-level ``sweep``, ``sweep_generic``, ``discover_runs`` and
+``load_run`` read DLC ``.h5`` files and are not ported yet.
 """
 from __future__ import annotations
 
@@ -25,12 +28,15 @@ import numpy as np
 import torch
 
 from ..models import cheetah
+from ..models.skeleton import fk_and_jac_any
 from ..ops import camera as cam_ops
 from ..solvers import ekf as ekf_solver
 from ..solvers import trajopt
 from ..utils.device import resolve_device
-from .ekf import assemble_hj, ekf_P0, hj_parts_aux, make_marker_std_fn
+from .ekf import (assemble_hj, ekf_P0, hj_parts_aux, make_h_fn_aux_generic,  # noqa: F401
+                  make_hj_parts_aux_generic, make_marker_std_fn)
 from .fte import default_config
+from .generic import generic_config
 
 
 @dataclass
@@ -255,24 +261,34 @@ def solve_batch(
         cfg = dc_replace(cfg, plain_iters=plain_iters)
 
     packed, auxp, n_valid = _pack_runs(runs, N, C)
-    X0 = None
-    if X0_override is not None:
-        X0_b = []
-        for i in range(len(runs)):
-            Xw = np.asarray(X0_override[i], np.float64)
-            Xp = np.zeros((N, Xw.shape[1]))
-            Xp[: len(Xw)] = Xw
-            Xp[len(Xw):] = Xw[-1]  # hold the last frame through padding
-            X0_b.append(Xp)
-        X0 = torch.as_tensor(np.stack(X0_b), dtype=dtype, device=device)
-
     X, pts, info = solve_stage(
         cfg,
         torch.as_tensor(packed, dtype=dtype, device=device),
         torch.as_tensor(auxp, dtype=dtype, device=device),
         torch.as_tensor(n_valid, dtype=torch.int64, device=device),
-        dlc_thresh, X0, compute_cov=uncertainty,
+        dlc_thresh, _pad_X0(X0_override, N, dtype, device), compute_cov=uncertainty,
     )
+    return _stage_results(runs, n_valid, fps, X, pts, info, uncertainty)
+
+
+def _pad_X0(X0_override, N: int, dtype, device):
+    """Per-run initial trajectories (n_i, P) as one (B, N, P) tensor, each
+    held at its last frame through padding; None stays None."""
+    if X0_override is None:
+        return None
+    X0_b = []
+    for Xw in X0_override:
+        Xw = np.asarray(Xw, np.float64)
+        Xp = np.zeros((N, Xw.shape[1]))
+        Xp[: len(Xw)] = Xw
+        Xp[len(Xw):] = Xw[-1]  # hold the last frame through padding
+        X0_b.append(Xp)
+    return torch.as_tensor(np.stack(X0_b), dtype=dtype, device=device)
+
+
+def _stage_results(runs, n_valid, fps, X, pts, info, uncertainty):
+    """One result dict per run from an FTE stage's batched outputs, cut to
+    the run's length, with host-side derivatives."""
     Xb, positions_b = X.cpu().numpy(), pts.cpu().numpy()
     keys = ("cost", "cost0", "converged", "grad_norm")
     if uncertainty:
@@ -398,7 +414,12 @@ def solve_batch_ekf(
     cfg = ekf_solver.EkfConfig(dt=1.0 / fps, dlc_thresh=dlc_thresh,
                                meas_std_px=cheetah.MEAS_STD_PX, max_pixel_err=up(mpe))
     out = ekf_stage(cfg, up(packed), up(auxp), up(n_valid, torch.int64), up(ekf_P0(n_pose)))
-    # one download for the whole group
+    return _ekf_results(runs, n_valid, mpe, out, dtype)
+
+
+def _ekf_results(runs, n_valid, mpe, out, dtype):
+    """One result dict per run from an EKF stage's batched outputs (one
+    download for the whole group), cut to the run's length."""
     B = len(runs)
     keys = ("x", "dx", "ddx", "smoothed_x", "smoothed_dx", "smoothed_ddx", "marker_std",
             "positions")
@@ -458,3 +479,240 @@ def resolve_warm_start(warm_start) -> bool:
     init at every horizon (the JAX package measured the EKF init landing
     in a worse basin); truthy values force the EKF init."""
     return False if warm_start == "auto" else bool(warm_start)
+
+
+# ---- generic skeletons: the same two stages for any SkeletonModel ----
+
+def solve_stage_generic(model, cfg, packed, auxp, n_valid, dlc_thresh, X0=None, init_idx=None,
+                        excl_idx=(), compute_cov=False):
+    """The fused generic-skeleton FTE stage over a batch of padded runs,
+    the counterpart of ``_cached_batch_solver_generic``'s ``solve_one``
+    vmapped over runs (inputs as ``solve_stage``'s).
+
+    With ``X0`` None the cold init is the straight line of marker
+    ``init_idx``'s triangulated track in x, y, z over f = 0..N-1 (no yaw,
+    no clamp at the last valid frame), zero angles. Weights are
+    ``lik > dlc_thresh`` over ``cfg.meas_std_px`` on live frames, zero for
+    the markers in ``excl_idx``. Returns (X (B, N, P), FK rows
+    (B, N, R, 3), fte_solve's info)."""
+    B, C, Nn, L = packed.shape[:4]
+    dtype, device = packed.dtype, packed.device
+    cams = _unpack_rig(auxp)
+    pix, lik = packed[..., :2], packed[..., 2]
+    n = torch.as_tensor(n_valid, device=device).reshape(B, 1)
+    fidx = torch.arange(Nn, device=device)
+    live = fidx[None] < n  # (B, N)
+    thresh = float(dlc_thresh)
+    keep = np.ones(L)
+    keep[list(excl_idx)] = 0.0
+    w = (lik > thresh).to(dtype) / cfg.meas_std_px
+    w = w * torch.as_tensor(keep, dtype=dtype, device=device) * live[:, None, :, None].to(dtype)
+    meas = pix.permute(0, 2, 1, 3, 4).contiguous()  # (B, N, C, L, 2)
+    wT = w.permute(0, 2, 1, 3).contiguous()
+    if X0 is None:
+        slope, intercept = _track_linreg(pix, lik, cams, init_idx, thresh, live)
+        line = fidx.to(dtype)[None, :, None] * slope[:, None] + intercept[:, None]
+        X0 = torch.cat([line, torch.zeros((B, Nn, model.n_pose - 3), dtype=dtype, device=device)],
+                       dim=-1)
+    hj_aux = make_hj_parts_aux_generic(fk_and_jac_any(model))
+    rig = tuple(a[:, None] for a in cams)  # (B, 1, C, ...): broadcast over frames
+    X, info = trajopt.fte_solve(lambda x: hj_aux(x, rig), X0, meas, wT, cfg,
+                                n_valid=n[:, 0], compute_cov=compute_cov, device=device)
+    return X, model.fk(X), info
+
+
+def solve_batch_generic(
+    model,
+    runs: Sequence[RunData],
+    dlc_thresh: float = 0.4,
+    num_iters: int = 60,
+    device=None,
+    dtype=torch.float32,
+    init_marker: str = "forehead",
+    huber_delta: float = 3.0,
+    exclude_markers: Sequence[str] = ("neck",),
+    X0_override: Optional[Sequence[np.ndarray]] = None,
+    uncertainty: bool = False,
+    rescue: bool = True,
+    plain_iters: Optional[int] = None,
+    warm_start="auto",
+    relinearize_every: int = 1,
+    max_batch: Optional[int] = MAX_PROGRAM_BATCH,
+    pad_frames: Optional[int] = None,
+    pad_cams: Optional[int] = None,
+    _cfg_override: Optional[Dict] = None,
+) -> List[Dict]:
+    """Batched generic-skeleton FTE (the src/build.py path at sweep
+    scale) on ``device`` (CUDA unless the caller names another; raises
+    without CUDA when none is given): a group of runs of any skeleton
+    (same fps, ``runs[i].pixels`` in the model's marker order) padded and
+    chunked as ``solve_batch`` does, with ``generic_config``.
+
+    ``warm_start=True`` replaces the cold init by the batched generic
+    EKF's smoothed poses, with ``plain_iters=4`` unless given ('auto' is
+    the cold init). ``rescue`` re-solves unconverged runs from their
+    solutions with robust weights from iteration 0 (1x, then 3x the
+    budget). ``uncertainty`` adds ``marker_std``, ``cov_ridge_shrink``
+    and ``cov_ridge_frac`` to each result. ``_cfg_override``: raw
+    FteConfig fields (e.g. ``{'linear_solver': 'pallas'}``). Returns one
+    dict per run: positions, x, dx, ddx, markers and the solver status."""
+    device = resolve_device(device)
+    fps = runs[0].fps
+    N = pad_frames or max(r.pixels.shape[1] for r in runs)
+    C = pad_cams or max(r.pixels.shape[0] for r in runs)
+    if max_batch and len(runs) > max_batch:
+        # chunk before the warm-start EKF, so that stage is bounded too
+        return _solve_chunked(
+            runs, max_batch,
+            lambda chunk, Xc: solve_batch_generic(
+                model, chunk, dlc_thresh, num_iters=num_iters, device=device,
+                dtype=dtype, init_marker=init_marker,
+                huber_delta=huber_delta, exclude_markers=exclude_markers,
+                X0_override=Xc, uncertainty=uncertainty, rescue=rescue,
+                plain_iters=plain_iters, warm_start=warm_start,
+                relinearize_every=relinearize_every,
+                max_batch=None, pad_frames=N, pad_cams=C,
+                _cfg_override=_cfg_override,
+            ),
+            X0_override=X0_override,
+        )
+    cfg = generic_config(model, fps, num_iters=num_iters, huber_delta=huber_delta)
+    if _cfg_override:
+        cfg = dc_replace(cfg, **_cfg_override)
+    if X0_override is None and resolve_warm_start(warm_start):
+        X0_override = ekf_warm_starts(solve_batch_ekf_generic(
+            model, runs, dlc_thresh, device=device, dtype=dtype, init_marker=init_marker,
+            pad_frames=N, pad_cams=C,
+        ))
+        if plain_iters is None:
+            plain_iters = 4  # the EKF init is already near the optimum and 3-sigma gated
+    if plain_iters is not None:
+        cfg = dc_replace(cfg, plain_iters=plain_iters)
+    if relinearize_every != 1:
+        cfg = dc_replace(cfg, relinearize_every=relinearize_every)
+
+    excl_idx = tuple(sorted(model.markers.index(m) for m in (exclude_markers or ())
+                            if m in model.markers))
+    packed, auxp, n_valid = _pack_runs(runs, N, C)
+    X, pts, info = solve_stage_generic(
+        model, cfg,
+        torch.as_tensor(packed, dtype=dtype, device=device),
+        torch.as_tensor(auxp, dtype=dtype, device=device),
+        torch.as_tensor(n_valid, dtype=torch.int64, device=device),
+        dlc_thresh, _pad_X0(X0_override, N, dtype, device),
+        init_idx=model.markers.index(init_marker), excl_idx=excl_idx, compute_cov=uncertainty,
+    )
+    results = _stage_results(runs, n_valid, fps, X, pts, info, uncertainty)
+    for r in results:
+        r["markers"] = list(model.markers)
+
+    if rescue:
+        results = _rescue_unconverged(
+            results, "generic ", num_iters,
+            lambda bad, X0s, budget: solve_batch_generic(
+                model, [runs[i] for i in bad], dlc_thresh,
+                num_iters=budget, device=device, dtype=dtype,
+                init_marker=init_marker, huber_delta=huber_delta,
+                exclude_markers=exclude_markers, X0_override=X0s,
+                uncertainty=uncertainty, rescue=False,
+                plain_iters=0,  # continuing a graduated solve
+                relinearize_every=relinearize_every,
+            ),
+        )
+    return results
+
+
+def ekf_stage_generic(model, cfg, packed, auxp, n_valid, P0, qb, init_idx, smoother="auto"):
+    """The fused generic-skeleton EKF stage over a batch of padded runs,
+    the counterpart of ``_cached_batch_ekf_solver_generic``'s ``one``
+    vmapped over runs (inputs as ``ekf_stage``'s; ``qb`` (n_pose,) the
+    process std). The initial state is marker ``init_idx``'s track line:
+    its intercept in x, y, z and its slope (per second) in their
+    velocities, no yaw. Returns the ``run_ekf`` dict with
+    ``marker_std`` and the smoothed FK rows ``positions``."""
+    B, C, Nn = packed.shape[:3]
+    dtype, device = packed.dtype, packed.device
+    n_pose = model.n_pose
+    cams = _unpack_rig(auxp)
+    pix, lik = packed[..., :2], packed[..., 2]
+    live = torch.arange(Nn, device=device)[None] < n_valid.reshape(B, 1)
+    slope, intercept = _track_linreg(pix, lik, cams, init_idx, float(cfg.dlc_thresh), live)
+    zeros = torch.zeros((B, n_pose - 3), dtype=dtype, device=device)
+    x0 = torch.cat([intercept, zeros, slope * (1.0 / float(cfg.dt)), zeros,
+                    torch.zeros((B, n_pose), dtype=dtype, device=device)], dim=-1)
+    fkj = fk_and_jac_any(model)
+    hj_aux = make_hj_parts_aux_generic(fkj)
+
+    def hj(p):
+        return assemble_hj(*hj_aux(p, cams))
+
+    out = ekf_solver.run_ekf(hj, pix.transpose(1, 2), lik.transpose(1, 2), x0, P0, qb, cfg,
+                             smoother=smoother)
+    out["marker_std"] = make_marker_std_fn(fkj, n_pose)(out["smoothed_x"], out["smoothed_P"])
+    out["positions"] = model.fk(out["smoothed_x"])
+    return out
+
+
+def solve_batch_ekf_generic(
+    model,
+    runs: Sequence[RunData],
+    dlc_thresh: float,
+    device=None,
+    dtype=torch.float32,
+    init_marker: str = "forehead",
+    meas_std_px: float = 8.0,
+    pos_process_std: float = 5.0,
+    ang_process_std: float = 5.0,
+    ang_prior_std: float = np.pi / 8,
+    max_batch: Optional[int] = MAX_PROGRAM_BATCH,
+    pad_frames: Optional[int] = None,
+    pad_cams: Optional[int] = None,
+    smoother: str = "auto",
+) -> List[Dict]:
+    """Batched EKF + RTS for any skeleton on ``device`` (CUDA unless the
+    caller names another; raises without CUDA when none is given), padded
+    and chunked as ``solve_batch_ekf`` (the memory cap holds even at
+    ``max_batch=None``). Process noise is blanket per kind: root jerk
+    ``pos_process_std`` m/s^3, angle jerk ``ang_process_std`` rad/s^3,
+    with the angle prior ``ang_prior_std``. The soft defaults (8 px, 5
+    rad/s^3, pi/8) are the JAX package's, measured so that a float32
+    filter on a 2-camera human does not diverge. ``smoother`` passes
+    through to ``run_ekf``. Returns one dict per run as
+    ``solve_batch_ekf``'s."""
+    device = resolve_device(device)
+    fps = runs[0].fps
+    N = pad_frames or max(r.pixels.shape[1] for r in runs)
+    C = pad_cams or max(r.pixels.shape[0] for r in runs)
+    n_pose = model.n_pose
+    cap = _ekf_mem_cap(N, n_pose)
+    eff_max = min(max_batch, cap) if max_batch else cap
+    if len(runs) > eff_max:
+        return _solve_chunked(
+            runs, eff_max,
+            lambda chunk, _Xc: solve_batch_ekf_generic(
+                model, chunk, dlc_thresh, device=device, dtype=dtype,
+                init_marker=init_marker, meas_std_px=meas_std_px,
+                pos_process_std=pos_process_std, ang_process_std=ang_process_std,
+                ang_prior_std=ang_prior_std, max_batch=None, pad_frames=N, pad_cams=C,
+                smoother=smoother,
+            ),
+        )
+
+    packed, auxp, n_valid = _pack_runs(runs, N, C)
+    mpe = np.asarray([float(r.cam_res[0]) for r in runs])
+
+    def up(a, dt=dtype):
+        return torch.as_tensor(np.asarray(a), dtype=dt, device=device)
+
+    cfg = ekf_solver.EkfConfig(dt=1.0 / fps, dlc_thresh=dlc_thresh, meas_std_px=meas_std_px,
+                               max_pixel_err=up(mpe))
+    qb = np.concatenate([np.full(3, pos_process_std), np.full(n_pose - 3, ang_process_std)])
+    p_ang = np.ones(n_pose - 3)
+    P0 = np.diag(np.concatenate([
+        np.ones(3) * 9.0, p_ang * ang_prior_std**2,  # pose
+        np.ones(3) * 25.0, p_ang * 9.0,              # velocity
+        np.ones(3) * 9.0, p_ang * 25.0,              # acceleration
+    ]))
+    out = ekf_stage_generic(model, cfg, up(packed), up(auxp), up(n_valid, torch.int64), up(P0),
+                            qb, model.markers.index(init_marker), smoother=smoother)
+    return _ekf_results(runs, n_valid, mpe, out, dtype)

@@ -43,21 +43,31 @@ Phases, one line each with its seconds:
                memory a run, device ops a frame and the marker error;
                then the warm path, solve_batch from the EKF's smoothed
                poses, beside the cold sweep;
-  9. uncertainty - the main path's solve with compute_cov=True (the
+  9. generic - the generic-skeleton slice on two skeletons at full
+               width, the cheetah exported as a tree (n_pose 63, 6
+               cameras) and a human-width DAG (n_pose 48, 2 cameras), 96
+               runs of 80-100 frames each: the analytic FK Jacobian
+               against the jacfwd fallback on the card,
+               solve_batch_generic (float32, chol_unrolled, 30
+               iterations) with its rescue, device ops a GN iteration,
+               solve_batch_ekf_generic; then the 3-link tree (P = 12)
+               through linear_solver='pallas', counting the banded
+               kernel's launches, against chol_unrolled;
+ 10. uncertainty - the main path's solve with compute_cov=True (the
                Laplace posterior), timed in turns with the plain solve,
                its error bars checked for symmetry, calibration against
                the ground truth and against a float64 solve on the card,
                and its float32 ridge diagnostics checked per run;
- 10. solvers - the main path's input through 'chol', 'grouped', 'cr',
+ 11. solvers - the main path's input through 'chol', 'grouped', 'cr',
                'cg' and 'pcg' with relinearize_every=3, timed once each;
- 11. sweep uncertainty - the sweep's 128 runs once with
+ 12. sweep uncertainty - the sweep's 128 runs once with
                uncertainty=True, beside the plain solve's time;
- 12. profile - measurement only: the main path's time with 'pallas',
+ 13. profile - measurement only: the main path's time with 'pallas',
                'pcg' and 'chol_unrolled' (the solvers phase times the
                others) and a torch.profiler breakdown of one solve.
 
 The phases run in the sweep's own stage order: the EKF stage (8) before
-the FTE stage with uncertainty (9-11). ekf_after_posterior, which the
+the FTE stage with uncertainty (10-12). ekf_after_posterior, which the
 script does not run, times the EKF stage after the posterior in one
 process.
 
@@ -1452,6 +1462,355 @@ def ekf_after_posterior(device=None, reps=2, iters=13):
         gc.callbacks.remove(on_gc)
 
 
+# ---- generic: the generic-skeleton slice (models/skeleton, the generic stages) ----
+
+#: the 3-link tree of tests/test_sweep.py's generic harness (n_pose 12):
+#: the one skeleton of the phase whose GN blocks the banded kernel takes
+#: (it refuses P > 32, as the TPU kernel does, banded_pallas.py:249-250)
+TREE3 = dict(
+    links=[["root"], ["root", "mid"], ["mid", "tip"]],
+    positions=dict(root=[0.0, 0.0, 0.0], mid=[0.4, 0.0, 0.0], tip=[0.8, 0.0, 0.0]),
+    dofs=dict(root=[1, 1, 1], mid=[0, 1, 1], tip=[0, 1, 0]),
+    markers=["root", "mid", "tip"],
+)
+
+#: a human at the width of bench.py's generic block (15 markers, n_pose
+#: 48, 2 cameras): 'pelvis' is the child of both hips, as the shipped
+#: human's hip1 is, so compat="tpu" takes the DAG Jacobian; 'neck' is a
+#: marker, so the default exclude_markers=("neck",) drops its pixels
+HUMAN_DAG = dict(
+    links=[["forehead"], ["forehead", "neck"], ["neck", "l_shoulder"], ["neck", "r_shoulder"],
+           ["l_shoulder", "l_elbow"], ["l_elbow", "l_wrist"], ["r_shoulder", "r_elbow"],
+           ["r_elbow", "r_wrist"], ["neck", "l_hip"], ["neck", "r_hip"], ["l_hip", "pelvis"],
+           ["r_hip", "pelvis"], ["l_hip", "l_knee"], ["l_knee", "l_ankle"],
+           ["r_hip", "r_knee"], ["r_knee", "r_ankle"]],
+    positions=dict(
+        forehead=[0.0, 0.0, 1.7], neck=[0.0, 0.0, 1.5], l_shoulder=[0.0, 0.2, 1.45],
+        r_shoulder=[0.0, -0.2, 1.45], l_elbow=[0.0, 0.25, 1.15], r_elbow=[0.0, -0.25, 1.15],
+        l_wrist=[0.05, 0.25, 0.9], r_wrist=[0.05, -0.25, 0.9], l_hip=[0.0, 0.1, 1.0],
+        r_hip=[0.0, -0.1, 1.0], pelvis=[0.0, 0.0, 0.95], l_knee=[0.02, 0.1, 0.55],
+        r_knee=[0.02, -0.1, 0.55], l_ankle=[0.0, 0.1, 0.1], r_ankle=[0.0, -0.1, 0.1]),
+    dofs={p: [1, 1, 1] for p in (
+        "forehead", "neck", "l_shoulder", "r_shoulder", "l_elbow", "r_elbow", "l_wrist",
+        "r_wrist", "l_hip", "r_hip", "pelvis", "l_knee", "r_knee", "l_ankle", "r_ankle")},
+    markers=["forehead", "neck", "l_shoulder", "r_shoulder", "l_elbow", "r_elbow", "l_wrist",
+             "r_wrist", "l_hip", "r_hip", "pelvis", "l_knee", "r_knee", "l_ankle", "r_ankle"],
+)
+
+#: tests/test_sweep.py:314's bound on the generic FTE's mean marker error
+#: (and here on the generic EKF's median)
+GENERIC_MARKER_ERR_BOUND_M = 0.05
+GENERIC_ITERS = 30
+#: the float32 generic EKF against float64 on its first runs: the largest
+#: smoothed pose gap (rad or m) that still means the filter held (an
+#: H100 reads 0.048 for the cheetah tree and 0.007 for the human). The
+#: pose angles themselves are no test: angle combinations that move no
+#: marker (a part's turn about its bone) random-walk in the filter, past
+#: pi within 100 frames in most runs, in float64 as in float32; the
+#: filter is the JAX package's (tests/test_torch_generic.py)
+EKF_F64_RUNS = 8
+EKF_F32_POSE_GAP = 0.1
+
+
+def make_generic_runs(model, B, n_cams, seed, n_range=(80, 100), fps=90.0):
+    """B runs of a skeleton, n_range frames each (the first at the most)
+    at 90 fps, rendered through the port's FK and fisheye projection in
+    float64 on the CPU: a root line plus sinusoidal angles of amplitude
+    0.3 with seeded frequencies and phases (tests/test_sweep.py's generic
+    harness) on a ring_cameras(n_cams) rig, 1.5 px noise, all likelihoods
+    1. Returns (RunData list, ground-truth FK rows per run)."""
+    from acinoset_tpu_torch.ops import camera as cam_ops
+    from acinoset_tpu_torch.pipeline.sweep import RunData
+    from acinoset_tpu_torch.utils import synthetic
+
+    k, d, r, t, res = synthetic.ring_cameras(n_cams=n_cams)
+    d, t = d.reshape(n_cams, 4), t.reshape(n_cams, 3)
+    rig = [torch.as_tensor(a, dtype=torch.float64)[:, None, None] for a in (k, d, r, t)]
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(n_range[0], n_range[1] + 1, size=B)
+    lengths[0] = n_range[1]
+    runs, truth = [], []
+    for i, n in enumerate(lengths):
+        tt = np.arange(n) / fps
+        X = np.zeros((n, model.n_pose))
+        X[:, 0] = -1.0 + 6.0 * tt
+        X[:, 1] = 0.2 * np.sin(2 * np.pi * tt + i)
+        X[:, 2] = 0.6 + 0.05 * np.sin(2 * np.pi * 2 * tt)
+        X[:, 3:] = 0.3 * np.sin(2 * np.pi * tt[:, None] * rng.uniform(0.5, 1.5, model.n_pose - 3)
+                                + rng.uniform(0, 6, model.n_pose - 3))
+        pts = model.fk(torch.as_tensor(X))  # (n, L, 3)
+        pix = cam_ops.project_points_fisheye(pts[None], *rig).numpy()  # (C, n, L, 2)
+        pix += rng.normal(scale=1.5, size=pix.shape)
+        runs.append(RunData(data_dir=f"generic_{i:03d}", pixels=pix, likelihood=np.ones(pix.shape[:3]),
+                            cams=(k, d, r, t), fps=fps, start_frame=0, scene_fpath="",
+                            cam_res=res))
+        truth.append(pts.numpy())
+    return runs, truth
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _profiled_solve(device, model, runs, init_marker, iters):
+    """One solve_batch_generic call (no rescue) under torch.profiler,
+    device activity only: (device ops, device busy ms, wall ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from acinoset_tpu_torch.pipeline.sweep import solve_batch_generic
+
+    cuda = device.type == "cuda"
+    with profile(activities=[ProfilerActivity.CUDA if cuda else ProfilerActivity.CPU]) as prof:
+        t1 = time.perf_counter()
+        solve_batch_generic(model, runs, 0.5, num_iters=iters, device=device,
+                            init_marker=init_marker, rescue=False)
+        _sync(device)
+        wall = time.perf_counter() - t1
+    kind = DeviceType.CUDA if cuda else DeviceType.CPU
+    ops = [e for e in prof.events() if e.device_type == kind]
+    return len(ops), sum(e.time_range.elapsed_us() for e in ops) / 1e3, wall * 1e3
+
+
+def generic_skeleton(device, label, model, n_cams, init_marker, B=96, iters=GENERIC_ITERS,
+                     seed=0, n_range=(80, 100)):
+    """One skeleton through the generic slice on ``device``: the analytic
+    FK Jacobian against the jacfwd fallback in float32 (1e-5 of scale);
+    one warm-up call of each stage at B=4, N=20; solve_batch_generic
+    (float32, the default 'chol_unrolled', no rescue) timed, then the
+    rescue as solve_batch_generic wires it, timed; every hand kernel's
+    count set to 0 before and read after (the path reaches none); two
+    profiled solves (1 and 2 iterations: their difference is one GN
+    iteration's device ops); solve_batch_ekf_generic (float32) timed with
+    its peak memory a run. Fails on a Jacobian mismatch, non-finite or
+    misshapen results, a hand-kernel launch, a rescue that changed a
+    converged run or lost one, a mean FTE marker error at or over
+    GENERIC_MARKER_ERR_BOUND_M, EKF outliers on 20% of a run's pairs or
+    more, float32 EKF poses over EKF_F32_POSE_GAP from a float64 solve of
+    the first EKF_F64_RUNS runs, or a median EKF marker error at or over
+    GENERIC_MARKER_ERR_BOUND_M."""
+    from acinoset_tpu_torch.kernels import probes_cuda as pk
+    from acinoset_tpu_torch.kernels.banded_cuda import banded_solve
+    from acinoset_tpu_torch.models.skeleton import SkeletonModel, fk_and_jac_any
+    from acinoset_tpu_torch.pipeline.sweep import (_rescue_unconverged, solve_batch_ekf_generic,
+                                                   solve_batch_generic)
+
+    t0 = time.perf_counter()
+    runs, truth = make_generic_runs(model, B, n_cams, seed, n_range)
+    N = max(r.pixels.shape[1] for r in runs)
+    L = model.n_markers
+
+    x = torch.as_tensor(np.random.default_rng(seed).normal(scale=0.5, size=(B, N, model.n_pose)),
+                        dtype=torch.float32, device=device)
+    pts, J = model.fk_and_jac(x)
+    pts_f, J_f = fk_and_jac_any(SkeletonModel(**{**vars(model), "fk_and_jac": None}))(x)
+    jac_err = float((J - J_f).abs().max() / J_f.abs().max())
+    pts_err = float((pts - pts_f).abs().max() / pts_f.abs().max())
+    if not (jac_err <= 1e-5 and pts_err <= 1e-5):
+        raise AssertionError(f"{label}: analytic FK Jacobian vs jacfwd {jac_err:.3g}, FK "
+                             f"{pts_err:.3g} of scale (tol 1e-5)")
+    del x, pts, J, pts_f, J_f
+    _phase("generic", t0, f"{label}: {model.fk_and_jac.__name__} vs jacfwd on {B}x{N} float32 "
+           f"poses: {jac_err:.3g} of scale (FK {pts_err:.3g}; tol 1e-5)")
+
+    kw = dict(device=device, init_marker=init_marker)
+    warm = [replace(r, pixels=r.pixels[:, :20], likelihood=r.likelihood[:, :20]) for r in runs[:4]]
+    solve_batch_generic(model, warm, 0.5, num_iters=iters, **kw)  # allocator, cuBLAS handles
+    solve_batch_ekf_generic(model, warm, 0.5, **kw)
+    counted = [banded_solve] + list(pk.KERNELS.values())
+    for f in counted:
+        f.launches = 0
+    _sync(device)
+    t1 = time.perf_counter()
+    before = solve_batch_generic(model, runs, 0.5, num_iters=iters, rescue=False, **kw)
+    t2 = time.perf_counter()
+    after = _rescue_unconverged(
+        list(before), "generic ", iters,
+        lambda bad, X0s, budget: solve_batch_generic(
+            model, [runs[i] for i in bad], 0.5, num_iters=budget, X0_override=X0s,
+            rescue=False, plain_iters=0, **kw))
+    t3 = time.perf_counter()
+    hand = sum(f.launches for f in counted)
+    t_solve, t_rescue = t2 - t1, t3 - t2
+    for rb, ra in zip(before, after):
+        if rb["converged"] and ra is not rb:
+            raise AssertionError(f"{label}: the rescue changed the converged run {rb['data_dir']}")
+    for r, p in zip(after, truth):
+        if not (np.isfinite(r["positions"]).all() and r["positions"].shape == p.shape
+                and r["x"].shape == (len(p), model.n_pose)):
+            raise AssertionError(f"{label}: non-finite or misshapen FTE result {r['data_dir']}")
+    n_before = sum(r["converged"] for r in before)
+    n_after = sum(r["converged"] for r in after)
+    if not n_after >= n_before:
+        raise AssertionError(f"{label}: the rescue lost converged runs: {n_before} -> {n_after}")
+    errs = _run_errs(after, truth)
+    mk = float(errs.mean())
+    if not mk < GENERIC_MARKER_ERR_BOUND_M:
+        raise AssertionError(f"{label}: FTE mean marker error {mk} m is not under "
+                             f"{GENERIC_MARKER_ERR_BOUND_M} m")
+    if hand:
+        raise AssertionError(f"{label}: the generic path launched {hand} hand kernels")
+    _phase("generic", t0, f"{label} FTE: B={B} N={N} C={n_cams} L={L} P={model.n_pose} f32 "
+           f"chol_unrolled iters={iters}: rescue-inclusive traj/s {B / (t_solve + t_rescue):.2f} "
+           f"(solve {t_solve:.4f} s + rescue {t_rescue:.4f} s), without the rescue "
+           f"{B / t_solve:.2f}; converged {n_before} -> {n_after}/{B}; max_grad_norm "
+           f"{max(r['grad_norm'] for r in after):.4g}; mean_marker_err_m {mk:.5f} (bound "
+           f"{GENERIC_MARKER_ERR_BOUND_M}, worst run {errs.max():.5f}); hand-kernel launches "
+           f"{hand}")
+
+    ops1, _busy1, _wall1 = _profiled_solve(device, model, runs, init_marker, 1)
+    ops2, busy2, wall2 = _profiled_solve(device, model, runs, init_marker, 2)
+    _phase("generic", t0, f"{label} profiled: {ops2 - ops1} device ops a GN iteration "
+           f"({ops2} in a 2-iteration solve); device busy {busy2:.1f} ms of {wall2:.1f} ms "
+           f"wall ({100 * busy2 / wall2:.1f}%)")
+
+    for f in counted:
+        f.launches = 0
+    if device.type == "cuda":
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    t4 = time.perf_counter()
+    res = solve_batch_ekf_generic(model, runs, 0.5, **kw)
+    t_ekf = time.perf_counter() - t4
+    peak = (torch.cuda.max_memory_allocated() - base) / B if device.type == "cuda" else float("nan")
+    hand = sum(f.launches for f in counted)
+    if hand:
+        raise AssertionError(f"{label}: the generic EKF launched {hand} hand kernels")
+    for r, p in zip(res, truth):
+        st = r["states"]
+        if not (all(np.isfinite(v).all() for v in st.values()) and np.isfinite(r["positions"]).all()
+                and r["positions"].shape == p.shape):
+            raise AssertionError(f"{label}: non-finite or misshapen EKF result {r['data_dir']}")
+        n_pairs = len(p) * n_cams * L
+        if not r["outliers"] < 0.2 * n_pairs:
+            raise AssertionError(f"{label}: EKF gated {r['outliers']} of {n_pairs} pairs in "
+                                 f"{r['data_dir']}")
+    # float32 divergence: the same filter in float64 on the first runs
+    res64 = solve_batch_ekf_generic(model, runs[:EKF_F64_RUNS], 0.5, dtype=torch.float64, **kw)
+    gap = max(float(np.abs(a["states"]["smoothed_x"] - b["states"]["smoothed_x"]).max())
+              for a, b in zip(res, res64))
+    eerrs = _run_errs(res, truth)
+    med = float(np.median(eerrs))
+    if not (gap <= EKF_F32_POSE_GAP and med < GENERIC_MARKER_ERR_BOUND_M):
+        raise AssertionError(f"{label}: EKF float32 poses {gap:.3g} from float64 (tol "
+                             f"{EKF_F32_POSE_GAP}), median marker error {med} m (bound "
+                             f"{GENERIC_MARKER_ERR_BOUND_M})")
+    ang = np.array([np.abs(r["states"]["smoothed_x"][:, 3:]).max() for r in res])
+    _phase("generic", t0, f"{label} EKF: runs/s {B / t_ekf:.2f} ({t_ekf:.4f} s); peak "
+           f"{peak / 1e6:.2f} MB a run; outliers {sum(r['outliers'] for r in res)} (worst run "
+           f"{max(r['outliers'] for r in res)}); float32 poses within {gap:.3g} of float64 on "
+           f"{EKF_F64_RUNS} runs; marker error median {med:.5f} m, mean {eerrs.mean():.5f}; max "
+           f"|angle| {ang.max():.4f} rad, past pi in {int((ang >= np.pi).sum())}/{B} runs; "
+           f"hand-kernel launches {hand}")
+    return dict(t_solve=t_solve, t_rescue=t_rescue, n_before=n_before, n_after=n_after, mk=mk,
+                t_ekf=t_ekf)
+
+
+class _FirstCall:
+    """Wraps a function and keeps a copy of the arguments of its first
+    call (a GN step's banded system, as the solver hands it over)."""
+
+    def __init__(self, fn):
+        self.fn, self.args = fn, None
+
+    def __call__(self, bands, rhs):
+        if self.args is None:
+            self.args = ([b.detach().clone() for b in bands], rhs.detach().clone())
+        return self.fn(bands, rhs)
+
+
+def generic_pallas(device, B=96, iters=GENERIC_ITERS, seed=1):
+    """The banded kernel on the generic path: the 3-link tree (P = 12)
+    at B=96, N=100 (80-100 frames padded), 6 cameras, float32, through
+    solve_batch_generic with _cfg_override={'linear_solver': 'pallas'}
+    and no rescue, every kernel count set to 0 before and read after;
+    then the same call with the default 'chol_unrolled'. Fails unless
+    banded_solve launched at least once a GN iteration, the first GN
+    system the solver handed the kernel satisfies the kernel phase's
+    'fte' residual rule against the plain version in float32 (|A x - g| <=
+    2 |A x_plain32 - g| + 1e-4 |g| per system), each solve's mean marker
+    error is under GENERIC_MARKER_ERR_BOUND_M, and every run's cost
+    agrees with 'chol_unrolled''s within 1e-3 relative."""
+    from acinoset_tpu_torch.kernels import probes_cuda as pk
+    from acinoset_tpu_torch.kernels.banded_cuda import banded_solve
+    from acinoset_tpu_torch.models.skeleton import build_skeleton_model
+    from acinoset_tpu_torch.pipeline.sweep import solve_batch_generic
+    from acinoset_tpu_torch.solvers import trajopt
+    from acinoset_tpu_torch.solvers.banded import banded_matvec, block_banded_solve_unrolled
+
+    t0 = time.perf_counter()
+    model = build_skeleton_model(TREE3)
+    runs, truth = make_generic_runs(model, B, 6, seed)
+    N = max(r.pixels.shape[1] for r in runs)
+    kw = dict(num_iters=iters, device=device, init_marker="root", exclude_markers=(),
+              rescue=False)
+    solve_batch_generic(model, runs[:4], 0.5, _cfg_override={"linear_solver": "pallas"}, **kw)
+    counted = [banded_solve] + list(pk.KERNELS.values())
+    for f in counted:
+        f.launches = 0
+    first = _FirstCall(trajopt.banded_solve)
+    trajopt.banded_solve = first
+    try:
+        _sync(device)
+        t1 = time.perf_counter()
+        res_p = solve_batch_generic(model, runs, 0.5, _cfg_override={"linear_solver": "pallas"},
+                                    **kw)
+        t_p = time.perf_counter() - t1
+    finally:
+        trajopt.banded_solve = first.fn
+    launches = banded_solve.launches
+    others = sum(f.launches for f in counted[1:])
+    t2 = time.perf_counter()
+    res_c = solve_batch_generic(model, runs, 0.5, **kw)
+    t_c = time.perf_counter() - t2
+    if not (launches >= iters and others == 0):
+        raise AssertionError(f"tree3: banded_solve launched {launches} times in {iters} GN "
+                             f"iterations, other hand kernels {others}")
+
+    b32, g32 = first.args
+    x_k = banded_solve(b32, g32)
+    x_p32 = block_banded_solve_unrolled(b32, g32)
+    b64, g64 = [b.double() for b in b32], g32.double()
+    resid_k = torch.linalg.vector_norm(banded_matvec(b64, x_k.double()) - g64, dim=(1, 2))
+    resid_p = torch.linalg.vector_norm(banded_matvec(b64, x_p32.double()) - g64, dim=(1, 2))
+    gn = torch.linalg.vector_norm(g64, dim=(1, 2))
+    worst = float(torch.max(resid_k - (2.0 * resid_p + 1e-4 * gn)))
+    if not worst <= 0:
+        raise AssertionError(f"tree3: kernel residual exceeds 2x plain f32 + 1e-4|g| by {worst:.3g}")
+    errs_p, errs_c = _run_errs(res_p, truth), _run_errs(res_c, truth)
+    cost_gap = max(abs(a["cost"] - b["cost"]) / abs(b["cost"]) for a, b in zip(res_p, res_c))
+    if not (errs_p.mean() < GENERIC_MARKER_ERR_BOUND_M and errs_c.mean() < GENERIC_MARKER_ERR_BOUND_M
+            and cost_gap <= 1e-3):
+        raise AssertionError(f"tree3: pallas marker error {errs_p.mean()}, chol_unrolled "
+                             f"{errs_c.mean()}, cost gap {cost_gap:.3g}")
+    _phase("generic", t0, f"tree3 pallas: B={B} N={N} C=6 P={model.n_pose} f32 iters={iters}, no "
+           f"rescue: {B / t_p:.2f} traj/s ({t_p:.4f} s) against chol_unrolled {B / t_c:.2f} "
+           f"({t_c:.4f} s); banded_chol launches {launches}; first GN system "
+           f"{tuple(b32[0].shape)}: rel residual {float(torch.max(resid_k / gn)):.3g} (plain f32 "
+           f"{float(torch.max(resid_p / gn)):.3g}); converged {sum(r['converged'] for r in res_p)} "
+           f"(chol_unrolled {sum(r['converged'] for r in res_c)})/{B}; mean marker error "
+           f"{errs_p.mean():.5f} m (chol_unrolled {errs_c.mean():.5f}); max cost gap "
+           f"{cost_gap:.3g}")
+    return launches
+
+
+def phase_generic(device):
+    """The generic-skeleton slice: the cheetah exported as a tree
+    skeleton at full width (20 markers, n_pose 63, ring_cameras(6)),
+    the human-width DAG (15 markers, n_pose 48, 2 cameras), each through
+    generic_skeleton, then the banded kernel on the generic path
+    (generic_pallas, P = 12)."""
+    from acinoset_tpu_torch.models import cheetah
+    from acinoset_tpu_torch.models.skeleton import build_skeleton_model
+
+    tree = build_skeleton_model(cheetah.to_skeleton_dict(), allow_fk_mismatch=True)
+    human = build_skeleton_model(HUMAN_DAG)
+    generic_skeleton(device, "cheetah tree", tree, 6, "nose")
+    generic_skeleton(device, "human DAG", human, 2, "forehead")
+    return generic_pallas(device)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device is available")
@@ -1469,6 +1828,7 @@ def main():
     probe_recs = phase_probes(device)
     sweep = phase_sweep(device)
     phase_ekf(device, sweep)
+    phase_generic(device)
     phase_uncertainty(device)
     phase_solvers(device)
     phase_sweep_uncertainty(device, sweep)

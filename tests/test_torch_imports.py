@@ -29,7 +29,8 @@ def test_port_and_chip_smoke_import_no_jax_nor_io_stack():
         m.name for m in pkgutil.walk_packages(acinoset_tpu_torch.__path__, "acinoset_tpu_torch.")
     )
     for m in ("kernels.banded_cuda", "kernels._nvcc", "kernels.probes_cuda", "probes.probe_mosaic",
-              "probes.probe_mosaic2", "pipeline.sweep", "solvers.ekf", "solvers.cyclic"):
+              "probes.probe_mosaic2", "pipeline.sweep", "solvers.ekf", "solvers.cyclic",
+              "models.skeleton", "pipeline.generic"):
         assert f"acinoset_tpu_torch.{m}" in modules
     code = (
         "import importlib, sys\n"

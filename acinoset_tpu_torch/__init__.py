@@ -1,7 +1,7 @@
 """PyTorch/CUDA port of acinoset_tpu, beside the JAX package.
 
 The subpackages mirror ``acinoset_tpu`` (``ops models solvers kernels
-pipeline utils``) so each function has an obvious counterpart. The port
+pipeline calib utils``) so each function has an obvious counterpart. The port
 imports torch, numpy and scipy only — never JAX, nor any module of the
 JAX package, nor the JAX package's I/O stack (h5py, imageio, pandas,
 cv2). Tests hold every ported function to its JAX counterpart on the
@@ -9,11 +9,18 @@ same inputs.
 
 Entry points (``solvers.trajopt.fte_solve``, ``pipeline.fte.fte_run``,
 ``pipeline.fte.initial_trajectory_batch``, the sweep's stages
-``pipeline.sweep.solve_batch`` and ``solve_batch_ekf``, and for generic
+``pipeline.sweep.solve_batch`` and ``solve_batch_ekf``, for generic
 skeletons (``models.skeleton``) ``pipeline.generic.fte_generic_run``,
-``pipeline.sweep.solve_batch_generic`` and ``solve_batch_ekf_generic``)
-run on ``cuda`` unless the caller passes ``device="cpu"``, and raise
-when no device is given and no CUDA device exists. The banded-Cholesky kernel wrapper
+``pipeline.sweep.solve_batch_generic`` and ``solve_batch_ekf_generic``,
+the SBA reconstruction ``pipeline.sba.sba_run``, and camera calibration
+(``calib.intrinsics.calibrate_fisheye_camera`` and ``calibrate_camera``,
+``calib.extrinsics.calibrate_pair_extrinsics_fisheye``,
+``calibrate_pair_extrinsics``, ``calibrate_pairwise_extrinsics``,
+``prepare_calib_board_data`` and
+``bundle_adjust_board_points_and_extrinsics``)) run on ``cuda`` unless
+the caller passes ``device="cpu"``, and raise when no device is given
+and no CUDA device exists. The solvers of ``solvers.lm`` and the ops
+run where their tensors are. The banded-Cholesky kernel wrapper
 (``kernels.banded_cuda.banded_solve``) launches its CUDA kernel on CUDA
 tensors and runs its plain PyTorch version on CPU tensors.
 """

@@ -19,15 +19,18 @@ from .solvers.trajopt import FteConfig
 def rig_to_torch(k_arr, d_arr, r_arr, t_arr, device, dtype=torch.float64):
     """Camera stacks in the shapes ``pipeline.ekf.make_hj_parts_fn`` takes
     on the JAX side (K (C, 3, 3), D (C, 4) or (C, 4, 1), R (C, 3, 3),
-    t (C, 3) or (C, 3, 1)) -> tensors K (C, 3, 3), D (C, 4), R (C, 3, 3),
-    T (C, 3) on ``device``."""
+    t (C, 3) or (C, 3, 1)), as numpy arrays, lists or tensors -> tensors
+    K (C, 3, 3), D (C, 4), R (C, 3, 3), T (C, 3) on ``device``."""
     device = torch.device(device)
-    k = torch.as_tensor(np.asarray(k_arr), dtype=dtype, device=device)
+
+    def tensor(a):
+        if torch.is_tensor(a):
+            return a.to(device=device, dtype=dtype)
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    k = tensor(k_arr)
     C = k.shape[0]
-    d = torch.as_tensor(np.asarray(d_arr), dtype=dtype, device=device).reshape(C, -1)[:, :4]
-    r = torch.as_tensor(np.asarray(r_arr), dtype=dtype, device=device)
-    t = torch.as_tensor(np.asarray(t_arr), dtype=dtype, device=device).reshape(C, 3)
-    return k, d, r, t
+    return k, tensor(d_arr).reshape(C, -1)[:, :4], tensor(r_arr), tensor(t_arr).reshape(C, 3)
 
 
 def fte_config_from_dict(fields: dict) -> FteConfig:

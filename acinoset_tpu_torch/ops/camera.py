@@ -1,7 +1,8 @@
-"""Fisheye (Kannala-Brandt 4-coefficient) camera model on torch tensors,
-the counterpart of the main-path subset of acinoset_tpu.ops.camera:
-projection with its analytic point-Jacobian, Newton undistortion and
-two-view DLT triangulation.
+"""Fisheye (Kannala-Brandt 4-coefficient) and pinhole (8-coefficient
+rational) camera models on torch tensors, the counterpart of
+acinoset_tpu.ops.camera less its image undistortion: projection (the
+fisheye one with its analytic point-Jacobian), undistortion of points
+and two-view DLT triangulation.
 
 Camera parameters are K (..., 3, 3), D (..., 4), R (..., 3, 3) and
 t (..., 3). With an unbatched K (3, 3), D and t may also come in the
@@ -52,6 +53,57 @@ def project_points_fisheye(pts, K, D, R, t, eps: float = 1e-12):
     u = K[..., 0, 0] * (a * scale) + K[..., 0, 2]
     v = K[..., 1, 1] * (b * scale) + K[..., 1, 2]
     return torch.stack([u, v], dim=-1)
+
+
+def _pinhole(pts, K, D):
+    """K and the first 8 coefficients (k1, k2, p1, p2, k3, k4, k5, k6) of
+    an OpenCV rational model D, zero-padded; with an unbatched K (3, 3),
+    D may come in any shape, as in the JAX version."""
+    K, D = _like(K, pts), _like(D, pts)
+    D = D.reshape(-1)[:8] if K.dim() == 2 else D[..., :8]
+    pad = torch.zeros(D.shape[:-1] + (8 - D.shape[-1],), dtype=D.dtype, device=D.device)
+    return K, torch.cat([D, pad], dim=-1)
+
+
+def project_points_pinhole(pts, K, D, R, t):
+    """World points (..., 3) -> pixels (..., 2) through a pinhole camera
+    with OpenCV's rational distortion (cv2.projectPoints; the first 8
+    coefficients of D, missing ones zero), as the JAX version."""
+    K, d = _pinhole(pts, K, D)
+    R, t = _like(R, pts), _like(t, pts)
+    if K.dim() == 2:
+        t = t.reshape(3)
+    cam = mv3(R, pts) + t
+    x = cam[..., 0] / cam[..., 2]
+    y = cam[..., 1] / cam[..., 2]
+    r2 = x * x + y * y
+    num = 1.0 + r2 * (d[..., 0] + r2 * (d[..., 1] + r2 * d[..., 4]))
+    den = 1.0 + r2 * (d[..., 5] + r2 * (d[..., 6] + r2 * d[..., 7]))
+    radial = num / den
+    x_d = x * radial + 2.0 * d[..., 2] * x * y + d[..., 3] * (r2 + 2.0 * x * x)
+    y_d = y * radial + d[..., 2] * (r2 + 2.0 * y * y) + 2.0 * d[..., 3] * x * y
+    u = K[..., 0, 0] * x_d + K[..., 0, 1] * y_d + K[..., 0, 2]
+    v = K[..., 1, 1] * y_d + K[..., 1, 2]
+    return torch.stack([u, v], dim=-1)
+
+
+def undistort_points_pinhole(pts, K, D, num_iters: int = 20):
+    """Pixels (..., 2) -> normalized coordinates by a fixed number of
+    fixed-point steps on the rational distortion model
+    (cv2.undistortPoints without P)."""
+    K, d = _pinhole(pts, K, D)
+    x0 = (pts[..., 0] - K[..., 0, 2]) / K[..., 0, 0]
+    y0 = (pts[..., 1] - K[..., 1, 2]) / K[..., 1, 1]
+    x, y = x0, y0
+    for _ in range(num_iters):
+        r2 = x * x + y * y
+        num = 1.0 + r2 * (d[..., 0] + r2 * (d[..., 1] + r2 * d[..., 4]))
+        den = 1.0 + r2 * (d[..., 5] + r2 * (d[..., 6] + r2 * d[..., 7]))
+        radial = num / den
+        dx = 2.0 * d[..., 2] * x * y + d[..., 3] * (r2 + 2.0 * x * x)
+        dy = d[..., 2] * (r2 + 2.0 * y * y) + 2.0 * d[..., 3] * x * y
+        x, y = (x0 - dx) / radial, (y0 - dy) / radial
+    return torch.stack([x, y], dim=-1)
 
 
 def project_points_fisheye_and_jac(pts, K, D, R, t, eps: float = 1e-12):
@@ -133,12 +185,10 @@ def undistort_points_fisheye(pts, K, D, P=None, num_iters: int = 10, eps: float 
     return torch.stack([a, b], dim=-1)
 
 
-def _dlt_one(ab1, ab2, P1, P2):
-    """Two-view DLT of normalized point pairs ab (..., 2) with projection
-    matrices P (..., 3, 4), broadcasting over leading dimensions: the
-    inhomogeneous 3x3 normal equations solved by Cramer's rule, as in
-    the JAX version."""
-    A = torch.stack(
+def _dlt_rows(ab1, ab2, P1, P2):
+    """The two-view DLT system A (..., 4, 4) of normalized point pairs
+    ab (..., 2) and projection matrices P (..., 3, 4)."""
+    return torch.stack(
         [
             ab1[..., 0, None] * P1[..., 2, :] - P1[..., 0, :],
             ab1[..., 1, None] * P1[..., 2, :] - P1[..., 1, :],
@@ -146,7 +196,15 @@ def _dlt_one(ab1, ab2, P1, P2):
             ab2[..., 1, None] * P2[..., 2, :] - P2[..., 1, :],
         ],
         dim=-2,
-    )  # (..., 4, 4)
+    )
+
+
+def _dlt_one(ab1, ab2, P1, P2):
+    """Two-view DLT of normalized point pairs ab (..., 2) with projection
+    matrices P (..., 3, 4), broadcasting over leading dimensions: the
+    inhomogeneous 3x3 normal equations solved by Cramer's rule, as in
+    the JAX version."""
+    A = _dlt_rows(ab1, ab2, P1, P2)  # (..., 4, 4)
     M = A[..., :3]
     rhs = -A[..., 3]
     G = M.mT @ M  # (..., 3, 3)
@@ -171,6 +229,15 @@ def _dlt_one(ab1, ab2, P1, P2):
     return (adj.mT @ h[..., None])[..., 0] / den[..., None]
 
 
+def _dlt_one_eigh(ab1, ab2, P1, P2):
+    """Homogeneous two-view DLT (the eigenvector of A^T A with the
+    smallest eigenvalue; cv2.triangulatePoints). The division by X[3]
+    cancels the eigenvector's free sign."""
+    A = _dlt_rows(ab1, ab2, P1, P2)
+    X = torch.linalg.eigh(A.mT @ A)[1][..., :, 0]
+    return X[..., :3] / X[..., 3, None]
+
+
 def _projection(r, t):
     """[R | t] (..., 3, 4)."""
     return torch.cat([r, t[..., None]], dim=-1)
@@ -184,6 +251,18 @@ def triangulate_points_fisheye(img_pts_1, img_pts_2, k1, d1, r1, t1, k2, d2, r2,
     p2 = img_pts_2.reshape(-1, 2)
     ab1 = undistort_points_fisheye(p1, k1, d1)
     ab2 = undistort_points_fisheye(p2, k2, d2)
+    P1 = _projection(_like(r1, p1), _like(t1, p1).reshape(3))
+    P2 = _projection(_like(r2, p1), _like(t2, p1).reshape(3))
+    return _dlt_one(ab1, ab2, P1, P2)
+
+
+def triangulate_points(img_pts_1, img_pts_2, k1, d1, r1, t1, k2, d2, r2, t2):
+    """The pinhole twin of :func:`triangulate_points_fisheye`: rational-
+    model undistortion of both views, then DLT with P = [R | t]."""
+    p1 = img_pts_1.reshape(-1, 2)
+    p2 = img_pts_2.reshape(-1, 2)
+    ab1 = undistort_points_pinhole(p1, k1, d1)
+    ab2 = undistort_points_pinhole(p2, k2, d2)
     P1 = _projection(_like(r1, p1), _like(t1, p1).reshape(3))
     P2 = _projection(_like(r2, p1), _like(t2, p1).reshape(3))
     return _dlt_one(ab1, ab2, P1, P2)

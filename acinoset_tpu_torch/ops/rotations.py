@@ -68,3 +68,32 @@ def rodrigues(rvec):
     K = _mat([[z, -kz, ky], [kz, z, -kx], [-ky, kx, z]])
     eye = torch.eye(3, dtype=rvec.dtype, device=rvec.device).expand(K.shape)
     return eye + sinc * K + cosc * (K @ K)
+
+
+def rodrigues_inv(R):
+    """so(3) log map: rotation matrix (..., 3, 3) -> vector (..., 3)
+    (cv2.Rodrigues, matrix to vector), with the JAX version's Taylor
+    branch near theta = 0 and its diagonal formula near theta = pi."""
+    tr = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    cos_t = torch.clamp((tr - 1.0) / 2.0, -1.0, 1.0)
+    theta = torch.arccos(cos_t)
+    # antisymmetric part -> axis * sin(theta)
+    w = 0.5 * torch.stack(
+        [R[..., 2, 1] - R[..., 1, 2], R[..., 0, 2] - R[..., 2, 0], R[..., 1, 0] - R[..., 0, 1]],
+        dim=-1,
+    )
+    small = theta < 1e-6
+    scale = torch.where(small, 1.0 + theta**2 / 6.0,
+                        theta / torch.where(small, torch.ones_like(theta), torch.sin(theta)))
+    generic = w * scale[..., None]
+    # near pi: axis from the diagonal, signs from the off-diagonals
+    c = cos_t[..., None]
+    axis = torch.sqrt(torch.clamp((torch.diagonal(R, dim1=-2, dim2=-1) - c) / (1.0 - c + 1e-12),
+                                  min=0.0))
+    signs = torch.stack(
+        [torch.ones_like(theta), torch.sign(R[..., 0, 1] + R[..., 1, 0] + 1e-30),
+         torch.sign(R[..., 0, 2] + R[..., 2, 0] + 1e-30)],
+        dim=-1,
+    )
+    near_pi = (theta > torch.pi - 1e-3)[..., None]
+    return torch.where(near_pi, axis * signs * theta[..., None], generic)

@@ -1,12 +1,17 @@
 """Synthetic multi-camera cheetah runs (tests and chip_smoke.py), the
 counterpart of acinoset_tpu.utils.synthetic: same cameras, trajectory
 and numpy RNG call order, with the port's FK and projection evaluated
-on the CPU in float64, so the data equal the JAX package's."""
+on the CPU in float64, so the data equal the JAX package's. Also
+synthetic checkerboard views for calibration, by the rules of the
+JAX package's calibration tests (tests/test_calib.py,
+tests/test_pinhole_calib.py)."""
 import numpy as np
 import torch
 
 from ..models import cheetah
 from ..ops import camera as cam_ops
+from ..ops.rotations import rodrigues
+from ..pipeline.data import create_board_object_pts
 
 
 def ring_cameras(n_cams=6, radius=12.0, height=1.2, fx=700.0, res=(2704, 1520)):
@@ -90,3 +95,111 @@ def render_measurements(X25, cams, noise_px=1.0, outlier_frac=0.02, bad_lik_frac
         likelihood[ci, ni, li] = 0.1
         pixels[ci, ni, li] += rng.normal(scale=300.0, size=(n_bad, 2))
     return pixels, likelihood, pts3d
+
+
+# ---- checkerboard views for calibration ----
+
+#: tests/test_calib.py's synthetic GoPro-like fisheye at 2704 x 1520
+FISHEYE_K = np.array([[700.0, 0, 1352], [0, 700.0, 760], [0, 0, 1.0]])
+FISHEYE_D = np.array([0.04, 0.005, -0.006, 0.001])
+FISHEYE_RES = (2704, 1520)
+#: tests/test_calib.py::test_stereo_pair_synthetic's pair: X_c2 = R X_c1 + t
+PAIR_RVEC = np.array([0.05, -0.35, 0.08])
+PAIR_T = np.array([1.2, 0.1, 0.25])
+#: board poses in the first camera's frame, tests/test_calib.py's rule
+FISHEYE_POSES = dict(rot_scale=0.4, t_range=((-0.5, 0.5), (-0.3, 0.3), (2.0, 5.0)))
+#: tests/test_pinhole_calib.py's camera at 1280 x 720 and its rules:
+#: intrinsics views, and pair views
+PINHOLE_K = np.array([[820.0, 0, 640.0], [0, 810.0, 360.0], [0, 0, 1]])
+PINHOLE_RES = (1280, 720)
+PINHOLE_POSES = dict(rot_scale=0.35, t_range=((-0.3, 0.3), (-0.2, 0.2), (0.8, 2.0)))
+PINHOLE_PAIR_POSES = dict(rot_scale=0.3, t_range=((-0.3, 0.3), (-0.2, 0.2), (1.2, 2.5)))
+PINHOLE_D = np.array([0.08, -0.03, 0.0005, -0.001, 0.005, 0.0, 0.0, 0.0])
+PINHOLE_PAIR_D = np.array([0.05, -0.02, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0])
+PINHOLE_PAIR_RVEC = np.array([0.04, -0.3, 0.06])
+PINHOLE_PAIR_T = np.array([0.8, 0.05, 0.15])
+
+
+def _rot(rvec):
+    return rodrigues(torch.as_tensor(rvec, dtype=torch.float64)).numpy()
+
+
+def board_views(rng, n_views, cams, rot_scale, t_range, project=cam_ops.project_points_fisheye):
+    """Views of the (9, 6) board with 0.04 m squares seen by one or more
+    cameras. Per view, in this RNG order: a board pose in the first
+    camera's frame (rotation vector ~ N(0, rot_scale), translation
+    uniform in t_range), then for each camera (K, D, R, t) of ``cams``
+    (R, t: the pose relative to the first camera) the projected corners
+    plus N(0, 0.2 px) noise. Returns (obj (M, 3) float32, views
+    (len(cams), n_views, M, 2))."""
+    obj = create_board_object_pts((9, 6), 0.04)
+    obj_t = torch.as_tensor(obj, dtype=torch.float64)
+    out = np.zeros((len(cams), n_views, len(obj), 2))
+    for f in range(n_views):
+        Rb = _rot(rng.normal(scale=rot_scale, size=3))
+        tb = np.array([rng.uniform(*t_range[0]), rng.uniform(*t_range[1]),
+                       rng.uniform(*t_range[2])])
+        for c, (K, D, R, t) in enumerate(cams):
+            pix = project(obj_t, K, D, R @ Rb, R @ tb + t).numpy()
+            out[c, f] = pix + rng.normal(scale=0.2, size=pix.shape)
+    return obj, out
+
+
+def pinhole_views():
+    """tests/test_pinhole_calib.py's calibrate_camera input: 12 views of
+    PINHOLE_K with PINHOLE_D by its rule, 0.2 px noise, seed 0. Returns
+    (obj, views (12, M, 2))."""
+    obj, v = board_views(np.random.default_rng(0), 12,
+                         [(PINHOLE_K, PINHOLE_D, np.eye(3), np.zeros(3))],
+                         project=cam_ops.project_points_pinhole, **PINHOLE_POSES)
+    return obj, v[0]
+
+
+def pinhole_pair_views():
+    """tests/test_pinhole_calib.py's pinhole pair: 8 shared views, seed
+    11, the second camera at (PINHOLE_PAIR_RVEC, PINHOLE_PAIR_T) from the
+    first. Returns (obj, p1, p2)."""
+    obj, v = board_views(np.random.default_rng(11), 8,
+                         [(PINHOLE_K, PINHOLE_PAIR_D, np.eye(3), np.zeros(3)),
+                          (PINHOLE_K, PINHOLE_PAIR_D, _rot(PINHOLE_PAIR_RVEC), PINHOLE_PAIR_T)],
+                         project=cam_ops.project_points_pinhole, **PINHOLE_PAIR_POSES)
+    return obj, v[0], v[1]
+
+
+def chained_rig(n_cams, world_r1):
+    """World extrinsics (R (n, 3, 3), T (n, 3, 1)) of cameras each related
+    to the one before by (rodrigues(PAIR_RVEC), PAIR_T), the first at
+    (world_r1, 0), composed as the reference chains stereo pairs."""
+    r = _rot(PAIR_RVEC)
+    R, T = [np.asarray(world_r1, np.float64)], [np.zeros((3, 1))]
+    for _ in range(n_cams - 1):
+        R.append(r @ R[-1])
+        T.append(r @ T[-1] + PAIR_T.reshape(3, 1))
+    return np.stack(R), np.stack(T)
+
+
+def chained_pair_views(rng, n_cams, n_views, reversed_views=0):
+    """Board views shared by each adjacent pair of chained_rig's cameras
+    (FISHEYE_K, FISHEYE_D): n_views a pair by board_views' fisheye rule in
+    the pair's first camera, named "{pair}_{view}.png", the second
+    camera's corners reversed (the detector's 180-degree ambiguity) in
+    the first ``reversed_views`` views of each pair. Returns (obj,
+    img_pts_arr, fnames_arr, reversed names): per camera its (F_c, M, 2)
+    corners and file names, in the order of calibrate_pairwise_
+    extrinsics' inputs."""
+    K, D = FISHEYE_K, FISHEYE_D
+    pair = [(K, D, np.eye(3), np.zeros(3)), (K, D, _rot(PAIR_RVEC), PAIR_T)]
+    img = [[] for _ in range(n_cams)]
+    names = [[] for _ in range(n_cams)]
+    rev = []
+    for i in range(n_cams - 1):
+        obj, views = board_views(rng, n_views, pair, **FISHEYE_POSES)
+        for f in range(n_views):
+            name = f"{i}_{f}.png"
+            second = views[1, f][::-1] if f < reversed_views else views[1, f]
+            rev += [name] if f < reversed_views else []
+            img[i].append(views[0, f])
+            names[i].append(name)
+            img[i + 1].append(second)
+            names[i + 1].append(name)
+    return obj, [np.array(v) for v in img], names, rev

@@ -53,21 +53,34 @@ Phases, one line each with its seconds:
                solve_batch_ekf_generic; then the 3-link tree (P = 12)
                through linear_solver='pallas', counting the banded
                kernel's launches, against chol_unrolled;
- 10. uncertainty - the main path's solve with compute_cov=True (the
+ 10. sba     - the SBA reconstruction at the flagship's scene and width
+               (6 cameras, N=100, P = 2,000 points, float64, 30
+               iterations): the golden check against
+               tests/golden/sba_calib_synthetic.npz (the JAX package's
+               outputs), s a call, points/s, the robust init's share, the
+               marker error against the truth (tests/test_sba.py's
+               bounds) and the Cauchy cost before and after;
+ 11. calib   - camera calibration on a synthetic 6-camera fisheye rig
+               (float64): the golden check, fisheye intrinsics (60 views
+               a camera, one corrupted and dropped), the pairwise chain
+               (30 shared views a pair, reversed corner sets), the board
+               data and the board bundle adjustment, and one pinhole
+               calibrate_camera and calibrate_pair_extrinsics, s a stage;
+ 12. uncertainty - the main path's solve with compute_cov=True (the
                Laplace posterior), timed in turns with the plain solve,
                its error bars checked for symmetry, calibration against
                the ground truth and against a float64 solve on the card,
                and its float32 ridge diagnostics checked per run;
- 11. solvers - the main path's input through 'chol', 'grouped', 'cr',
+ 13. solvers - the main path's input through 'chol', 'grouped', 'cr',
                'cg' and 'pcg' with relinearize_every=3, timed once each;
- 12. sweep uncertainty - the sweep's 128 runs once with
+ 14. sweep uncertainty - the sweep's 128 runs once with
                uncertainty=True, beside the plain solve's time;
- 13. profile - measurement only: the main path's time with 'pallas',
+ 15. profile - measurement only: the main path's time with 'pallas',
                'pcg' and 'chol_unrolled' (the solvers phase times the
                others) and a torch.profiler breakdown of one solve.
 
 The phases run in the sweep's own stage order: the EKF stage (8) before
-the FTE stage with uncertainty (10-12). ekf_after_posterior, which the
+the FTE stage with uncertainty (12-14). ekf_after_posterior, which the
 script does not run, times the EKF stage after the posterior in one
 process.
 
@@ -1553,24 +1566,31 @@ def _sync(device):
         torch.cuda.synchronize()
 
 
-def _profiled_solve(device, model, runs, init_marker, iters):
-    """One solve_batch_generic call (no rescue) under torch.profiler,
-    device activity only: (device ops, device busy ms, wall ms)."""
+def _profiled(fn, device):
+    """One call of fn under torch.profiler, device activity only (CPU
+    activity on the CPU, for rehearsals): (device ops, device busy ms,
+    wall ms)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    from acinoset_tpu_torch.pipeline.sweep import solve_batch_generic
 
     cuda = device.type == "cuda"
     with profile(activities=[ProfilerActivity.CUDA if cuda else ProfilerActivity.CPU]) as prof:
         t1 = time.perf_counter()
-        solve_batch_generic(model, runs, 0.5, num_iters=iters, device=device,
-                            init_marker=init_marker, rescue=False)
+        fn()
         _sync(device)
         wall = time.perf_counter() - t1
     kind = DeviceType.CUDA if cuda else DeviceType.CPU
     ops = [e for e in prof.events() if e.device_type == kind]
     return len(ops), sum(e.time_range.elapsed_us() for e in ops) / 1e3, wall * 1e3
+
+
+def _profiled_solve(device, model, runs, init_marker, iters):
+    """One solve_batch_generic call (no rescue) under _profiled."""
+    from acinoset_tpu_torch.pipeline.sweep import solve_batch_generic
+
+    return _profiled(lambda: solve_batch_generic(model, runs, 0.5, num_iters=iters,
+                                                 device=device, init_marker=init_marker,
+                                                 rescue=False), device)
 
 
 def generic_skeleton(device, label, model, n_cams, init_marker, B=96, iters=GENERIC_ITERS,
@@ -1811,11 +1831,460 @@ def phase_generic(device):
     return generic_pallas(device)
 
 
+# ---- sba and calib: the SBA reconstruction and camera calibration ----
+
+GOLDEN_SBA = os.path.join(ROOT, "tests", "golden", "sba_calib_synthetic.npz")
+#: Tolerances holding the port's float64 results to GOLDEN_SBA (the JAX
+#: package's), from the CPU comparison (tests/test_torch_lm_sba.py,
+#: tests/test_torch_calib.py). An LM accepts or rejects a step by a cost
+#: comparison that rounding decides once a problem has converged: such a
+#: flip moves a converged point by up to ~sqrt(eps cost / H) (the golden
+#: check reads ~1e-8 of scale) while its cost agrees to rounding. So the LM
+#: results are held by their final robust cost at 1e-8 (relative) and
+#: their positions, rotations and translations at 1e-6; the results of
+#: well-conditioned problems (the calibrations' intrinsics and the pair's
+#: relative pose) at 1e-8.
+LM_COST_RTOL = 1e-8
+LM_STATE_ATOL = 1e-6
+CALIB_RTOL = 1e-8
+SBA_ITERS = 30
+SBA_F_SCALE = 50.0
+#: tests/test_sba.py's bounds on the SBA reconstruction's marker error (m)
+SBA_MEDIAN_ERR_M = 0.025
+SBA_MEAN_ERR_M = 0.12
+
+
+def _close(name, got, want, rtol=0.0, atol=0.0):
+    """assert_allclose that returns the largest error relative to the
+    reference's scale."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol, err_msg=name)
+    return float(np.nanmax(np.abs(got - want)) / max(np.nanmax(np.abs(want)), 1e-300))
+
+
+def _point_costs(residuals, n_points, f_scale):
+    """Per-point Cauchy cost of flattened (P, 2C) residuals."""
+    e = np.asarray(residuals, np.float64).reshape(n_points, -1) / f_scale
+    return 0.5 * f_scale**2 * np.log1p(e * e).sum(-1)
+
+
+def golden_sba_compare(out, g):
+    """Hold results in the golden file's keys (whichever sections ``out``
+    has) to the file's JAX outputs ``g`` at the tolerances above. Returns
+    the largest error of each key relative to its scale."""
+    worst = {}
+    if "sba_positions" in out:
+        pos = out["sba_positions"]
+        if not np.array_equal(np.isnan(pos), np.isnan(g["sba_positions"])):
+            raise AssertionError("golden SBA: NaN patterns differ")
+        n = pos.shape[0] * pos.shape[1]
+        worst["sba_before"] = _close("sba_before", out["sba_before"], g["sba_before"], rtol=1e-8,
+                                     atol=1e-8 * np.abs(g["sba_before"]).max())
+        worst["sba point cost"] = _close(
+            "sba point cost", _point_costs(out["sba_after"], n, SBA_F_SCALE),
+            _point_costs(g["sba_after"], n, SBA_F_SCALE), rtol=LM_COST_RTOL)
+        worst["sba_positions"] = _close("sba_positions", pos, g["sba_positions"],
+                                        atol=LM_STATE_ATOL)
+    if "spe_pts" in out:
+        worst["spe cost"] = _close("spe cost", _point_costs(out["spe_after"], 1, 1.0),
+                                   _point_costs(g["spe_after"], 1, 1.0), rtol=LM_COST_RTOL)
+        for key in ("spe_pts", "spe_R", "spe_T"):
+            worst[key] = _close(key, out[key], g[key], atol=LM_STATE_ATOL)
+    if "fi_k" in out:
+        if not np.array_equal(out["fi_used"], g["fi_used"]):
+            raise AssertionError(f"golden intrinsics: used {out['fi_used']} vs {g['fi_used']}")
+        worst["fi_k"] = _close("fi_k", out["fi_k"], g["fi_k"], rtol=CALIB_RTOL)
+        worst["fi_d"] = _close("fi_d", out["fi_d"], g["fi_d"], rtol=CALIB_RTOL,
+                               atol=CALIB_RTOL * np.abs(g["fi_d"]).max())
+        for key in ("fi_rms", "fi_frame_rms"):
+            worst[key] = _close(key, out[key], g[key], rtol=CALIB_RTOL)
+        for key in ("fi_rvecs", "fi_tvecs"):
+            worst[key] = _close(key, out[key], g[key], atol=CALIB_RTOL)
+    if "fp_R" in out:
+        for key in ("fp_R", "fp_t"):
+            worst[key] = _close(key, out[key], g[key], atol=CALIB_RTOL)
+        worst["fp_rms"] = _close("fp_rms", out["fp_rms"], g["fp_rms"], rtol=CALIB_RTOL)
+    return worst
+
+
+def golden_sba_run(device, g):
+    """The port's float64 sba_run and sba_points_extrinsics on the golden
+    file's inputs, in its keys."""
+    from acinoset_tpu_torch.pipeline.sba import sba_run
+    from acinoset_tpu_torch.solvers.lm import sba_points_extrinsics
+
+    pos, res = sba_run(g["sba_pixels"], g["sba_valid"], g["sba_k"], g["sba_d"], g["sba_r"],
+                       g["sba_t"], f_scale=SBA_F_SCALE, num_iters=SBA_ITERS, device=device)
+    dt = torch.float64
+    pts, R, T, spe = sba_points_extrinsics(
+        torch.as_tensor(g["spe_obs"], dtype=dt, device=device),
+        torch.as_tensor(g["spe_mask"], device=device), g["spe_k"], g["spe_d"], g["spe_r"],
+        g["spe_t"], torch.as_tensor(g["spe_x0"], dtype=dt, device=device), f_scale=1.0,
+        num_iters=int(g["spe_iters"]))
+    out = dict(sba_positions=pos, sba_before=res["before"], sba_after=res["after"], spe_pts=pts,
+               spe_R=R, spe_T=T, spe_before=spe["before"], spe_after=spe["after"])
+    return {k: v.cpu().numpy() if torch.is_tensor(v) else v for k, v in out.items()}
+
+
+def golden_calib_run(device, g):
+    """The port's float64 calibrate_fisheye_camera (F = 12, one bad view)
+    and calibrate_pair_extrinsics_fisheye on the golden file's inputs, in
+    its keys."""
+    from acinoset_tpu_torch.calib.extrinsics import calibrate_pair_extrinsics_fisheye
+    from acinoset_tpu_torch.calib.intrinsics import calibrate_fisheye_camera
+
+    cal = calibrate_fisheye_camera(g["fi_obj"], g["fi_img"], tuple(g["fi_res"]), device=device)
+    rms, R, t = calibrate_pair_extrinsics_fisheye(
+        g["fp_obj"], g["fp_p1"], g["fp_p2"], g["fp_K"], g["fp_D"], g["fp_K"], g["fp_D"],
+        (2704, 1520), num_iters=int(g["fp_iters"]), device=device)
+    out = {f"fi_{k}": getattr(cal, k) for k in ("k", "d", "rvecs", "tvecs", "rms", "frame_rms",
+                                                "used")}
+    out.update(fp_rms=rms, fp_R=R, fp_t=t)
+    return out
+
+
+def _fmt_worst(worst):
+    return ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+
+
+def phase_sba(device):
+    """The SBA reconstruction at the flagship's scene and width:
+    ring_cameras(6), cheetah_gallop(N=100), 1.5 px noise, 2% outliers,
+    5% low likelihood, seed 0 (P = 2,000 points): sba_run in float64
+    (30 iterations, f_scale 50), s a call (the median of 3 after a
+    warm-up), points/s, the robust init's share, and the marker error
+    against the synthetic truth, gated by tests/test_sba.py's bounds and
+    a Cauchy cost that did not rise; first the golden check on the card.
+    The path reaches no hand kernel."""
+    from acinoset_tpu_torch.convert import rig_to_torch
+    from acinoset_tpu_torch.kernels import probes_cuda as pk
+    from acinoset_tpu_torch.kernels.banded_cuda import banded_solve
+    from acinoset_tpu_torch.pipeline import sba
+    from acinoset_tpu_torch.utils import synthetic
+
+    t0 = time.perf_counter()
+    worst = golden_sba_compare(golden_sba_run(device, dict(np.load(GOLDEN_SBA))),
+                               np.load(GOLDEN_SBA))
+    _phase("sba", t0, f"golden (float64, 4 cameras, N=20; and sba_points_extrinsics, P=160): "
+           f"largest errors relative to each key's scale: {_fmt_worst(worst)}")
+
+    cams = synthetic.ring_cameras(n_cams=6)
+    k, d, r, t, _res = cams
+    X = synthetic.cheetah_gallop(N=100, fps=90.0)
+    px, lik, truth = synthetic.render_measurements(X, cams, noise_px=1.5, outlier_frac=0.02,
+                                                   bad_lik_frac=0.05, seed=0)
+    valid = lik > 0.5
+    P = truth.shape[0] * truth.shape[1]
+
+    def run():
+        return sba.sba_run(px, valid, k, d, r, t, f_scale=SBA_F_SCALE, num_iters=SBA_ITERS,
+                           device=device)
+
+    rig = rig_to_torch(k, d, r, t, device)
+    pxt = torch.as_tensor(np.nan_to_num(px), device=device)
+    vt = torch.as_tensor(valid, device=device)
+
+    def init():
+        sba._robust_triangulation_init(pxt, vt, *rig)
+        _sync(device)
+
+    run()  # warm-up
+    init()
+    counted = [banded_solve] + list(pk.KERNELS.values())
+    for f in counted:
+        f.launches = 0
+    secs, init_secs = [], []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        pos, res = run()
+        secs.append(time.perf_counter() - t1)
+        t1 = time.perf_counter()
+        init()
+        init_secs.append(time.perf_counter() - t1)
+    hand = sum(f.launches for f in counted)
+    if hand:
+        raise AssertionError(f"the SBA path launched {hand} hand kernels")
+    n_ops, busy_ms, wall_ms = _profiled(run, device)
+    if pos.shape != truth.shape:
+        raise AssertionError(f"SBA positions {pos.shape} vs {truth.shape}")
+    err = np.linalg.norm(pos - truth, axis=-1)
+    med, mean = float(np.nanmedian(err)), float(np.nanmean(err))
+    c_before = float(_point_costs(res["before"], 1, SBA_F_SCALE)[0])
+    c_after = float(_point_costs(res["after"], 1, SBA_F_SCALE)[0])
+    s, s_init = float(np.median(secs)), float(np.median(init_secs))
+    _phase("sba", t0, f"sba_run (float64, C=6, N=100, P={P}, {SBA_ITERS} iterations): "
+           f"{s:.4f} s a call (median of 3: {', '.join(f'{x:.4f}' for x in secs)}), "
+           f"{P / s:.1f} points/s; robust init {s_init:.4f} s ({100 * s_init / s:.1f}%); "
+           f"seen {int(np.isfinite(err).sum())}/{P}; marker error median {med:.5f} m "
+           f"(bound {SBA_MEDIAN_ERR_M}), mean {mean:.5f} m (bound {SBA_MEAN_ERR_M}); Cauchy cost "
+           f"{c_before:.2f} -> {c_after:.2f}; hand-kernel launches {hand}; one call profiled: "
+           f"{n_ops} device ops, device busy {busy_ms:.1f} ms of {wall_ms:.1f} ms wall")
+    if not (med < SBA_MEDIAN_ERR_M and mean < SBA_MEAN_ERR_M):
+        raise AssertionError(f"SBA marker error median {med} m, mean {mean} m")
+    if not c_after <= c_before:
+        raise AssertionError(f"SBA Cauchy cost rose: {c_before} -> {c_after}")
+
+
+#: calibration phase: 6 chained fisheye cameras (tests/test_calib.py's
+#: K, D and pair pose between neighbours), 60 intrinsics views a camera,
+#: 30 shared views a pair with 3 of the second camera's corner sets
+#: reversed
+CALIB_CAMS = 6
+CALIB_VIEWS = 60
+CALIB_PAIR_VIEWS = 30
+CALIB_REVERSED = 3
+#: intrinsics views: tests/test_calib.py's stereo rule puts the board at
+#: 2-5 m near the axis, where focal length and distortion trade off and
+#: fx can miss the 1% gate at 60 views; these nearer, wider poses spread
+#: the corners over the fisheye's field as an intrinsics session does
+#: (poses much wider still can send the calibration into a wrong basin)
+CALIB_INTRINSIC_POSES = dict(rot_scale=0.4, t_range=((-1.2, 1.2), (-0.7, 0.7), (0.8, 2.0)))
+#: chained cameras' pose error bounds a link of the chain (deg, m): the
+#: errors add up along the chain, link by link
+CALIB_ROT_DEG_PER_LINK = 0.1
+CALIB_T_M_PER_LINK = 0.005
+#: the board SBA starts from the chained extrinsics, cameras 1-5
+#: perturbed by N(0, 0.003) rad and N(0, 1 cm) a component (from the
+#: chain itself its start is already at the noise floor, ~0.1 px), and
+#: must bring the residual RMS under 0.5 px and 0.2 x its start. At
+#: tests/test_sba.py's larger perturbation, 0.01 rad and 3 cm, the board
+#: data's ordering test (triangulate in two views, reproject into the
+#: first) flips correct corner sets on some seeds, in the JAX package as
+#: in the port: the phase counts them on CALIB_FLIP_SEEDS, ungated
+CALIB_BA_PERTURB = (0.003, 0.01)
+CALIB_TEST_PERTURB = (0.01, 0.03)
+CALIB_FLIP_SEEDS = range(10)
+CALIB_BA_ITERS = 80
+
+
+def _rms_observed(residuals, mask):
+    r = np.asarray(residuals).reshape(mask.shape + (2,))[mask]
+    return float(np.sqrt(np.mean(r**2)))
+
+
+def _perturbed(r_arr, t_arr, scale, seed):
+    """The extrinsics with cameras 1.. perturbed by N(0, scale[0]) rad
+    and N(0, scale[1]) m a component."""
+    from acinoset_tpu_torch.utils import synthetic as syn
+
+    rng = np.random.default_rng(seed)
+    r_pert, t_pert = [r_arr[0]], [t_arr[0]]
+    for r, t in zip(r_arr[1:], t_arr[1:]):
+        r_pert.append(syn._rot(rng.normal(scale=scale[0], size=3)) @ r)
+        t_pert.append(t + rng.normal(scale=scale[1], size=(3, 1)))
+    return r_pert, t_pert
+
+
+def _board_data_wrong(obs, mask, img_arr, names, rev):
+    """(view name, camera, kept) of every corner set of chained_pair_views'
+    data that prepare_calib_board_data's (obs, mask) dropped or holds out
+    of order, the reversed sets judged against their true order."""
+    wrong = []
+    shared = sorted({n for ns in names for n in ns})
+    M = img_arr[0].shape[1]
+    for j, name in enumerate(shared):
+        i = int(name.split("_")[0])
+        for c in (i, i + 1):
+            want = img_arr[c][names[c].index(name)]
+            want = want[::-1] if (c == i + 1 and name in rev) else want
+            sl = slice(j * M, (j + 1) * M)
+            if not (mask[sl, c].all() and np.array_equal(obs[sl, c], want)):
+                wrong.append((name, c, bool(mask[sl, c].all())))
+    return wrong
+
+
+def _view_pose_errors(obj, p1, p2, device):
+    """Each shared view's own relative pose, camera 1 -> 2, from the two
+    board poses calib.pnp.board_pose_fisheye gives (what the pairwise
+    consensus compares), against the chain's true pair pose: (deg, m)."""
+    from acinoset_tpu_torch.calib import extrinsics as ext
+    from acinoset_tpu_torch.calib import pnp
+    from acinoset_tpu_torch.utils import synthetic as syn
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float64, device=device)
+
+    def pose(p):
+        return (a.cpu().numpy() for a in pnp.board_pose_fisheye(
+            t(obj)[:, :2], t(p), t(syn.FISHEYE_K), t(syn.FISHEYE_D)))
+
+    (R1, t1), (R2, t2) = pose(p1), pose(p2)
+    Rr = np.einsum("fij,fkj->fik", R2, R1)
+    tr = t2 - np.einsum("fij,fj->fi", Rr, t1)
+    rot = np.array([ext._rot_geodesic_deg(r, syn._rot(syn.PAIR_RVEC)) for r in Rr])
+    return rot, np.linalg.norm(tr - syn.PAIR_T, axis=1)
+
+
+def phase_calib(device):
+    """Camera calibration on a synthetic 6-camera fisheye rig at
+    2704 x 1520 (float64): calibrate_fisheye_camera a camera (60 views,
+    one corrupted so that the drop round runs), calibrate_pairwise_
+    extrinsics along the chain (30 shared views a pair, 10% of the second
+    camera's corner sets reversed), bundle_adjust_board_points_and_
+    extrinsics (80 iterations), and one pinhole calibrate_camera and
+    calibrate_pair_extrinsics at tests/test_pinhole_calib.py's shapes;
+    s a stage, and the gates the module constants state. First the
+    golden check on the card. Readings not gated: the intrinsics on
+    tests/test_calib.py's stereo views, why the pairwise consensus drops
+    views, and the board data's flipped sets at tests/test_sba.py's
+    perturbation on CALIB_FLIP_SEEDS."""
+    from acinoset_tpu_torch.calib import extrinsics as ext
+    from acinoset_tpu_torch.calib import intrinsics as intr
+    from acinoset_tpu_torch.utils import synthetic as syn
+
+    t0 = time.perf_counter()
+    worst = golden_sba_compare(golden_calib_run(device, dict(np.load(GOLDEN_SBA))),
+                               np.load(GOLDEN_SBA))
+    _phase("calib", t0, f"golden (float64; fisheye intrinsics F=12, one bad view; a fisheye "
+           f"pair, F=8): largest errors relative to each key's scale: {_fmt_worst(worst)}")
+
+    K, D, res = syn.FISHEYE_K, syn.FISHEYE_D, syn.FISHEYE_RES
+    rng = np.random.default_rng(0)
+    t1 = time.perf_counter()
+    fx_err = []
+    for c in range(CALIB_CAMS):
+        obj, v = syn.board_views(rng, CALIB_VIEWS, [(K, D, np.eye(3), np.zeros(3))],
+                                 **CALIB_INTRINSIC_POSES)
+        img = v[0]
+        bad = int(rng.integers(CALIB_VIEWS))
+        img[bad] += rng.normal(scale=5.0, size=img[bad].shape)
+        cal = intr.calibrate_fisheye_camera(obj, img, res, device=device)
+        fx_err.append(max(abs(cal.k[0, 0] / K[0, 0] - 1), abs(cal.k[1, 1] / K[1, 1] - 1)))
+        dropped = np.where(~cal.used)[0].tolist()
+        if not (float(cal.rms) < 0.5 and fx_err[-1] < 0.01 and dropped == [bad]):
+            raise AssertionError(f"camera {c}: rms {float(cal.rms)}, fx {cal.k[0, 0]}, "
+                                 f"fy {cal.k[1, 1]}, dropped {dropped} (corrupted {bad})")
+    s_intr = time.perf_counter() - t1
+    _phase("calib", t0, f"intrinsics: {CALIB_CAMS} cameras x {CALIB_VIEWS} views "
+           f"(M=54, float64): {s_intr:.3f} s, {s_intr / CALIB_CAMS:.3f} s a camera; each drop "
+           f"round dropped the corrupted view; rms < 0.5 px; fx, fy off by at most "
+           f"{100 * max(fx_err):.3f}% (bound 1%)")
+    # the same run on tests/test_calib.py's stereo views, boards at 2-5 m
+    # near the axis, its own RNG (seed 0); a reading, not gated
+    rng_s, readings = np.random.default_rng(0), []
+    for c in range(CALIB_CAMS):
+        obj, v = syn.board_views(rng_s, CALIB_VIEWS, [(K, D, np.eye(3), np.zeros(3))],
+                                 **syn.FISHEYE_POSES)
+        img = v[0]
+        bad = int(rng_s.integers(CALIB_VIEWS))
+        img[bad] += rng_s.normal(scale=5.0, size=img[bad].shape)
+        cal = intr.calibrate_fisheye_camera(obj, img, res, device=device)
+        readings.append(f"cam {c}: fx {100 * (cal.k[0, 0] / K[0, 0] - 1):+.3f}%, fy "
+                        f"{100 * (cal.k[1, 1] / K[1, 1] - 1):+.3f}%, rms {float(cal.rms):.4f} px, "
+                        f"D {np.array2string(np.asarray(cal.d).ravel(), precision=4)}, dropped "
+                        f"{np.where(~cal.used)[0].tolist()} (corrupted {bad})")
+    _phase("calib", t0, f"intrinsics on tests/test_calib.py's stereo views (not gated; "
+           f"D true {D.tolist()}): {'; '.join(readings)}")
+
+    obj, img_arr, names, rev = syn.chained_pair_views(rng, CALIB_CAMS, CALIB_PAIR_VIEWS,
+                                                      reversed_views=CALIB_REVERSED)
+    R_true, T_true = syn.chained_rig(CALIB_CAMS, ext.WORLD_R1)
+    found = kept = 0
+    s_align, keeps, rot_e, tr_e = 0.0, [], [], []
+    for i in range(CALIB_CAMS - 1):
+        p2 = img_arr[i + 1][:CALIB_PAIR_VIEWS]  # the pair (i, i+1)'s views in camera i+1
+        p1 = img_arr[i][-CALIB_PAIR_VIEWS:]
+        t1 = time.perf_counter()
+        p2_fixed, keep = ext._align_pair_orderings(obj, p1, p2, K, D, K, D, device=device)
+        s_align += time.perf_counter() - t1
+        want = p2.copy()
+        want[:CALIB_REVERSED] = want[:CALIB_REVERSED, ::-1]
+        if not np.array_equal(p2_fixed[keep], want[keep]):
+            raise AssertionError(f"pair {i}: a kept corner set is out of order (keep {keep})")
+        found += int(keep[:CALIB_REVERSED].sum())
+        kept += int(keep.sum())
+        keeps.append(keep)
+        rot, tr = _view_pose_errors(obj, p1, want, device)
+        rot_e.append(rot)
+        tr_e.append(tr)
+    keeps, rot_e, tr_e = np.concatenate(keeps), np.concatenate(rot_e), np.concatenate(tr_e)
+    t1 = time.perf_counter()
+    r_arr, t_arr = ext.calibrate_pairwise_extrinsics(
+        ext.calibrate_pair_extrinsics_fisheye, img_arr, names, [K] * CALIB_CAMS,
+        [D] * CALIB_CAMS, res, (9, 6), 0.04, device=device)
+    s_chain = time.perf_counter() - t1
+    errs = []
+    for c in range(1, CALIB_CAMS):
+        rot = float(ext._rot_geodesic_deg(r_arr[c], R_true[c]))
+        tr = float(np.linalg.norm(t_arr[c] - T_true[c]))
+        errs.append(f"cam {c}: {rot:.4f} deg, {tr:.5f} m")
+        if not (rot < CALIB_ROT_DEG_PER_LINK * c and tr < CALIB_T_M_PER_LINK * c):
+            raise AssertionError(f"chained camera {c}: {rot} deg, {tr} m off")
+    _phase("calib", t0, f"extrinsics: {CALIB_CAMS - 1} pairs x {CALIB_PAIR_VIEWS} views: "
+           f"alignment alone {s_align:.3f} s, kept {kept}/{(CALIB_CAMS - 1) * CALIB_PAIR_VIEWS} "
+           f"views (the rest off the consensus by > 10 deg or 0.3 m), each in order, {found}/"
+           f"{len(rev)} reversed sets among them; calibrate_pairwise_extrinsics "
+           f"{s_chain:.3f} s; pose error ({CALIB_ROT_DEG_PER_LINK} deg and "
+           f"{CALIB_T_M_PER_LINK} m a link): {'; '.join(errs)}")
+    _phase("calib", t0, f"why views are dropped: each view's own relative pose from its two "
+           f"board_pose_fisheye poses, against the true pair pose: kept views median "
+           f"{np.median(rot_e[keeps]):.3f} deg, {np.median(tr_e[keeps]):.4f} m (max "
+           f"{rot_e[keeps].max():.3f} deg, {tr_e[keeps].max():.4f} m); dropped views median "
+           f"{np.median(rot_e[~keeps]):.3f} deg, {np.median(tr_e[~keeps]):.4f} m (max "
+           f"{rot_e[~keeps].max():.3f} deg, {tr_e[~keeps].max():.4f} m); views over 10 deg or "
+           f"0.3 m: {int(((rot_e > 10) | (tr_e > 0.3)).sum())}/{len(keeps)}")
+
+    def board_data(r_pert, t_pert):
+        return ext.prepare_calib_board_data(img_arr, names, (9, 6), [K] * CALIB_CAMS,
+                                            [D] * CALIB_CAMS, r_pert, t_pert, device=device)
+
+    r_pert, t_pert = _perturbed(r_arr, t_arr, CALIB_BA_PERTURB, seed=7)
+    t1 = time.perf_counter()
+    obs, mask, _ = board_data(r_pert, t_pert)
+    s_prep = time.perf_counter() - t1
+    # every corner set in the board data, the reversed ones put back in order
+    wrong = _board_data_wrong(obs, mask, img_arr, names, rev)
+    if wrong:
+        raise AssertionError(f"board data: sets missing or out of order: {wrong}")
+    _phase("calib", t0, f"board data: all {len(rev)} reversed sets found and put back in order, "
+           f"every set kept ({s_prep:.3f} s)")
+    survey = []
+    for seed in CALIB_FLIP_SEEDS:
+        o, m, _ = board_data(*_perturbed(r_arr, t_arr, CALIB_TEST_PERTURB, seed))
+        w = _board_data_wrong(o, m, img_arr, names, rev)
+        survey.append(f"seed {seed}: {sum(k for *_, k in w)} flipped, "
+                      f"{sum(not k for *_, k in w)} dropped")
+    _phase("calib", t0, f"board data at tests/test_sba.py's perturbation, {CALIB_TEST_PERTURB[0]} "
+           f"rad and {CALIB_TEST_PERTURB[1]} m (not gated), of the {len(mask) // len(obj)} second "
+           f"cameras' sets: {'; '.join(survey)}")
+    t1 = time.perf_counter()
+    pts, r_ba, t_ba, resid = ext.bundle_adjust_board_points_and_extrinsics(
+        img_arr, names, (9, 6), [K] * CALIB_CAMS, [D] * CALIB_CAMS, r_pert, t_pert,
+        num_iters=CALIB_BA_ITERS, device=device)
+    s_ba = time.perf_counter() - t1
+    before, after = _rms_observed(resid["before"], mask), _rms_observed(resid["after"], mask)
+    _phase("calib", t0, f"board SBA: P={mask.shape[0]} corners x {CALIB_CAMS} cameras, "
+           f"{int(mask.sum())} observations, {CALIB_BA_ITERS} iterations: {s_ba:.3f} s (with its "
+           f"board data prep); residual RMS {before:.4f} -> {after:.4f} px "
+           f"(bounds 0.5 px and 0.2 x before)")
+    if not (np.isfinite(pts).all() and after < 0.5 and after < 0.2 * before):
+        raise AssertionError(f"board SBA: residual RMS {before} -> {after} px")
+
+    Kp, Dq, res_p = syn.PINHOLE_K, syn.PINHOLE_PAIR_D, syn.PINHOLE_RES
+    t1 = time.perf_counter()
+    k_p, _d, _rv, _tv, rms_p = intr.calibrate_camera(*syn.pinhole_views(), res_p, device=device)
+    s_pin = time.perf_counter() - t1
+    fp_err = max(abs(k_p[0, 0] / Kp[0, 0] - 1), abs(k_p[1, 1] / Kp[1, 1] - 1))
+    t1 = time.perf_counter()
+    rms_q, R_q, t_q = ext.calibrate_pair_extrinsics(*syn.pinhole_pair_views(), Kp, Dq, Kp, Dq,
+                                                    res_p, num_iters=40, device=device)
+    s_pair = time.perf_counter() - t1
+    R_rel, t_rel = syn._rot(syn.PINHOLE_PAIR_RVEC), syn.PINHOLE_PAIR_T
+    rot_q = float(ext._rot_geodesic_deg(R_q, R_rel))
+    tq_err = float(np.linalg.norm(t_q.ravel() - t_rel))
+    _phase("calib", t0, f"pinhole: calibrate_camera (F=12, 12 + 6F parameters) {s_pin:.3f} s, "
+           f"rms {float(rms_p):.4f} px, fx/fy off {100 * fp_err:.3f}%; calibrate_pair_extrinsics "
+           f"(F=8) {s_pair:.3f} s, rms {float(rms_q):.4f} px, pose error {rot_q:.4f} deg, "
+           f"{tq_err:.5f} m")
+    if not (float(rms_p) < 0.5 and fp_err < 0.01 and float(rms_q) < 0.5):
+        raise AssertionError(f"pinhole calibration: rms {rms_p}, {rms_q}; fx/fy off {fp_err}")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device is available")
     if not (os.path.isdir(os.path.join(ROOT, "acinoset_tpu_torch")) and os.path.exists(GOLDEN)
-            and os.path.exists(GOLDEN_EKF)):
+            and os.path.exists(GOLDEN_EKF) and os.path.exists(GOLDEN_SBA)):
         sys.exit("chip_smoke.py: run it from a checkout of the repository")
     sys.path.insert(0, ROOT)
     t_all = time.perf_counter()
@@ -1829,6 +2298,8 @@ def main():
     sweep = phase_sweep(device)
     phase_ekf(device, sweep)
     phase_generic(device)
+    phase_sba(device)
+    phase_calib(device)
     phase_uncertainty(device)
     phase_solvers(device)
     phase_sweep_uncertainty(device, sweep)

@@ -30,7 +30,8 @@ def test_port_and_chip_smoke_import_no_jax_nor_io_stack():
     )
     for m in ("kernels.banded_cuda", "kernels._nvcc", "kernels.probes_cuda", "probes.probe_mosaic",
               "probes.probe_mosaic2", "pipeline.sweep", "solvers.ekf", "solvers.cyclic",
-              "models.skeleton", "pipeline.generic"):
+              "models.skeleton", "pipeline.generic", "solvers.lm", "pipeline.sba", "pipeline.data",
+              "calib.pnp", "calib.intrinsics", "calib.extrinsics"):
         assert f"acinoset_tpu_torch.{m}" in modules
     code = (
         "import importlib, sys\n"

@@ -1,8 +1,8 @@
 """Fisheye (Kannala-Brandt 4-coefficient) and pinhole (8-coefficient
 rational) camera models on torch tensors, the counterpart of
-acinoset_tpu.ops.camera less its image undistortion: projection (the
-fisheye one with its analytic point-Jacobian), undistortion of points
-and two-view DLT triangulation.
+acinoset_tpu.ops.camera: projection (the fisheye one with its analytic
+point-Jacobian), undistortion of points and of images (remap grids and
+a bilinear gather), and two-view DLT triangulation.
 
 Camera parameters are K (..., 3, 3), D (..., 4), R (..., 3, 3) and
 t (..., 3). With an unbatched K (3, 3), D and t may also come in the
@@ -16,6 +16,7 @@ import math
 
 import torch
 
+from ..utils.device import resolve_device
 from .rotations import mv3
 
 
@@ -304,3 +305,126 @@ def triangulate_pairwise_mean(pts2d, valid, k_arr, d_arr, r_arr, t_arr):
     mean = total / torch.where(seen, count, torch.ones_like(count))[..., None]
     points3d = torch.where(seen[..., None], mean, torch.full_like(mean, float("nan")))
     return points3d, seen
+
+
+# --------------------------------------------------------------------------
+# Image undistortion (remap grids + bilinear gather)
+# --------------------------------------------------------------------------
+
+
+def _on_device(ref, device):
+    """Where an image op runs: ``device`` if given, else the device of
+    ``ref`` if it is a tensor, else ``cuda`` (resolve_device)."""
+    if device is None and isinstance(ref, torch.Tensor):
+        return ref.device
+    return resolve_device(device)
+
+
+def _pixel_grid(size, device):
+    """(u, v) float32 pixel coordinates (H, W) of an image of size
+    (width, height)."""
+    W, H = size
+    v, u = torch.meshgrid(torch.arange(H, dtype=torch.float32, device=device),
+                          torch.arange(W, dtype=torch.float32, device=device), indexing="ij")
+    return u, v
+
+
+# The maps take the camera's entries as 1-element slices, not 0-dim
+# tensors: torch promotes a 0-dim float64 tensor with a float32 tensor to
+# float32, JAX to float64; a 1-element tensor promotes as JAX does.
+
+
+def undistort_rectify_map_fisheye(K, D, new_K, size, device=None):
+    """The (map_x, map_y) source-pixel grids (H, W) that undistort a
+    fisheye image, the twin of cv2.fisheye.initUndistortRectifyMap (the
+    reference's src/calib/calib.py:101-106). size: (width, height) of the
+    output image."""
+    device = _on_device(K, device)
+    K, D, new_K = (torch.as_tensor(a, device=device) for a in (K, D, new_K))
+    u, v = _pixel_grid(size, device)
+    # output pixel -> ideal normalized coords under new_K
+    a = (u - new_K[0, 2:3]) / new_K[0, 0:1]
+    b = (v - new_K[1, 2:3]) / new_K[1, 1:2]
+    # distort: normalized -> fisheye source pixel
+    r = torch.sqrt(a * a + b * b + 1e-12)
+    scale = distort_theta(torch.atan(r), D.reshape(1, -1)[:, :4]) / r
+    map_x = K[0, 0:1] * (a * scale) + K[0, 2:3]
+    map_y = K[1, 1:2] * (b * scale) + K[1, 2:3]
+    return map_x, map_y
+
+
+def remap_bilinear(img, map_x, map_y):
+    """Sample img (H, W[, C]) at float source coordinates (the maps'
+    shape), zero outside; a uint8 image comes out in the maps' float
+    dtype."""
+    img = torch.as_tensor(img, device=map_x.device)
+    H, W = img.shape[:2]
+    x0 = torch.floor(map_x).to(torch.int32)
+    y0 = torch.floor(map_y).to(torch.int32)
+    fx = map_x - x0
+    fy = map_y - y0
+    inside = (map_x >= 0) & (map_x <= W - 1) & (map_y >= 0) & (map_y <= H - 1)
+    if img.dim() == 3:
+        fx, fy, inside = fx[..., None], fy[..., None], inside[..., None]
+    xc0, xc1 = x0.clamp(0, W - 1).long(), (x0 + 1).clamp(0, W - 1).long()
+    yc0, yc1 = y0.clamp(0, H - 1).long(), (y0 + 1).clamp(0, H - 1).long()
+    out = (
+        img[yc0, xc0] * (1 - fx) * (1 - fy)
+        + img[yc0, xc1] * fx * (1 - fy)
+        + img[yc1, xc0] * (1 - fx) * fy
+        + img[yc1, xc1] * fx * fy
+    )
+    return torch.where(inside, out, 0)
+
+
+def undistort_image_fisheye(img, K, D, new_K=None, device=None):
+    """Undistort one fisheye image (H, W[, C]); new_K defaults to K."""
+    device = _on_device(img, device)
+    K = torch.as_tensor(K, device=device)
+    new_K = K if new_K is None else new_K
+    H, W = img.shape[:2]
+    map_x, map_y = undistort_rectify_map_fisheye(K, D, new_K, (W, H), device=device)
+    return remap_bilinear(img, map_x, map_y)
+
+
+def undistort_rectify_map_pinhole(K, D, new_K, size, device=None):
+    """Source-pixel grids that undistort a standard (rational-model)
+    camera image, the twin of cv2.initUndistortRectifyMap (the
+    reference's src/calib/calib.py:33-38).
+
+    D: up to 8 coefficients in OpenCV order (k1 k2 p1 p2 k3 k4 k5 k6),
+    rounded to float32 as the JAX package rounds them; shorter vectors
+    are zero-padded. size: (width, height).
+    """
+    device = _on_device(K, device)
+    K, new_K = (torch.as_tensor(a, device=device) for a in (K, new_K))
+    d_in = torch.as_tensor(D, device=device).reshape(-1)[:8].to(torch.float32)
+    d = torch.zeros(8, dtype=torch.float32, device=device)
+    d[: d_in.shape[0]] = d_in
+    d0, d1, d2, d3, d4, d5, d6, d7 = d.reshape(8, 1)
+    u, v = _pixel_grid(size, device)
+    # output pixel -> ideal normalized coords under new_K
+    a = (u - new_K[0, 2:3]) / new_K[0, 0:1]
+    b = (v - new_K[1, 2:3]) / new_K[1, 1:2]
+    # forward-distort: normalized -> source pixel
+    r2 = a * a + b * b
+    num = 1.0 + r2 * (d0 + r2 * (d1 + r2 * d4))
+    den = 1.0 + r2 * (d5 + r2 * (d6 + r2 * d7))
+    radial = num / den
+    xd = a * radial + 2.0 * d2 * a * b + d3 * (r2 + 2.0 * a * a)
+    yd = b * radial + d2 * (r2 + 2.0 * b * b) + 2.0 * d3 * a * b
+    map_x = K[0, 0:1] * xd + K[0, 2:3]
+    map_y = K[1, 1:2] * yd + K[1, 2:3]
+    return map_x, map_y
+
+
+def undistort_image_pinhole(img, K, D, new_K=None, device=None):
+    """Undistort one standard-camera image (H, W[, C]), the twin of the
+    reference's create_undistort_img_function (src/calib/calib.py:33-38:
+    initUndistortRectifyMap + INTER_LINEAR remap with P = K)."""
+    device = _on_device(img, device)
+    K = torch.as_tensor(K, device=device)
+    new_K = K if new_K is None else new_K
+    H, W = img.shape[:2]
+    map_x, map_y = undistort_rectify_map_pinhole(K, D, new_K, (W, H), device=device)
+    return remap_bilinear(img, map_x, map_y)

@@ -4,7 +4,11 @@ and numpy RNG call order, with the port's FK and projection evaluated
 on the CPU in float64, so the data equal the JAX package's. Also
 synthetic checkerboard views for calibration, by the rules of the
 JAX package's calibration tests (tests/test_calib.py,
-tests/test_pinhole_calib.py)."""
+tests/test_pinhole_calib.py), and rendered calibration frames with a
+PNG writer, to drive calibration from images."""
+import struct
+import zlib
+
 import numpy as np
 import torch
 
@@ -203,3 +207,133 @@ def chained_pair_views(rng, n_cams, n_views, reversed_views=0):
             img[i + 1].append(second)
             names[i + 1].append(name)
     return obj, [np.array(v) for v in img], names, rev
+
+
+# ---- rendered calibration frames ----
+
+#: board grey levels: black and white squares, the white margin around
+#: them, and the mid-grey background
+BLACK, WHITE, BACKGROUND = 30.0, 225.0, 128.0
+
+
+def board_poses(rng, n_views, rot_scale, t_range):
+    """Board poses (R (3, 3), t (3,)) in a camera's frame by board_views'
+    rule: rotation vector ~ N(0, rot_scale), translation uniform in
+    t_range."""
+    poses = []
+    for _ in range(n_views):
+        R = _rot(rng.normal(scale=rot_scale, size=3))
+        t = np.array([rng.uniform(*t_range[0]), rng.uniform(*t_range[1]),
+                      rng.uniform(*t_range[2])])
+        poses.append((R, t))
+    return poses
+
+
+def held_board_poses(rng, n_views, tilt, t_range, spin=0.3, board_shape=(9, 6), square=0.04):
+    """Board poses (R (3, 3), t (3,)) as a person holds a board up to a
+    camera: the board's centre uniform in t_range (camera frame), its
+    face turned to the camera, then tilted by an angle uniform in
+    ``tilt`` (rad) about a random axis in its plane and turned in its
+    plane by up to +-spin."""
+    centre = np.array([(board_shape[0] - 1) / 2, (board_shape[1] - 1) / 2, 0.0]) * square
+    poses = []
+    for _ in range(n_views):
+        c = np.array([rng.uniform(*t_range[0]), rng.uniform(*t_range[1]),
+                      rng.uniform(*t_range[2])])
+        phi, angle, turn = rng.uniform(0, 2 * np.pi), rng.uniform(*tilt), rng.uniform(-spin, spin)
+        z = c / np.linalg.norm(c)  # the board's normal, along the line of sight
+        x = np.cross([0.0, 1.0, 0.0], z)
+        x /= np.linalg.norm(x)
+        facing = np.stack([x, np.cross(z, x), z], axis=1)
+        R = (facing @ _rot(angle * np.array([np.cos(phi), np.sin(phi), 0.0]))
+             @ _rot(np.array([0.0, 0.0, turn])))
+        poses.append((R, c - R @ centre))
+    return poses
+
+
+def fisheye_rays(K, D, res, device, supersample=2):
+    """Camera-frame rays (H, W, S, 3) float64 through the supersample^2
+    sample points of each pixel (pixel centres at integer coordinates),
+    by the port's undistort_points_fisheye."""
+    W, H = res
+    off = (torch.arange(supersample, dtype=torch.float64) + 0.5) / supersample - 0.5
+    sy, sx = torch.meshgrid(off, off, indexing="ij")
+    v, u = torch.meshgrid(torch.arange(H, dtype=torch.float64),
+                          torch.arange(W, dtype=torch.float64), indexing="ij")
+    pix = torch.stack([u[..., None] + sx.reshape(-1), v[..., None] + sy.reshape(-1)], dim=-1)
+    ab = cam_ops.undistort_points_fisheye(pix.to(device), K, D)
+    return torch.cat([ab, torch.ones_like(ab[..., :1])], dim=-1)
+
+
+def render_board_frame(rays, R, t, generator, noise=2.0, margin=2, board_shape=(9, 6),
+                       square=0.04):
+    """One RGB uint8 frame (H, W, 3) on the rays' device of the board at
+    pose (R, t) (board -> camera) seen along ``rays`` (fisheye_rays): each
+    sample ray meets the board plane, is shaded black or white by its
+    square, white in a margin ``margin`` squares wide, mid-grey elsewhere
+    (or behind the camera); samples are averaged a pixel and N(0, noise)
+    grey levels added a channel from ``generator``. A one-square margin
+    leaves the detector's lattice a row or a column off the board on
+    some frames (chip_smoke.images_pose_survey); two do not."""
+    R = torch.as_tensor(R, dtype=torch.float64, device=rays.device)
+    t = torch.as_tensor(t, dtype=torch.float64, device=rays.device).reshape(3)
+    n = R[:, 2]  # the board's normal in the camera frame
+    s = torch.dot(n, t) / (rays @ n)  # distance along each ray to the plane
+    front = s > 0
+    hit = rays * s[..., None] - t  # camera frame, from the board's origin
+    bx, by = hit @ R[:, 0] / square, hit @ R[:, 1] / square  # in squares
+    cols, rows = board_shape[0] + 1, board_shape[1] + 1  # squares around the inner corners
+    on_squares = front & (bx >= -1) & (bx < cols - 1) & (by >= -1) & (by < rows - 1)
+    on_margin = (front & (bx >= -1 - margin) & (bx < cols - 1 + margin) & (by >= -1 - margin)
+                 & (by < rows - 1 + margin))
+    dark = (torch.floor(bx) + torch.floor(by)) % 2 == 0
+    grey = torch.where(on_margin, WHITE, BACKGROUND)
+    grey = torch.where(on_squares & dark, BLACK, grey).mean(dim=-1)
+    rgb = grey[..., None] + noise * torch.randn(grey.shape + (3,), generator=generator,
+                                                dtype=torch.float64, device=rays.device)
+    return torch.round(rgb).clamp(0, 255).to(torch.uint8)
+
+
+def write_png(path, img, level=1):
+    """Write a uint8 image (H, W) or (H, W, C), C = 2 (grey+alpha), 3
+    (RGB) or 4 (RGBA), as an 8-bit PNG whose row i has filter type
+    i % 5, so that a reader meets all five (PNG specification, section
+    9)."""
+    a = np.ascontiguousarray(img, np.uint8)
+    H, W = a.shape[:2]
+    C = 1 if a.ndim == 2 else a.shape[2]
+    raw = a.reshape(H, W * C).astype(np.int16)
+    prev = np.zeros_like(raw)
+    prev[1:] = raw[:-1]
+    left = np.zeros_like(raw)
+    left[:, C:] = raw[:, :-C]
+    upleft = np.zeros_like(raw)
+    upleft[:, C:] = prev[:, :-C]
+    out = np.empty((H, 1 + W * C), np.uint8)
+    for kind in range(5):
+        x, lf, up, ul = (m[kind::5] for m in (raw, left, prev, upleft))
+        if kind == 0:
+            pred = 0
+        elif kind == 1:
+            pred = lf
+        elif kind == 2:
+            pred = up
+        elif kind == 3:
+            pred = (lf + up) >> 1
+        else:
+            p = lf + up - ul
+            pa, pb, pc = np.abs(p - lf), np.abs(p - up), np.abs(p - ul)
+            pred = np.where((pa <= pb) & (pa <= pc), lf, np.where(pb <= pc, up, ul))
+        out[kind::5, 0] = kind
+        out[kind::5, 1:] = (x - pred) & 0xFF
+
+    def chunk(kind, payload):
+        return (struct.pack(">I", len(payload)) + kind + payload
+                + struct.pack(">I", zlib.crc32(kind + payload)))
+
+    colour = {1: 0, 2: 4, 3: 2, 4: 6}[C]
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, colour, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(out.tobytes(), level))
+                + chunk(b"IEND", b""))

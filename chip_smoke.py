@@ -66,21 +66,34 @@ Phases, one line each with its seconds:
                (30 shared views a pair, reversed corner sets), the board
                data and the board bundle adjustment, and one pinhole
                calibrate_camera and calibrate_pair_extrinsics, s a stage;
- 12. uncertainty - the main path's solve with compute_cov=True (the
+ 12. images  - calibration from images, the user's path: the calib
+               phase's rig rendered as 640 RGB PNG frames of 2704 x 1520
+               (40 held-up intrinsics views a camera, 40 views a chain
+               pair), calib.app.extract_corners_from_images a folder (the
+               device detector), calibrate_fisheye_intrinsics a camera and
+               `python -m acinoset_tpu_torch.cli calib`, on every found
+               frame and again without the frames the truth shows off
+               (the detector's lattice fault), the chain and the board
+               SBA also from the true intrinsics; the corners against the
+               truth, the device detector against the CPU port, the
+               native engine against it, fx and fy, the chain's poses, the
+               board SBA's RMS and undistort_image_fisheye against its
+               CPU run; s a frame a stage and s a stage;
+ 13. uncertainty - the main path's solve with compute_cov=True (the
                Laplace posterior), timed in turns with the plain solve,
                its error bars checked for symmetry, calibration against
                the ground truth and against a float64 solve on the card,
                and its float32 ridge diagnostics checked per run;
- 13. solvers - the main path's input through 'chol', 'grouped', 'cr',
+ 14. solvers - the main path's input through 'chol', 'grouped', 'cr',
                'cg' and 'pcg' with relinearize_every=3, timed once each;
- 14. sweep uncertainty - the sweep's 128 runs once with
+ 15. sweep uncertainty - the sweep's 128 runs once with
                uncertainty=True, beside the plain solve's time;
- 15. profile - measurement only: the main path's time with 'pallas',
+ 16. profile - measurement only: the main path's time with 'pallas',
                'pcg' and 'chol_unrolled' (the solvers phase times the
                others) and a torch.profiler breakdown of one solve.
 
 The phases run in the sweep's own stage order: the EKF stage (8) before
-the FTE stage with uncertainty (12-14). ekf_after_posterior, which the
+the FTE stage with uncertainty (13-15). ekf_after_posterior, which the
 script does not run, times the EKF stage after the posterior in one
 process.
 
@@ -90,6 +103,8 @@ of JAX or of the JAX package. Needs a CUDA device: without one, or
 outside a checkout of the repository, it exits non-zero before printing
 any result.
 """
+import contextlib
+import io
 import json
 import os
 import re
@@ -2280,6 +2295,452 @@ def phase_calib(device):
         raise AssertionError(f"pinhole calibration: rms {rms_p}, {rms_q}; fx/fy off {fp_err}")
 
 
+# ---- calibration from images ----
+
+#: rendered frames of the calib phase's chained rig: IMAGES_VIEWS
+#: intrinsics views a camera and IMAGES_PAIR_VIEWS views a chain pair;
+#: N(0, IMAGES_NOISE) grey levels a channel. The boards are held up to
+#: the camera (utils.synthetic.held_board_poses), tilted 14-46 degrees:
+#: the intrinsics boards over the calib phase's box (CALIB_INTRINSIC_
+#: POSES' t_range), the pair boards facing the pair's first camera at
+#: 1-2.5 m (at tests/test_calib.py's 5 m a 0.04 m square spans ~5 px,
+#: under the detector's 9 x 9 peak window). Under CALIB_INTRINSIC_POSES'
+#: random rotations the detector misses about a third of the boards, the
+#: steeply tilted ones, and the fronto-parallel rest leave fx to the
+#: calibration's start (images_pose_survey). The counts give the
+#: calibrations about the calib phase's views once the detector's misses
+#: are out (at 20 views a pair, 6-13 were found in both cameras and the
+#: chain missed its bounds)
+IMAGES_VIEWS = 40
+IMAGES_INTRINSIC_POSES = dict(tilt=(0.25, 0.8), t_range=CALIB_INTRINSIC_POSES["t_range"])
+IMAGES_PAIR_VIEWS = 40
+IMAGES_PAIR_POSES = dict(tilt=(0.25, 0.8), t_range=((-0.5, 0.5), (-0.3, 0.3), (1.0, 2.5)))
+IMAGES_NOISE = 2.0
+#: tests/test_calib.py:57's rule a found frame (median, max px against
+#: the projected truth). The lattice the JAX package grows (copied as is)
+#: puts a row, a column or a few cells a square off the board on 1-7% of
+#: found frames (images_pose_survey; ROADMAP Queue 3): at most
+#: IMAGES_LATTICE_SHARE of the found frames may miss the rule
+IMAGES_CORNER_PX = (0.5, 2.0)
+IMAGES_LATTICE_SHARE = 0.05
+#: the native engine against the device detector, median px a frame:
+#: tests/test_native.py:39's rule
+IMAGES_NATIVE_MEDIAN_PX = 0.3
+#: the device detector against the CPU port: frames, corners' bound (px)
+IMAGES_CPU_FRAMES = 4
+IMAGES_CPU_PX = 1e-3
+IMAGES_SBA_RMS_PX = 0.5
+#: undistort_image_fisheye on the card against the CPU, of the 0-255 range
+IMAGES_UNDISTORT_TOL = 1e-4 * 255
+
+
+def render_calib_frames(device, root, rng):
+    """Render the rig's frames on ``device`` (utils.synthetic's fisheye
+    renderer, 2x supersampled) and write them as PNGs under ``root``:
+    intrinsic_calib/frames/<cam>/<view>.png and
+    extrinsic_calib/frames/<cam>/<pair>_<view>.png, cameras numbered
+    from 1. Returns {path: true corners (54, 2)}."""
+    from acinoset_tpu_torch.ops import camera as cam_ops
+    from acinoset_tpu_torch.utils import synthetic as syn
+
+    K, D, res = syn.FISHEYE_K, syn.FISHEYE_D, syn.FISHEYE_RES
+    rays = syn.fisheye_rays(K, D, res, device)
+    obj = torch.as_tensor(syn.create_board_object_pts((9, 6), 0.04), dtype=torch.float64)
+    gen = torch.Generator(device=device).manual_seed(0)
+    r = syn._rot(syn.PAIR_RVEC)
+    jobs = []
+    for c in range(1, CALIB_CAMS + 1):
+        for v, (Rb, tb) in enumerate(syn.held_board_poses(rng, IMAGES_VIEWS,
+                                                          **IMAGES_INTRINSIC_POSES)):
+            path = os.path.join(root, "intrinsic_calib", "frames", str(c), f"{v}.png")
+            jobs.append((path, Rb, tb))
+    for i in range(1, CALIB_CAMS):
+        for v, (Rb, tb) in enumerate(syn.held_board_poses(rng, IMAGES_PAIR_VIEWS,
+                                                          **IMAGES_PAIR_POSES)):
+            for c, R, t in ((i, Rb, tb), (i + 1, r @ Rb, r @ tb + syn.PAIR_T)):
+                jobs.append((os.path.join(root, "extrinsic_calib", "frames", str(c),
+                                          f"{i}_{v}.png"), R, t))
+    truth = {}
+    with ThreadPoolExecutor(8) as pool:
+        writes = []
+        for path, R, t in jobs:
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            frame = syn.render_board_frame(rays, R, t, gen, noise=IMAGES_NOISE).cpu().numpy()
+            writes.append(pool.submit(syn.write_png, path, frame))
+            truth[path] = cam_ops.project_points_fisheye(obj, K, D, R, t).numpy()
+        for w in writes:
+            w.result()
+    return truth
+
+
+def _corner_errors(points_fpath, frames_dir, truth):
+    """The found frames' names in a points JSON and their (median, max)
+    px against the truth, nearest true corner to each detected one
+    (tests/test_calib.py:57)."""
+    from scipy.spatial import cKDTree
+
+    from acinoset_tpu_torch.pipeline import data as data_io
+
+    pts, names, *_ = data_io.load_points(points_fpath)
+    errs = []
+    for p, name in zip(pts, names):
+        d, _ = cKDTree(truth[os.path.join(frames_dir, name)]).query(p.reshape(-1, 2))
+        errs.append((np.median(d), d.max()))
+    return names, np.array(errs).reshape(-1, 2)
+
+
+def _within_rule(grid, truth):
+    """Whether a found grid (NaN where not found) meets tests/test_calib.py:57's
+    rule against the true corners."""
+    from scipy.spatial import cKDTree
+
+    if not np.isfinite(grid).all():
+        return False
+    d, _ = cKDTree(truth).query(grid.reshape(-1, 2))
+    return bool(np.median(d) < IMAGES_CORNER_PX[0] and d.max() < IMAGES_CORNER_PX[1])
+
+
+def _calibrate_scene(device, root, true_intrinsics=False):
+    """The user's path from a scene's points files to its cameras:
+    calibrate_fisheye_intrinsics a camera (root/intrinsic_calib/points/
+    points_<c>.json -> camera_<c>.json; with ``true_intrinsics`` the
+    rig's K and D are written there instead), then ``cli calib`` on
+    root/extrinsic_calib. Returns its readings against the rig's truth."""
+    from acinoset_tpu_torch import cli
+    from acinoset_tpu_torch.calib import app
+    from acinoset_tpu_torch.calib import extrinsics as ext
+    from acinoset_tpu_torch.pipeline import data as data_io
+    from acinoset_tpu_torch.utils import synthetic as syn
+
+    K = syn.FISHEYE_K
+    intr, extr = os.path.join(root, "intrinsic_calib"), os.path.join(root, "extrinsic_calib")
+    out = dict(fx_err=[], rms=[], used=[])
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        for c in range(1, CALIB_CAMS + 1):
+            if true_intrinsics:
+                data_io.save_camera(os.path.join(intr, f"camera_{c}.json"), syn.FISHEYE_RES, K,
+                                    syn.FISHEYE_D.reshape(4, 1))
+                continue
+            k, _d, _res, cal = app.calibrate_fisheye_intrinsics(
+                os.path.join(intr, "points", f"points_{c}.json"),
+                os.path.join(intr, f"camera_{c}.json"), device=device)
+            out["fx_err"].append(max(abs(k[0, 0] / K[0, 0] - 1), abs(k[1, 1] / K[1, 1] - 1)))
+            out["rms"].append(float(cal.rms))
+            out["used"].append(f"{int(cal.used.sum())}/{len(cal.used)}")
+    out["s_intr"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        cli.main(["calib", "--scene_dir", extr, "--device", device.type])
+    out["s_cli"] = time.perf_counter() - t1
+    names = [data_io.load_points(os.path.join(extr, "points", f"points_cam{c}.json"))[1]
+             for c in range(1, CALIB_CAMS + 1)]
+    out["shared"] = [len(set(a) & set(b)) for a, b in zip(names, names[1:])]
+    out["dropped"] = [int(m) for m in re.findall(r"dropped (\d+) inconsistent", log.getvalue())]
+    sba = re.search(r"Board SBA: RMS (\S+) -> (\S+) px", log.getvalue())
+    out["sba"] = float(sba.group(1)), float(sba.group(2))
+    scene = os.path.join(extr, f"{CALIB_CAMS}_cam_scene.json")
+    _, _, r_arr, t_arr, _ = data_io.load_scene(scene)
+    R_true, T_true = syn.chained_rig(CALIB_CAMS, ext.WORLD_R1)
+    out["pose"] = [(float(ext._rot_geodesic_deg(r_arr[c], R_true[c])),
+                    float(np.linalg.norm(t_arr[c] - T_true[c]))) for c in range(1, CALIB_CAMS)]
+    return out
+
+
+def _scene_text(r):
+    pose = "; ".join(f"cam {c + 2}: {rot:.4f} deg, {tr:.5f} m" for c, (rot, tr) in
+                     enumerate(r["pose"]))
+    intrinsics = (f"calibrate_fisheye_intrinsics {r['s_intr']:.3f} s (rms "
+                  f"{', '.join(f'{x:.4f}' for x in r['rms'])} px; frames used "
+                  f"{', '.join(r['used'])}; fx, fy off by "
+                  f"{', '.join(f'{100 * e:.3f}' for e in r['fx_err'])}%)" if r["rms"]
+                  else "the true intrinsics")
+    return (f"{intrinsics}, cli calib "
+            f"{r['s_cli']:.3f} s (shared views a pair {r['shared']}, kept by the pairwise "
+            f"consensus {sum(r['shared']) - sum(r['dropped'])}/{sum(r['shared'])}; pose error "
+            f"{pose}; board SBA RMS {r['sba'][0]} -> {r['sba'][1]} px)")
+
+
+def _detector_split(device, imgs):
+    """The device detector's stages on ``imgs``, in its own chunks: the
+    device pass (grey frames, candidates and the refinement; CUDA events
+    on the card) and the host lattice (s)."""
+    from acinoset_tpu_torch.calib import corners
+
+    H, W = imgs[0].shape[:2]
+    step = max(1, corners.CHUNK_BYTES // (corners.INTERMEDIATES * 4 * H * W))
+
+    def timed(fn):
+        if device.type != "cuda":
+            t1 = time.perf_counter()
+            return fn(), time.perf_counter() - t1
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end) / 1e3
+
+    def candidates(chunk):
+        gray = corners._gray(chunk, device)
+        return gray, corners.find_corner_candidates(gray)
+
+    device_s, host_s = 0.0, 0.0
+    for s in range(0, len(imgs), step):
+        _sync(device)
+        (gray, (cand, scores)), s_cand = timed(lambda: candidates(imgs[s:s + step]))
+        t1 = time.perf_counter()
+        lattices = [corners._grow_grid(c, sc, (9, 6))
+                    for c, sc in zip(cand.cpu().numpy(), scores.cpu().numpy())]
+        host_s += time.perf_counter() - t1
+        start = np.stack([g.reshape(-1, 2) for g, ok in lattices if ok]).astype(np.float32)
+        hit = [i for i, (_, ok) in enumerate(lattices) if ok]
+        _, s_refine = timed(lambda: corners.refine_subpixel(
+            gray[hit], torch.as_tensor(start, device=device)))
+        device_s += s_cand + s_refine
+    return device_s, host_s
+
+
+def survey_rules():
+    """The rules behind the images phase's views, for
+    images_pose_survey: the calib phase's intrinsics rule with a one- and
+    a two-square margin, the images phase's held boards, and pairs at
+    its distances with random rotations (rot_scale 0.4) and held."""
+    from acinoset_tpu_torch.utils import synthetic as syn
+
+    def random_rotations(rng, n):
+        return syn.board_poses(rng, n, **CALIB_INTRINSIC_POSES)
+
+    def held(rng, n):
+        return syn.held_board_poses(rng, n, **IMAGES_INTRINSIC_POSES)
+
+    def pairs(rng, n):
+        return syn.held_board_poses(rng, n, **IMAGES_PAIR_POSES)
+
+    def pairs_random(rng, n):
+        return syn.board_poses(rng, n, rot_scale=0.4, t_range=IMAGES_PAIR_POSES["t_range"])
+
+    return {"calib rule, margin 1": (random_rotations, False, 1),
+            "calib rule, margin 2": (random_rotations, False, 2),
+            "held, margin 2": (held, False, 2),
+            "pairs with random rotations, margin 2": (pairs_random, True, 2),
+            "held pairs, margin 2": (pairs, True, 2)}
+
+
+def images_pose_survey(device, rules, n_views=60, seed=0, out_dir=None):
+    """Measurement only, not run by main: the device detector on frames
+    of the rig's camera (tests/test_calib.py's K and D, 2704 x 1520)
+    rendered in memory under each board-pose rule of ``rules`` (a dict
+    of name -> (poses(rng, n) -> [(R, t)], paired, margin in squares));
+    for a paired rule the board is posed in a chain pair's first camera
+    and seen by both. A
+    line a rule: frames found, frames whose corners miss IMAGES_CORNER_PX
+    against the truth and their worst errors, and for an unpaired rule
+    calibrate_fisheye_camera on the found frames (fx, fy against the
+    truth). With ``out_dir``, each rule's worst frame is written there
+    as a PNG at half resolution."""
+    from scipy.spatial import cKDTree
+
+    from acinoset_tpu_torch.calib import corners, intrinsics
+    from acinoset_tpu_torch.ops import camera as cam_ops
+    from acinoset_tpu_torch.utils import synthetic as syn
+
+    K, D, res = syn.FISHEYE_K, syn.FISHEYE_D, syn.FISHEYE_RES
+    rays = syn.fisheye_rays(K, D, res, device)
+    obj = syn.create_board_object_pts((9, 6), 0.04)
+    obj_t = torch.as_tensor(obj, dtype=torch.float64)
+    r = syn._rot(syn.PAIR_RVEC)
+    for name, (make_poses, paired, margin) in rules.items():
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(seed)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        poses = make_poses(rng, n_views)
+        if paired:
+            poses = poses + [(r @ R, r @ t + syn.PAIR_T) for R, t in poses]
+        frames = [syn.render_board_frame(rays, R, t, gen, noise=IMAGES_NOISE, margin=margin)
+                  .cpu().numpy() for R, t in poses]
+        truth = [cam_ops.project_points_fisheye(obj_t, K, D, R, t).numpy() for R, t in poses]
+        grids, found = corners.find_corners_batch(frames, (9, 6), device=device)
+        errs = np.full((len(poses), 2), np.nan)
+        for i in np.where(found)[0]:
+            d, _ = cKDTree(truth[i]).query(grids[i].reshape(-1, 2))
+            errs[i] = np.median(d), d.max()
+        bad = found & ((errs[:, 0] >= IMAGES_CORNER_PX[0]) | (errs[:, 1] >= IMAGES_CORNER_PX[1]))
+        both = ", in both cameras of a pair" if paired else ""
+        text = (f"{name}{both}: found "
+                f"{int(found.sum())}/{len(poses)}, over the corner bounds {int(bad.sum())}"
+                f" (worst medians {np.sort(errs[bad, 0])[::-1][:5].round(2).tolist()} px, worst "
+                f"max {errs[found, 1].max() if found.any() else np.nan:.2f} px)")
+        if not paired and found.sum() >= 4:
+            pts = grids[found].transpose(0, 2, 1, 3).reshape(int(found.sum()), -1, 2)
+            with contextlib.redirect_stdout(io.StringIO()):
+                cal = intrinsics.calibrate_fisheye_camera(obj, pts, res, device=device)
+            text += (f"; calibrated on them: fx {100 * (cal.k[0, 0] / K[0, 0] - 1):+.3f}%, fy "
+                     f"{100 * (cal.k[1, 1] / K[1, 1] - 1):+.3f}%, rms {float(cal.rms):.4f} px, "
+                     f"{int(cal.used.sum())} frames used")
+        if out_dir and found.any():
+            worst = int(np.nanargmax(np.where(found, errs[:, 1], -1)))
+            os.makedirs(out_dir, exist_ok=True)
+            syn.write_png(os.path.join(out_dir, f"{name}_{worst}.png"), frames[worst][::2, ::2])
+        _phase("survey", t0, text)
+
+
+def phase_images(device):
+    """Calibration from images on the card, the user's path: the rig's
+    frames rendered at 2704 x 1520 and written as PNGs
+    (render_calib_frames), then calib.app.extract_corners_from_images a
+    camera folder (the device detector), calibrate_fisheye_intrinsics a
+    camera, and ``python -m acinoset_tpu_torch.cli calib`` (pairwise
+    extrinsics and the board SBA); s a stage. The calibrations run on
+    every found frame (readings), then on points files without the
+    frames whose corners miss tests/test_calib.py's rule against the
+    truth: one such frame, the detector's inherited lattice fault, in a
+    camera's intrinsics set can break its calibration (ROADMAP Queue 3).
+    There fx and fy are gated, and the chain's poses and the board SBA's
+    RMS are gated from the true intrinsics, as the calib phase gates them
+    (from the calibrated intrinsics they are readings). Gates, the
+    IMAGES_* constants: the share of frames that miss the rule, the
+    device detector against the CPU port, the native engine against the
+    device detector, fx and fy, the chain's poses (the calib phase's
+    bounds), the board SBA's RMS, and undistort_image_fisheye against
+    its CPU run. Readings not gated: s a frame for the PNG read, the
+    device pass, the host lattice and the native engine, and the views
+    the pairwise consensus kept. Every reading is printed before a
+    failed gate raises."""
+    import tempfile
+
+    from acinoset_tpu_torch.calib import app, corners, native
+    from acinoset_tpu_torch.ops import camera as cam_ops
+    from acinoset_tpu_torch.pipeline import data as data_io
+    from acinoset_tpu_torch.utils import png
+    from acinoset_tpu_torch.utils import synthetic as syn
+
+    t0 = time.perf_counter()
+    failed = []
+    res = syn.FISHEYE_RES
+    with tempfile.TemporaryDirectory() as root:
+        intr, extr = os.path.join(root, "intrinsic_calib"), os.path.join(root, "extrinsic_calib")
+        t1 = time.perf_counter()
+        truth = render_calib_frames(device, root, np.random.default_rng(0))
+        s_render = time.perf_counter() - t1
+        _phase("images", t0, f"rendered and wrote {len(truth)} RGB frames of {res[0]} x {res[1]} "
+               f"({CALIB_CAMS} cameras x {IMAGES_VIEWS} intrinsics views, {CALIB_CAMS - 1} pairs "
+               f"x {IMAGES_PAIR_VIEWS} views in both cameras): {s_render:.3f} s")
+
+        t1 = time.perf_counter()
+        folders = []
+        with contextlib.redirect_stdout(io.StringIO()):  # a line a frame
+            for c in range(1, CALIB_CAMS + 1):
+                for frames, points in ((os.path.join(intr, "frames", str(c)),
+                                        os.path.join(intr, "points", f"points_{c}.json")),
+                                       (os.path.join(extr, "frames", str(c)),
+                                        os.path.join(extr, "points", f"points_cam{c}.json"))):
+                    app.extract_corners_from_images(frames, points, (9, 6), 0.04, device=device)
+                    folders.append((frames, points))
+        s_extract = time.perf_counter() - t1
+        found = [_corner_errors(p, f, truth) for f, p in folders]
+        errs = np.concatenate([e for _, e in found])
+        miss = (errs[:, 0] >= IMAGES_CORNER_PX[0]) | (errs[:, 1] >= IMAGES_CORNER_PX[1])
+        off, kept = int(miss.sum()), errs[~miss]
+        _phase("images", t0, f"extract_corners_from_images, {len(folders)} folders: "
+               f"{s_extract:.3f} s, {s_extract / len(truth):.4f} s a frame; found {len(errs)}/"
+               f"{len(truth)} frames; against the truth, median of the frames' medians "
+               f"{np.median(errs[:, 0]):.4f} px; frames missing {IMAGES_CORNER_PX} px: {off} "
+               f"(medians {errs[miss, 0].round(3).tolist()}, max {errs[miss, 1].round(2).tolist()} "
+               f"px; share bound {IMAGES_LATTICE_SHARE}); the others' worst median "
+               f"{kept[:, 0].max():.4f} px, worst max {kept[:, 1].max():.4f} px")
+        if off > IMAGES_LATTICE_SHARE * len(errs):
+            failed.append(f"corners: {off} of {len(errs)} frames miss {IMAGES_CORNER_PX} px")
+
+        user = _calibrate_scene(device, root)
+        _phase("images", t0, f"the user's path on every found frame (not gated: a frame with "
+               f"the lattice fault in a camera's intrinsics set can break its calibration): "
+               f"{_scene_text(user)}")
+        # the same path on points files without the frames that miss the
+        # rule (told by the truth): gated
+        clean = os.path.join(root, "clean")
+        for (frames, points), (names, e) in zip(folders, found):
+            pts, _names, board, square, cam_res = data_io.load_points(points)
+            bad = (e[:, 0] >= IMAGES_CORNER_PX[0]) | (e[:, 1] >= IMAGES_CORNER_PX[1])
+            data_io.save_points(os.path.join(clean, os.path.relpath(points, root)), pts[~bad],
+                                [n for n, b in zip(names, bad) if not b], board, square, cam_res)
+        gated = _calibrate_scene(device, clean)
+        _phase("images", t0, f"the same without the {off} frames off the truth (gated: fx, fy "
+               f"within 1%): {_scene_text(gated)}")
+        if max(gated["fx_err"]) >= 0.01:
+            failed.append(f"fx/fy off by {100 * max(gated['fx_err']):.3f}%")
+        # the chain and the board SBA gated as the calib phase gates them,
+        # from the true intrinsics
+        chain = _calibrate_scene(device, clean, true_intrinsics=True)
+        _phase("images", t0, f"the same from the true intrinsics (gated: "
+               f"{CALIB_ROT_DEG_PER_LINK} deg and {CALIB_T_M_PER_LINK} m a link, board SBA RMS "
+               f"{IMAGES_SBA_RMS_PX} px): {_scene_text(chain)}")
+        for c, (rot, tr) in enumerate(chain["pose"], start=1):
+            if not (rot < CALIB_ROT_DEG_PER_LINK * c and tr < CALIB_T_M_PER_LINK * c):
+                failed.append(f"chained camera {c + 1}: {rot} deg, {tr} m off")
+        if not chain["sba"][1] < IMAGES_SBA_RMS_PX:
+            failed.append(f"board SBA RMS {chain['sba'][1]} px")
+
+        # 40 of one camera's extrinsic frames: the stages a frame, the
+        # native engine, and the CPU port on a few frames
+        paths = sorted(os.path.join(extr, "frames", "2", n) for n in os.listdir(
+            os.path.join(extr, "frames", "2")))[:40]
+        t1 = time.perf_counter()
+        imgs = [png.read_png(p) for p in paths]
+        s_read = (time.perf_counter() - t1) / len(imgs)
+        s_device, s_host = _detector_split(device, imgs)
+        t1 = time.perf_counter()
+        g_nat, ok_nat = native.find_corners_batch(imgs, (9, 6))
+        s_native = time.perf_counter() - t1
+        g_dev, ok_dev = corners.find_corners_batch(imgs, (9, 6), device=device)
+        right = [_within_rule(g, truth[p]) for p, g in zip(paths, g_nat)]
+        both = ok_nat & ok_dev & np.array(right) & np.array(
+            [_within_rule(g, truth[p]) for p, g in zip(paths, g_dev)])
+        nat_med = np.median(np.linalg.norm(g_nat[both] - g_dev[both], axis=-1).reshape(
+            int(both.sum()), -1), axis=1)
+        _phase("images", t0, f"{len(imgs)} of camera 2's frames, s a frame: PNG read "
+               f"{s_read:.4f}, "
+               f"device pass {s_device / len(imgs):.4f} (CUDA events), host lattice "
+               f"{s_host / len(imgs):.4f}, native engine {s_native / len(imgs):.4f} (its thread "
+               f"pool, {os.cpu_count()} CPUs); native found {int(ok_nat.sum())} "
+               f"({int((ok_nat & ~np.array(right)).sum())} off the truth), device "
+               f"{int(ok_dev.sum())}; native against the device detector on the {int(both.sum())} "
+               f"frames both get right: median px a frame, worst {nat_med.max():.4f} (bound "
+               f"{IMAGES_NATIVE_MEDIAN_PX})")
+        if not (nat_med < IMAGES_NATIVE_MEDIAN_PX).all():
+            failed.append(f"native engine off the device detector by {nat_med.max()} px")
+
+        few = imgs[:IMAGES_CPU_FRAMES]
+        cands = [corners.find_corner_candidates(corners._gray(few, d)) for d in (device, "cpu")]
+        (xy_d, sc_d), (xy_c, sc_c) = [(a.cpu().numpy(), b.cpu().numpy()) for a, b in cands]
+        g_cpu, ok_cpu = corners.find_corners_batch(few, (9, 6), device="cpu")
+        same = bool(np.array_equal(ok_cpu, ok_dev[:IMAGES_CPU_FRAMES]))
+        d_cpu = np.abs(g_cpu[ok_cpu] - g_dev[:IMAGES_CPU_FRAMES][ok_cpu]).max() if same else np.inf
+        _phase("images", t0, f"device against the CPU port on {IMAGES_CPU_FRAMES} frames: "
+               f"candidates identical {np.array_equal(xy_d, xy_c)}, scores' largest difference "
+               f"{np.abs(sc_d - sc_c).max():.3e}; found the same {same}; corners' largest "
+               f"difference {d_cpu:.3e} px (bound {IMAGES_CPU_PX})")
+        if not (np.array_equal(xy_d, xy_c) and d_cpu < IMAGES_CPU_PX):
+            failed.append("the device detector differs from the CPU port")
+
+        k, d, _res = data_io.load_camera(os.path.join(intr, "camera_2.json"))
+        _sync(device)
+        t1 = time.perf_counter()
+        und = cam_ops.undistort_image_fisheye(imgs[0], k, d, device=device)
+        _sync(device)
+        s_und = time.perf_counter() - t1
+        und_cpu = cam_ops.undistort_image_fisheye(imgs[0], k, d, device="cpu")
+        und_err = float((und.cpu() - und_cpu).abs().max())
+        _phase("images", t0, f"undistort_image_fisheye ({res[0]} x {res[1]} RGB, {und.dtype}): "
+               f"{s_und:.4f} s on the card (first call); against the CPU {und_err:.3e} (bound "
+               f"{IMAGES_UNDISTORT_TOL:.4f})")
+        if not und_err <= IMAGES_UNDISTORT_TOL:
+            failed.append(f"undistort_image_fisheye off its CPU run by {und_err}")
+    if failed:
+        raise AssertionError("images: " + "; ".join(failed))
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device is available")
@@ -2300,6 +2761,7 @@ def main():
     phase_generic(device)
     phase_sba(device)
     phase_calib(device)
+    phase_images(device)
     phase_uncertainty(device)
     phase_solvers(device)
     phase_sweep_uncertainty(device, sweep)

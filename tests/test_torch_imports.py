@@ -11,6 +11,10 @@ import pytest
 import torch
 
 import acinoset_tpu_torch
+from acinoset_tpu_torch import cli as tcli
+from acinoset_tpu_torch.calib import app as tapp
+from acinoset_tpu_torch.calib import corners as tcorners
+from acinoset_tpu_torch.ops import camera as tcam
 from acinoset_tpu_torch.pipeline import ekf as tekf
 from acinoset_tpu_torch.pipeline import fte as tfte
 from acinoset_tpu_torch.pipeline import sweep as tsweep
@@ -31,7 +35,8 @@ def test_port_and_chip_smoke_import_no_jax_nor_io_stack():
     for m in ("kernels.banded_cuda", "kernels._nvcc", "kernels.probes_cuda", "probes.probe_mosaic",
               "probes.probe_mosaic2", "pipeline.sweep", "solvers.ekf", "solvers.cyclic",
               "models.skeleton", "pipeline.generic", "solvers.lm", "pipeline.sba", "pipeline.data",
-              "calib.pnp", "calib.intrinsics", "calib.extrinsics"):
+              "calib.pnp", "calib.intrinsics", "calib.extrinsics", "calib.corners", "calib.native",
+              "calib.app", "utils.png", "utils._gxx", "cli"):
         assert f"acinoset_tpu_torch.{m}" in modules
     code = (
         "import importlib, sys\n"
@@ -85,6 +90,19 @@ ENTRY_POINTS = {
     "marker_std_from_smoothed": lambda: tekf.marker_std_from_smoothed(
         np.zeros((2, 25)), np.tile(np.eye(25), (2, 1, 1))),
     "time_chain": lambda: tpm2.time_chain(1, K=1),
+    "find_corners_batch": lambda: tcorners.find_corners_batch([np.zeros((32, 32))], (9, 6)),
+    "find_corners": lambda: tcorners.find_corners(np.zeros((32, 32)), (9, 6)),
+    "find_corners_images": lambda: tcorners.find_corners_images([], (9, 6)),
+    "extract_corners_from_images": lambda: tapp.extract_corners_from_images(
+        os.path.join(ROOT, "no_such_dir"), os.path.join(ROOT, "no_such_dir", "p.json"), (9, 6),
+        0.04),
+    "adjust_extrinsics_manual_points": lambda: tapp.adjust_extrinsics_manual_points(
+        "scene.json", "manual_points.json"),
+    **{name: (lambda fn=getattr(tcam, name): fn(np.zeros((4, 6)), np.eye(3), np.zeros(4)))
+       for name in ("undistort_image_fisheye", "undistort_image_pinhole")},
+    **{name: (lambda fn=getattr(tcam, name): fn(np.eye(3), np.zeros(4), np.eye(3), (6, 4)))
+       for name in ("undistort_rectify_map_fisheye", "undistort_rectify_map_pinhole")},
+    "cli calib": lambda: tcli.main(["calib", "--scene_dir", "extrinsic_calib"]),
     **{f"probe_mosaic.{name}": t for name, t in tpm.PROBES},
     **{f"probe_mosaic2.{name}": t for name, t in tpm2.PROBES},
 }

@@ -1,11 +1,13 @@
 """PyTorch/CUDA port of acinoset_tpu, beside the JAX package.
 
 The subpackages mirror ``acinoset_tpu`` (``ops models solvers kernels
-pipeline calib utils``) so each function has an obvious counterpart. The port
-imports torch, numpy and scipy only — never JAX, nor any module of the
-JAX package, nor the JAX package's I/O stack (h5py, imageio, pandas,
-cv2). Tests hold every ported function to its JAX counterpart on the
-same inputs.
+pipeline calib eval utils``) so each function has an obvious counterpart.
+The port imports torch, numpy and scipy only — never JAX, nor any module
+of the JAX package, nor the JAX package's I/O stack (h5py, imageio,
+pandas, cv2, matplotlib): it reads and writes DLC ``.h5`` files with its
+own HDF5 subset (``utils.hdf5``) and reads video metadata from the MP4
+boxes (``utils.mp4``). Tests hold every ported function to its JAX
+counterpart on the same inputs.
 
 Entry points (``solvers.trajopt.fte_solve``, ``pipeline.fte.fte_run``,
 ``pipeline.fte.initial_trajectory_batch``, the sweep's stages
@@ -17,7 +19,12 @@ the SBA reconstruction ``pipeline.sba.sba_run``, and camera calibration
 ``calib.extrinsics.calibrate_pair_extrinsics_fisheye``,
 ``calibrate_pair_extrinsics``, ``calibrate_pairwise_extrinsics``,
 ``prepare_calib_board_data`` and
-``bundle_adjust_board_points_and_extrinsics``)) run on ``cuda`` unless
+``bundle_adjust_board_points_and_extrinsics``), the file level on run
+directories (``pipeline.tri.tri``, ``pipeline.sba.sba``,
+``pipeline.ekf.ekf``, ``pipeline.fte.fte``, ``pipeline.sweep.sweep`` and
+``sweep_generic``, ``pipeline.generic.build_and_solve``,
+``pipeline.points2d.estimate_part_path``, ``eval.metrics``) and the
+command line ``cli``) run on ``cuda`` unless
 the caller passes ``device="cpu"``, and raise when no device is given
 and no CUDA device exists. The solvers of ``solvers.lm`` and the ops
 run where their tensors are. The banded-Cholesky kernel wrapper

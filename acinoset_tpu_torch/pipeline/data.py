@@ -1,19 +1,28 @@
-"""Data helpers of acinoset_tpu.pipeline.data that the port needs: the
-scene, camera and corner-points JSON files (the schemas of the
-reference's src/calib/utils.py:16-101; a file written by either package
-loads in the other to equal arrays), and the checkerboard's object
-points (src/calib/utils.py:10-13). The DLC .h5 and pickle readers are
-not ported yet."""
+"""Host-side data of acinoset_tpu.pipeline.data: the scene, camera and
+corner-points JSON files (the schemas of the reference's
+src/calib/utils.py:16-101), the checkerboard's object points
+(src/calib/utils.py:10-13), DeepLabCut ``.h5`` keypoint files read and
+written through ``utils.hdf5`` (no h5py, pandas or PyTables), the dense
+``Points2D`` container, and the skeleton and result pickles. A file
+written by either package loads in the other to equal arrays.
+
+The JAX package's DataFrame shims (``load_dlc_points_as_df``,
+``points2d_from_df``) are not ported: they return pandas objects.
+"""
 from __future__ import annotations
 
 import json
 import os
+import pickle
 import re
+from dataclasses import dataclass
 from datetime import datetime
 from glob import glob
-from typing import List, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from ..utils import hdf5
 
 # --------------------------------------------------------------------------
 # Scene / camera / points JSON (schemas of src/calib/utils.py:16-101)
@@ -165,3 +174,177 @@ def create_board_object_pts(board_shape: Tuple[int, int], square_edge_length: fl
         np.mgrid[0 : board_shape[0], 0 : board_shape[1]].T.reshape(-1, 2) * square_edge_length
     )
     return object_pts
+
+
+# --------------------------------------------------------------------------
+# DeepLabCut .h5 files (pandas "table" and "fixed" layouts)
+# --------------------------------------------------------------------------
+
+
+def _read_dlc_h5(fpath) -> Tuple[np.ndarray, List[str], np.ndarray]:
+    """Read one DLC .h5 -> (frames (N,), bodyparts (L,), values (N, L, 3)).
+
+    values[..., :] = (x, y, likelihood). The pandas "table" layout keeps
+    the column names in the pickled ``non_index_axes`` group attribute
+    (a string or opaque bytes) and the data in ``<group>/table`` with the
+    fields 'index' and 'values_block_0'; the "fixed" layout keeps them in
+    axis0_level*/axis0_label*, axis1 and block0_values. The first group
+    in name order is read, as the JAX package reads h5py's first key."""
+    root = hdf5.open_file(fpath)
+    group = root[root.keys()[0]]
+    if "table" in group:
+        non_index_axes = pickle.loads(bytes(group.attrs["non_index_axes"]))
+        columns = non_index_axes[0][1]  # [(axis, [(scorer, bodypart, coord), ...])]
+        table = group["table"].read()
+        frames = table["index"].astype(np.int64)
+        vals = table["values_block_0"].astype(np.float64)
+    else:
+        def _s(x):
+            return x.decode() if isinstance(x, bytes) else str(x)
+
+        levels = [group[f"axis0_level{i}"].read() for i in range(3)]
+        labels = [group[f"axis0_label{i}"].read() for i in range(3)]
+        columns = [
+            tuple(_s(levels[lvl][lab[j]]) for lvl, lab in enumerate(labels))
+            for j in range(len(labels[0]))
+        ]
+        frames = group["axis1"].read().astype(np.int64)
+        vals = group["block0_values"].read().astype(np.float64)
+
+    # column order: (scorer, bodypart, coord) triples; group by bodypart
+    bodyparts: List[str] = []
+    col_of: Dict[Tuple[str, str], int] = {}
+    for j, col in enumerate(columns):
+        _, bp, coord = col
+        if bp not in bodyparts:
+            bodyparts.append(bp)
+        col_of[(bp, coord)] = j
+    n, L = len(frames), len(bodyparts)
+    out = np.full((n, L, 3), np.nan)
+    for i, bp in enumerate(bodyparts):
+        for k, coord in enumerate(("x", "y", "likelihood")):
+            j = col_of.get((bp, coord))
+            if j is not None:
+                out[:, i, k] = vals[:, j]
+    return frames, bodyparts, out
+
+
+def save_dlc_points_h5(
+    fpath: str,
+    pixels: np.ndarray,  # (N, L, 2)
+    likelihood: np.ndarray,  # (N, L)
+    markers: List[str],
+    scorer: str = "acinoset_tpu",
+    frames: Optional[np.ndarray] = None,
+    strings: str = "vlen",
+):
+    """Write a DLC-style .h5 keypoint file in the pandas "fixed" layout
+    the JAX package writes through h5py (``_read_dlc_h5`` and
+    DeepLabCut-compatible readers parse it). ``frames`` is the frame
+    index (axis1, default 0..N-1); ``strings`` stores the three
+    axis0_level* name lists as variable-length UTF-8 ('vlen', as h5py
+    writes them) or fixed-length ('fixed', as PyTables writes them)."""
+    N, L, _ = pixels.shape
+    vals = np.concatenate([pixels, likelihood[..., None]], axis=-1).reshape(N, L * 3)
+    if strings == "vlen":
+        def names(x):
+            return np.array(list(x), dtype=object)
+    elif strings == "fixed":
+        def names(x):
+            return np.array([s.encode("utf-8") for s in x])
+    else:
+        raise ValueError(f"strings must be 'vlen' or 'fixed', not {strings!r}")
+    axis1 = np.arange(N, dtype=np.int64) if frames is None else np.asarray(frames, np.int64)
+    hdf5.write_file(fpath, {"df_with_missing": (
+        {"pandas_type": b"frame", "CLASS": b"GROUP"},
+        {
+            "axis0_level0": names([scorer]),
+            "axis0_level1": names(markers),
+            "axis0_level2": names(["x", "y", "likelihood"]),
+            "axis0_label0": np.zeros(L * 3, dtype=np.int64),
+            "axis0_label1": np.repeat(np.arange(L, dtype=np.int64), 3),
+            "axis0_label2": np.tile(np.arange(3, dtype=np.int64), L),
+            "axis1": axis1,
+            "block0_values": vals.astype(np.float64),
+        },
+    )})
+    return fpath
+
+
+@dataclass
+class Points2D:
+    """Dense multi-camera 2D keypoints.
+
+    pixels:     (C, N, L, 2) float64
+    likelihood: (C, N, L)    float64 (NaN where a frame/marker is absent)
+    frames:     (N,) original frame indices (contiguous range)
+    markers:    list of L marker names, in canonical order
+    """
+
+    pixels: np.ndarray
+    likelihood: np.ndarray
+    frames: np.ndarray
+    markers: List[str]
+
+    @property
+    def n_cams(self) -> int:
+        return self.pixels.shape[0]
+
+    def window(self, start_frame: int, end_frame: int) -> "Points2D":
+        """Slice to frame indices [start_frame, end_frame) (0-based)."""
+        sel = (self.frames >= start_frame) & (self.frames < end_frame)
+        return Points2D(
+            self.pixels[:, sel], self.likelihood[:, sel], self.frames[sel], self.markers
+        )
+
+    def valid(self, thresh: float) -> np.ndarray:
+        """(C, N, L) bool: likelihood strictly above thresh (the reference
+        filters with '>', src/all_optimizations.py:263)."""
+        return np.nan_to_num(self.likelihood, nan=-1.0) > thresh
+
+
+def load_dlc_points(fpaths: Sequence[str], markers: Optional[List[str]] = None) -> Points2D:
+    """Per-camera DLC .h5 files -> a dense Points2D. ``markers`` fixes the
+    marker order (by default the first file's bodypart order); markers
+    missing from a file get NaN pixels and likelihood."""
+    per_cam = [_read_dlc_h5(p) for p in fpaths]
+    n_frames = max(int(f[-1]) + 1 for f, _, _ in per_cam)
+    if markers is None:
+        markers = per_cam[0][1]
+    L = len(markers)
+    C = len(per_cam)
+    pixels = np.full((C, n_frames, L, 2), np.nan)
+    likelihood = np.full((C, n_frames, L), np.nan)
+    for c, (frames, bodyparts, vals) in enumerate(per_cam):
+        bp_idx = {bp: i for i, bp in enumerate(bodyparts)}
+        for i, m in enumerate(markers):
+            if m in bp_idx:
+                pixels[c, frames, i] = vals[:, bp_idx[m], :2]
+                likelihood[c, frames, i] = vals[:, bp_idx[m], 2]
+    return Points2D(pixels, likelihood, np.arange(n_frames), list(markers))
+
+
+# --------------------------------------------------------------------------
+# Skeleton & result pickles
+# --------------------------------------------------------------------------
+
+
+def load_skeleton(fpath) -> Dict:
+    """A skeleton dict pickle {links, dofs, positions, markers} (the schema
+    of the reference's skeletons/*.pickle)."""
+    return load_pickle(fpath)
+
+
+def save_skeleton(fpath, skel_dict: Dict):
+    save_pickle(fpath, skel_dict)
+
+
+def load_pickle(fpath) -> Dict:
+    with open(fpath, "rb") as f:
+        return pickle.load(f)
+
+
+def save_pickle(fpath, data: Dict):
+    os.makedirs(os.path.dirname(fpath) or ".", exist_ok=True)
+    with open(fpath, "wb") as f:
+        pickle.dump(data, f)

@@ -6,11 +6,14 @@ reference's initial covariance (AcinoSet src/all_optimizations.py:
 713-731).
 
 Every measurement function maps poses (..., 25) with any leading batch
-dimensions through FK and the fisheye rig. The file-level ``ekf`` (DLC
-``.h5`` input, pickles and plots out) is not ported yet.
+dimensions through FK and the fisheye rig. ``ekf`` is the file level: a
+run directory's DLC ``.h5`` files in, ``ekf.pickle`` out (the state plot
+``ekf.pdf`` needs matplotlib and is not written).
 """
 from __future__ import annotations
 
+import os
+from glob import glob
 from typing import Dict, Optional
 
 import numpy as np
@@ -21,6 +24,9 @@ from ..models import cheetah
 from ..ops import camera as cam_ops
 from ..solvers import ekf as ekf_solver
 from ..utils.device import resolve_device
+from . import app
+from . import data as data_io
+from .tri import triangulate_run
 
 
 def nose_track_linreg(positions: np.ndarray, frames: np.ndarray, marker_idx: int):
@@ -195,3 +201,77 @@ def run_cheetah_ekf(
         t(ekf_P0(n_pose)), cheetah.EKF_QB, cfg,
     )
     return {k: v[0].cpu().numpy() for k, v in out.items()}
+
+
+def ekf(
+    data_dir: str,
+    start_frame: int,
+    end_frame: int,
+    dlc_thresh: float,
+    out_dir: Optional[str] = None,
+    save: bool = True,
+    device=None,
+) -> Dict:
+    """The CLI's ``ekf`` stage on a run directory, on ``device`` (CUDA
+    unless given), in float64. ``start_frame`` is 1-based; ``end_frame``
+    -1 is the video's last frame. The initial state comes from the line
+    fit of the triangulated nose track (position, heading and velocity,
+    the reference's :699-711). Writes ``<out_dir or data_dir/ekf>/
+    ekf.pickle`` with the filtered and smoothed states and per-marker
+    error bars."""
+    device = resolve_device(device)
+    out_dir = out_dir or os.path.join(data_dir, "ekf")
+    dlc_dir = os.path.join(data_dir, "dlc")
+    assert os.path.exists(dlc_dir), f"missing {dlc_dir}"
+
+    k_arr, d_arr, r_arr, t_arr, cam_res, n_cams, scene_fpath = data_io.find_scene_file(
+        data_dir, verbose=False
+    )
+    _res, fps, tot_frames, _ = app.get_vid_info(data_dir)
+    if end_frame == -1:
+        end_frame = tot_frames
+    start0 = start_frame - 1
+
+    fpaths = sorted(glob(os.path.join(dlc_dir, "*.h5")))
+    assert len(fpaths) == n_cams, f"{len(fpaths)} dlc files != {n_cams} cams"
+    markers = cheetah.get_markers()
+    p2d = data_io.load_dlc_points(fpaths, markers=markers)
+    win = p2d.window(start0, end_frame)
+
+    tri_pos = triangulate_run(
+        np.nan_to_num(win.pixels), win.valid(dlc_thresh), k_arr, d_arr, r_arr, t_arr, device
+    )
+    xi = cheetah.get_pose_params()
+    x0_pose = np.zeros(cheetah.N_ACTIVE * 3)
+    nose = markers.index("nose")
+    xs, xi_, ys, yi_, _zs, _zi = nose_track_linreg(tri_pos, win.frames, nose)
+    sT = 1.0 / fps
+    x0_pose[xi["x_0"]] = start0 * xs + xi_
+    x0_pose[xi["y_0"]] = start0 * ys + yi_
+    x0_pose[xi["psi_0"]] = np.arctan2(ys, xs)
+    v = cheetah.N_ACTIVE
+    x0_pose[v + xi["x_0"]] = xs / sT
+    x0_pose[v + xi["y_0"]] = ys / sT
+
+    states = run_cheetah_ekf(
+        win.pixels.transpose(1, 0, 2, 3),
+        win.likelihood.transpose(1, 0, 2),
+        k_arr, d_arr, r_arr, t_arr,
+        fps, cam_res, dlc_thresh,
+        x0_pose=x0_pose, device=device,
+    )
+    positions = cheetah.fk25(torch.as_tensor(states["smoothed_x"], device=device)).cpu().numpy()
+    keep = dict(
+        x=states["x"], dx=states["dx"], ddx=states["ddx"],
+        smoothed_x=states["smoothed_x"], smoothed_dx=states["smoothed_dx"],
+        smoothed_ddx=states["smoothed_ddx"],
+        marker_std=marker_std_from_smoothed(states["smoothed_x"], states["smoothed_P"],
+                                            device=device),
+    )
+    print("EKF complete!")
+    print("Outliers ignored:", int(states["outliers"]))
+    if save:
+        os.makedirs(out_dir, exist_ok=True)
+        app.save_ekf(keep, out_dir, scene_fpath, start0, dlc_thresh, positions=positions)
+        print(f"Not written: {os.path.join(out_dir, 'ekf.pdf')} (plots need matplotlib)")
+    return dict(positions=positions, states=keep, outliers=int(states["outliers"]))

@@ -1,8 +1,13 @@
-"""FTE pipeline for the cheetah model, the array-level counterpart of
-acinoset_tpu.pipeline.fte (no file I/O): default config, the
-linear-regression initial trajectory, and one run's solve."""
+"""FTE pipeline for the cheetah model, the counterpart of
+acinoset_tpu.pipeline.fte: default config, the linear-regression initial
+trajectory, one run's solve (``fte_run``), and ``fte``, the file level (a
+run directory's DLC ``.h5`` files in; ``fte.pickle`` and the per-camera
+reprojections out; the state plot ``fte.svg`` needs matplotlib and is
+not written)."""
 from __future__ import annotations
 
+import os
+from glob import glob
 from typing import Dict, Optional
 
 import numpy as np
@@ -12,6 +17,8 @@ from ..models import cheetah
 from ..ops import camera as cam_ops
 from ..solvers import trajopt
 from ..utils.device import resolve_device
+from . import app
+from . import data as data_io
 from .ekf import make_hj_parts_fn, nose_track_linreg
 from .tri import triangulate_run
 
@@ -110,6 +117,10 @@ def fte_run(
     def host(t):
         return t.detach().cpu().numpy()
 
+    converged = bool(info["converged"][0])
+    print(f"FTE solve: cost {float(info['cost0'][0]):.1f} -> {float(info['cost'][0]):.1f} "
+          f"(grad_norm {float(info['grad_norm'][0]):.3g}; "
+          f"{'converged' if converged else 'NOT converged — raise num_iters'})")
     out = dict(
         positions=host(cheetah.fk25(X)),
         x=host(X),
@@ -118,10 +129,76 @@ def fte_run(
         cost=float(info["cost"][0]),
         cost0=float(info["cost0"][0]),
         cost_history=host(info["cost_history"][0]),
-        converged=bool(info["converged"][0]),
+        converged=converged,
         grad_norm=float(info["grad_norm"][0]),
     )
     if uncertainty:
         out["marker_std"] = host(info["marker_std"][0])
         out["pose_cov"] = host(info["pose_cov"][0])
+        print(f"posterior marker std: median "
+              f"{1e3 * float(np.median(out['marker_std'])):.1f} mm")
     return out
+
+
+def fte(
+    data_dir: str,
+    start_frame: int,
+    end_frame: int,
+    dlc_thresh: float,
+    out_dir: Optional[str] = None,
+    save: bool = True,
+    num_iters: int = 60,
+    uncertainty: bool = False,
+    device=None,
+) -> Dict:
+    """The CLI's ``fte`` stage on a run directory, on ``device`` (CUDA
+    unless given), in float64. ``start_frame`` is 1-based; ``end_frame``
+    -1 is the video's last frame. Writes ``<out_dir or data_dir/fte>/
+    fte.pickle`` (the states in the reference's column order,
+    ``cheetah.to_fte_order``; ``marker_std`` with ``uncertainty``) and
+    ``cheetah_reprojected_cam{c}.h5`` for every camera."""
+    device = resolve_device(device)
+    out_dir = out_dir or os.path.join(data_dir, "fte")
+    dlc_dir = os.path.join(data_dir, "dlc")
+    assert os.path.exists(dlc_dir), f"missing {dlc_dir}"
+
+    k_arr, d_arr, r_arr, t_arr, cam_res, n_cams, scene_fpath = data_io.find_scene_file(
+        data_dir, verbose=False
+    )
+    _res, fps, tot_frames, _ = app.get_vid_info(data_dir)
+    if end_frame == -1:
+        end_frame = tot_frames
+    start0 = start_frame - 1
+
+    fpaths = sorted(glob(os.path.join(dlc_dir, "*.h5")))
+    markers = cheetah.get_markers()
+    p2d = data_io.load_dlc_points(fpaths, markers=markers)
+    win = p2d.window(start0, end_frame)
+
+    result = fte_run(
+        win.pixels, win.likelihood, k_arr, d_arr, r_arr, t_arr, fps, dlc_thresh,
+        frames=win.frames, num_iters=num_iters, uncertainty=uncertainty, device=device,
+    )
+    if save:
+        os.makedirs(out_dir, exist_ok=True)
+        order = cheetah.FTE_SAVE_ORDER  # the reference's column order
+        states = dict(
+            x=result["x"][..., order], dx=result["dx"][..., order],
+            ddx=result["ddx"][..., order],
+            start_frame=start0,
+            cost_history=result["cost_history"], scene_fpath=scene_fpath,
+            dlc_thresh=dlc_thresh,
+            cost=result["cost"], cost0=result["cost0"],
+            converged=result["converged"], grad_norm=result["grad_norm"],
+        )
+        if uncertainty:
+            states["marker_std"] = result["marker_std"]
+        app.save_optimised_cheetah(
+            result["positions"], os.path.join(out_dir, "fte.pickle"), extra_data=states
+        )
+        app.save_3d_cheetah_as_2d(
+            result["positions"], out_dir, scene_fpath, markers,
+            cam_ops.project_points_fisheye, start0, device=device,
+        )
+        print(f"Not written: {os.path.join(out_dir, 'fte.svg')} (plots need matplotlib)")
+    return result

@@ -1,6 +1,6 @@
-"""Generic-skeleton FTE, the array-level counterpart of
-acinoset_tpu.pipeline.generic (the reference's src/build.py path for
-humans and new animals; no file I/O).
+"""Generic-skeleton FTE, the counterpart of acinoset_tpu.pipeline.generic
+(the reference's src/build.py path for humans and new animals), with
+``build_and_solve``, its file level.
 
 The reference builder's weights (flat model weight 0.002, measurement
 std 3 px, build.py:142,190), its L1 measurement loss (:299, realised as
@@ -10,7 +10,9 @@ Gauss-Newton solver as the cheetah.
 """
 from __future__ import annotations
 
-from typing import Dict
+import os
+from glob import glob
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -21,6 +23,7 @@ from ..models.skeleton import (
 )
 from ..solvers import trajopt
 from ..utils.device import resolve_device
+from . import data as data_io
 from .ekf import make_h_fn_aux_generic, make_hj_parts_aux_generic, nose_track_linreg
 from .tri import triangulate_run
 
@@ -149,3 +152,48 @@ def fte_generic_run(
         converged=bool(info["converged"][0]),
         grad_norm=float(info["grad_norm"][0]),
     )
+
+
+def build_and_solve(
+    skeleton_fpath: str,
+    project_dir: str,
+    start_frame: int = 60,
+    n_frames: int = 100,
+    fps: float = 120.0,
+    dlc_thresh: float = 0.4,
+    out_fpath: Optional[str] = None,
+    num_iters: int = 60,
+    device=None,
+) -> Dict:
+    """The file-driven twin of src/build.py's __main__ (:483-497), on
+    ``device`` (CUDA unless given): the skeleton pickle, the scene
+    ``<project_dir>/data/4_cam_scene_static_sba.json`` and the DLC files
+    ``<project_dir>/data/*.h5`` in; frames [start_frame, start_frame +
+    n_frames) (0-based) solved; ``traj_results.pickle`` out (default
+    ``<project_dir>/data/results/``)."""
+    device = resolve_device(device)
+    skel = data_io.load_skeleton(skeleton_fpath)
+    model = build_skeleton_model(skel)
+    scene_path = os.path.join(project_dir, "data", "4_cam_scene_static_sba.json")
+    k_arr, d_arr, r_arr, t_arr, _res = data_io.load_scene(scene_path)
+    fpaths = sorted(glob(os.path.join(project_dir, "data", "*.h5")))
+    p2d = data_io.load_dlc_points(fpaths, markers=model.markers)
+    win = p2d.window(start_frame, start_frame + n_frames)
+    result = fte_generic_run(
+        skel, win.pixels, win.likelihood, k_arr, d_arr.reshape(-1, 4), r_arr, t_arr,
+        fps=fps, dlc_thresh=dlc_thresh, num_iters=num_iters, device=device,
+    )
+    out_fpath = out_fpath or os.path.join(project_dir, "data", "results", "traj_results.pickle")
+    data_io.save_pickle(
+        out_fpath,
+        dict(
+            positions=result["positions"], x=result["x"], dx=result["dx"],
+            ddx=result["ddx"],
+            # beyond the reference's schema (build.py:344-378): lets
+            # `cli eval` align ground-truth windows and markers by name
+            markers=result["markers"], start_frame=start_frame,
+            scene_fpath=scene_path,
+            converged=result["converged"], grad_norm=result["grad_norm"],
+        ),
+    )
+    return result

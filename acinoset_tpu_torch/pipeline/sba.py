@@ -1,5 +1,6 @@
-"""SBA, sparse bundle adjustment over the marker points of a run: the
-array level of acinoset_tpu.pipeline.sba (no file I/O).
+"""SBA, sparse bundle adjustment over the marker points of a run, the
+counterpart of acinoset_tpu.pipeline.sba (the reference's ``sba()`` entry
+point, AcinoSet src/all_optimizations.py:868-895).
 
 Every (frame, marker) seen by >= 2 cameras becomes a 3D point,
 initialised from the camera pair whose triangulation reprojects best,
@@ -9,15 +10,20 @@ then refined against all observing cameras under a Cauchy loss
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import os
+from glob import glob
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..convert import rig_to_torch
+from ..models import cheetah
 from ..ops import camera as cam_ops
 from ..solvers import lm
 from ..utils.device import resolve_device
+from . import app
+from . import data as data_io
 
 
 def _nanmedian(x, dim=-1):
@@ -109,3 +115,50 @@ def sba_run(
     positions = pts.reshape(N, L, 3).cpu().numpy().copy()
     positions[~seen.cpu().numpy()] = np.nan
     return positions, {k: v.cpu().numpy() for k, v in residuals.items()}
+
+
+def sba_points_fisheye(scene_fpath: str, p2d: data_io.Points2D, dlc_thresh: float = 0.5,
+                       device=None):
+    """``sba_run`` on a scene file's rig and a Points2D's detections above
+    ``dlc_thresh`` (the reference's lib.app.sba_points_fisheye), on
+    ``device`` (CUDA unless given)."""
+    device = resolve_device(device)
+    k_arr, d_arr, r_arr, t_arr, _cam_res = data_io.load_scene(scene_fpath)
+    return sba_run(p2d.pixels, p2d.valid(dlc_thresh), k_arr, d_arr.reshape(-1, 4), r_arr, t_arr,
+                   device=device)
+
+
+def sba(
+    data_dir: str,
+    start_frame: int,
+    end_frame: int,
+    dlc_thresh: float,
+    out_dir: Optional[str] = None,
+    save: bool = True,
+    device=None,
+) -> Dict:
+    """The CLI's ``sba`` stage on a run directory, on ``device`` (CUDA
+    unless given), in float64. ``start_frame`` is 1-based; ``end_frame``
+    -1 is the last frame. Writes ``<out_dir or data_dir/sba>/sba.pickle``."""
+    device = resolve_device(device)
+    out_dir = out_dir or os.path.join(data_dir, "sba")
+    dlc_dir = os.path.join(data_dir, "dlc")
+    assert os.path.exists(dlc_dir), f"missing {dlc_dir}"
+
+    k_arr, d_arr, r_arr, t_arr, cam_res, n_cams, scene_fpath = data_io.find_scene_file(
+        data_dir, verbose=False
+    )
+    fpaths = sorted(glob(os.path.join(dlc_dir, "*.h5")))
+    p2d = data_io.load_dlc_points(fpaths, markers=cheetah.get_markers())
+    start0 = start_frame - 1
+    if end_frame == -1:
+        end_frame = p2d.pixels.shape[1]
+    win = p2d.window(start0, end_frame)
+
+    positions, residuals = sba_run(
+        win.pixels, win.valid(dlc_thresh), k_arr, d_arr, r_arr, t_arr, device=device
+    )
+    if save:
+        os.makedirs(out_dir, exist_ok=True)
+        app.save_sba(positions, out_dir, scene_fpath, start0, dlc_thresh)
+    return dict(positions=positions, residuals=residuals, start_frame=start0)

@@ -14,14 +14,21 @@ pieces are ``pipeline.ekf.hj_parts_aux`` (or, for a skeleton,
 rig broadcast over its frames. ``fte_solve`` and ``run_ekf`` are
 natively batched, so where the JAX package caches one jitted program per
 configuration, the port calls the stage directly (``solve_stage``,
-``ekf_stage``, ``solve_stage_generic``, ``ekf_stage_generic``). The
-file-level ``sweep``, ``sweep_generic``, ``discover_runs`` and
-``load_run`` read DLC ``.h5`` files and are not ported yet.
+``ekf_stage``, ``solve_stage_generic``, ``ekf_stage_generic``).
+
+The file level: ``discover_runs`` finds the run directories under a
+dataset root, ``load_run`` reads one (DLC ``.h5`` files, scene, video
+info), and ``sweep`` / ``sweep_generic`` solve every run, grouped by fps,
+and write per-run pickles (the reference's all_flick.sh workload). The
+JAX package's XLA compile cache (``enable_persistent_cache``) has no
+counterpart.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from dataclasses import replace as dc_replace
+from glob import glob
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -33,6 +40,8 @@ from ..ops import camera as cam_ops
 from ..solvers import ekf as ekf_solver
 from ..solvers import trajopt
 from ..utils.device import resolve_device
+from . import app
+from . import data as data_io
 from .ekf import (assemble_hj, ekf_P0, hj_parts_aux, make_h_fn_aux_generic,  # noqa: F401
                   make_hj_parts_aux_generic, make_marker_std_fn)
 from .fte import default_config
@@ -49,6 +58,52 @@ class RunData:
     start_frame: int
     scene_fpath: str
     cam_res: Tuple[int, int] = (2704, 1520)  # per-run sensor resolution
+
+
+def discover_runs(root_dir: str) -> List[str]:
+    """Run directories under ``root_dir``: every directory holding a dlc/
+    subdirectory with .h5 files, sorted."""
+    out = []
+    for dirpath, _dirnames, _filenames in os.walk(root_dir):
+        if os.path.basename(dirpath) == "dlc" and glob(os.path.join(dirpath, "*.h5")):
+            out.append(os.path.dirname(dirpath))
+    return sorted(out)
+
+
+def load_run(
+    data_dir: str,
+    start_frame: int = 1,
+    end_frame: int = -1,
+    max_cams: Optional[int] = None,
+    markers: Optional[Sequence[str]] = None,
+) -> RunData:
+    """One run directory as RunData: its DLC points (in ``markers`` order,
+    the cheetah's by default) over frames [start_frame - 1, end_frame)
+    (``start_frame`` 1-based, ``end_frame`` -1 the last), the scene found
+    at or above it, and the fps of its videos or sidecar (120 when it has
+    neither). ``max_cams`` is accepted and unused, as in the JAX package."""
+    k_arr, d_arr, r_arr, t_arr, cam_res, n_cams, scene_fpath = data_io.find_scene_file(
+        data_dir, verbose=False
+    )
+    try:
+        _res, fps, _tot, _ = app.get_vid_info(data_dir)
+    except FileNotFoundError:
+        fps = 120.0
+    fpaths = sorted(glob(os.path.join(data_dir, "dlc", "*.h5")))
+    p2d = data_io.load_dlc_points(fpaths, markers=(markers or cheetah.get_markers()))
+    start0 = start_frame - 1
+    end = p2d.pixels.shape[1] if end_frame == -1 else end_frame
+    win = p2d.window(start0, end)
+    return RunData(
+        data_dir=data_dir,
+        pixels=win.pixels,
+        likelihood=np.nan_to_num(win.likelihood, nan=-1.0),
+        cams=(k_arr, d_arr.reshape(-1, 4), r_arr, np.asarray(t_arr).reshape(-1, 3)),
+        fps=float(fps),
+        start_frame=start0,
+        scene_fpath=scene_fpath,
+        cam_res=tuple(int(v) for v in cam_res),
+    )
 
 
 def _pad_run(run: RunData, N: int, C: int):
@@ -716,3 +771,179 @@ def solve_batch_ekf_generic(
     out = ekf_stage_generic(model, cfg, up(packed), up(auxp), up(n_valid, torch.int64), up(P0),
                             qb, model.markers.index(init_marker), smoother=smoother)
     return _ekf_results(runs, n_valid, mpe, out, dtype)
+
+
+# ---- the file level: every run under a dataset root ----
+
+def _group_by_fps(runs: Sequence[RunData]) -> Dict[float, List[RunData]]:
+    groups: Dict[float, List[RunData]] = {}
+    for r in runs:
+        groups.setdefault(r.fps, []).append(r)
+    return groups
+
+
+def _uncertainty_extras(res: Dict, uncertainty: bool) -> Dict:
+    if not uncertainty:
+        return {}
+    return {k: res[k] for k in ("marker_std", "cov_ridge_shrink", "cov_ridge_frac")}
+
+
+def _save_ekf_results(ekf_results, dlc_thresh):
+    for res in ekf_results:
+        out_dir = os.path.join(res["data_dir"], "ekf")
+        os.makedirs(out_dir, exist_ok=True)
+        app.save_ekf(res["states"], out_dir, res["scene_fpath"], res["start_frame"], dlc_thresh,
+                     positions=res["positions"])
+
+
+def sweep(
+    root_dir: str,
+    dlc_thresh: float = 0.8,
+    num_iters: int = 60,
+    save: bool = True,
+    max_frames: Optional[int] = None,
+    stages: Sequence[str] = ("fte",),
+    warm_start="auto",
+    relinearize_every: int = 1,
+    rescue: bool = True,
+    uncertainty: bool = False,
+    device=None,
+) -> List[Dict]:
+    """Batched reconstruction of every run under ``root_dir`` (the
+    reference's all_flick.sh) on ``device`` (CUDA unless given), in
+    float32 as the batched stages run. Runs are grouped by fps; each group is solved as one batch
+    per requested stage ('fte' and/or 'ekf') and each run's pickles are
+    written (``<run>/fte/fte.pickle``, ``<run>/ekf/ekf.pickle``).
+
+    ``warm_start=True`` starts the FTE from the batched EKF's smoothed
+    poses (the EKF then runs even when 'ekf' is not in ``stages``);
+    'auto' is the cold start. ``rescue`` re-solves the runs whose
+    stationarity test failed (``_rescue_unconverged``). Returns the FTE
+    results (or, without 'fte', the EKF results) of every run."""
+    device = resolve_device(device)
+    run_dirs = discover_runs(root_dir)
+    print(f"Found {len(run_dirs)} runs under {root_dir}")
+    runs = [load_run(d, end_frame=(max_frames or -1)) for d in run_dirs]
+
+    all_results = []
+    for fps, group in _group_by_fps(runs).items():
+        warm = resolve_warm_start(warm_start)
+        ekf_results = None
+        if "ekf" in stages or (warm and "fte" in stages):
+            print(f"EKF: {len(group)} runs @ {fps} fps as one batch")
+            ekf_results = solve_batch_ekf(group, dlc_thresh, device=device)
+            if save and "ekf" in stages:
+                _save_ekf_results(ekf_results, dlc_thresh)
+            if "fte" not in stages:
+                all_results.extend(ekf_results)
+        if "fte" not in stages:
+            continue
+        print(f"FTE: {len(group)} runs @ {fps} fps as one batch"
+              + (" (EKF warm start)" if warm else ""))
+        results = solve_batch(
+            group, dlc_thresh, num_iters=num_iters, device=device,
+            X0_override=ekf_warm_starts(ekf_results) if warm else None,
+            relinearize_every=relinearize_every,
+            # the EKF init is already near the optimum and 3-sigma gated:
+            # the redescending weights switch on almost at once
+            plain_iters=(4 if warm else None),
+            uncertainty=uncertainty,
+        )
+        if rescue:
+            results = _rescue_unconverged(
+                results, "", num_iters,
+                lambda bad, X0s, budget: solve_batch(
+                    [group[i] for i in bad], dlc_thresh, num_iters=budget, device=device,
+                    X0_override=X0s, relinearize_every=relinearize_every,
+                    plain_iters=0,  # continuing a graduated solve
+                    uncertainty=uncertainty,
+                ),
+            )
+        all_results.extend(results)
+        if save:
+            for res in results:
+                out_dir = os.path.join(res["data_dir"], "fte")
+                os.makedirs(out_dir, exist_ok=True)
+                app.save_optimised_cheetah(
+                    res["positions"], os.path.join(out_dir, "fte.pickle"),
+                    extra_data=dict(
+                        x=res["x"], dx=res["dx"], ddx=res["ddx"],
+                        start_frame=res["start_frame"],
+                        cost=res["cost"], cost0=res["cost0"],
+                        converged=res["converged"], grad_norm=res["grad_norm"],
+                        **_uncertainty_extras(res, uncertainty),
+                    ),
+                )
+    return all_results
+
+
+def sweep_generic(
+    root_dir: str,
+    skeleton_fpath: str,
+    dlc_thresh: float = 0.4,
+    num_iters: int = 60,
+    save: bool = True,
+    max_frames: Optional[int] = None,
+    warm_start="auto",
+    rescue: bool = True,
+    uncertainty: bool = False,
+    init_marker: str = "forehead",
+    stages: Sequence[str] = ("fte",),
+    relinearize_every: int = 1,
+    device=None,
+) -> List[Dict]:
+    """``sweep`` for any skeleton pickle (the src/build.py model family)
+    on ``device`` (CUDA unless given), in float32: 'fte' through
+    ``solve_batch_generic`` writes ``<run>/fte/traj_results.pickle`` in
+    build.py's result schema (src/build.py:344-378) with the solver
+    status; 'ekf' through ``solve_batch_ekf_generic`` writes
+    ``<run>/ekf/ekf.pickle``."""
+    from ..models.skeleton import build_skeleton_model
+
+    device = resolve_device(device)
+    model = build_skeleton_model(data_io.load_skeleton(skeleton_fpath))
+    run_dirs = discover_runs(root_dir)
+    print(f"Found {len(run_dirs)} runs under {root_dir}")
+    runs = [load_run(d, end_frame=(max_frames or -1), markers=model.markers) for d in run_dirs]
+
+    all_results = []
+    for fps, group in _group_by_fps(runs).items():
+        # one EKF solve per group, shared by the ekf output and the FTE's
+        # warm start
+        warm = resolve_warm_start(warm_start)
+        ekf_results = None
+        if "ekf" in stages or (warm and "fte" in stages):
+            print(f"generic EKF: {len(group)} runs @ {fps} fps as one batch")
+            ekf_results = solve_batch_ekf_generic(model, group, dlc_thresh, device=device,
+                                                  init_marker=init_marker)
+            if save and "ekf" in stages:
+                _save_ekf_results(ekf_results, dlc_thresh)
+            if "fte" not in stages:
+                all_results.extend(ekf_results)
+        if "fte" not in stages:
+            continue
+        print(f"generic FTE: {len(group)} runs @ {fps} fps as one batch"
+              + (" (EKF warm start)" if warm else ""))
+        results = solve_batch_generic(
+            model, group, dlc_thresh, num_iters=num_iters, device=device,
+            warm_start=False,
+            X0_override=(ekf_warm_starts(ekf_results) if warm else None),
+            plain_iters=(4 if warm else None),
+            rescue=rescue, uncertainty=uncertainty,
+            init_marker=init_marker, relinearize_every=relinearize_every,
+        )
+        all_results.extend(results)
+        if save:
+            for res in results:
+                data_io.save_pickle(
+                    os.path.join(res["data_dir"], "fte", "traj_results.pickle"),
+                    dict(
+                        positions=res["positions"], x=res["x"], dx=res["dx"], ddx=res["ddx"],
+                        markers=res["markers"], start_frame=res["start_frame"],
+                        scene_fpath=res["scene_fpath"],
+                        cost=res["cost"], cost0=res["cost0"],
+                        converged=res["converged"], grad_norm=res["grad_norm"],
+                        **_uncertainty_extras(res, uncertainty),
+                    ),
+                )
+    return all_results

@@ -6,6 +6,8 @@ synthetic checkerboard views for calibration, by the rules of the
 JAX package's calibration tests (tests/test_calib.py,
 tests/test_pinhole_calib.py), and rendered calibration frames with a
 PNG writer, to drive calibration from images."""
+import json
+import os
 import struct
 import zlib
 
@@ -15,6 +17,7 @@ import torch
 from ..models import cheetah
 from ..ops import camera as cam_ops
 from ..ops.rotations import rodrigues
+from ..pipeline import data as data_io
 from ..pipeline.data import create_board_object_pts
 
 
@@ -99,6 +102,34 @@ def render_measurements(X25, cams, noise_px=1.0, outlier_frac=0.02, bad_lik_frac
         likelihood[ci, ni, li] = 0.1
         pixels[ci, ni, li] += rng.normal(scale=300.0, size=(n_bad, 2))
     return pixels, likelihood, pts3d
+
+
+def make_synthetic_run_dir(root_dir, n_cams: int = 4, N: int = 40, fps: float = 90.0,
+                           seed: int = 0, cam_res=(2704, 1520), noise_px: float = 1.0):
+    """Write a run directory in the reference's layout under ``root_dir``
+    (``2019_03_09/synthetic/run/dlc/cam{c}DLC.h5``, the scene
+    ``2019_03_09/synthetic/extrinsic_calib/{n}_cam_scene_sba.json`` and
+    the ``video_info.json`` sidecar), the files written by the port's own
+    writers. Returns (run_dir, cams, X_true, pts3d), the data equal to
+    the JAX package's ``make_synthetic_run_dir`` on the same arguments."""
+    run = os.path.join(root_dir, "2019_03_09", "synthetic", "run")
+    dlc = os.path.join(run, "dlc")
+    os.makedirs(dlc, exist_ok=True)
+    cams = ring_cameras(n_cams=n_cams, res=cam_res)
+    k, d, r, t, res = cams
+    X_true = cheetah_gallop(N=N, fps=fps)
+    pixels, likelihood, pts3d = render_measurements(
+        X_true, cams, noise_px=noise_px, outlier_frac=0.01, bad_lik_frac=0.02, seed=seed,
+    )
+    for c in range(n_cams):
+        data_io.save_dlc_points_h5(os.path.join(dlc, f"cam{c + 1}DLC.h5"), pixels[c],
+                                   likelihood[c], cheetah.get_markers())
+    scene_dir = os.path.join(os.path.dirname(run), "extrinsic_calib")
+    data_io.save_scene(os.path.join(scene_dir, f"{n_cams}_cam_scene_sba.json"),
+                       k, d.reshape(-1, 4, 1), r, t, res)
+    with open(os.path.join(run, "video_info.json"), "w") as f:
+        json.dump({"resolution": list(res), "fps": fps, "tot_frames": N}, f)
+    return run, cams, X_true, pts3d
 
 
 # ---- checkerboard views for calibration ----

@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Phases, one line each with its seconds:
-  1. device  - the card's name and power limit (nvidia-smi);
+  1. device  - the card's name and power limit (nvidia-smi), read again
+               at the end, before the results;
   2. build   - nvcc builds the banded-Cholesky kernel, its phase-clocked
                variant and the probe kernels from the checkout, all at
                once, with each kernel's registers and spills;
@@ -79,21 +80,31 @@ Phases, one line each with its seconds:
                native engine against it, fx and fy, the chain's poses, the
                board SBA's RMS and undistort_image_fisheye against its
                CPU run; s a frame a stage and s a stage;
- 13. uncertainty - the main path's solve with compute_cov=True (the
+ 13. files   - the file-level pipeline, the user's path: a run directory
+               at full width (make_synthetic_run_dir: 6 cameras x 200
+               frames x 20 markers, 2704 x 1520, its DLC .h5 files written
+               by utils.hdf5 and read back bit for bit), `cli all` (tri,
+               sba, ekf, fte; each held to tests/test_pipeline_e2e.py's
+               bounds, tri to the CPU port, fte's six reprojected .h5
+               files to its positions projected), `cli eval` against the
+               truth's projections, `cli view`, and `cli sweep --stages
+               fte,ekf` over 8 such runs in two fps groups; s a stage,
+               .h5 MB/s and the runs converged before the rescue;
+ 14. uncertainty - the main path's solve with compute_cov=True (the
                Laplace posterior), timed in turns with the plain solve,
                its error bars checked for symmetry, calibration against
                the ground truth and against a float64 solve on the card,
                and its float32 ridge diagnostics checked per run;
- 14. solvers - the main path's input through 'chol', 'grouped', 'cr',
+ 15. solvers - the main path's input through 'chol', 'grouped', 'cr',
                'cg' and 'pcg' with relinearize_every=3, timed once each;
- 15. sweep uncertainty - the sweep's 128 runs once with
+ 16. sweep uncertainty - the sweep's 128 runs once with
                uncertainty=True, beside the plain solve's time;
- 16. profile - measurement only: the main path's time with 'pallas',
+ 17. profile - measurement only: the main path's time with 'pallas',
                'pcg' and 'chol_unrolled' (the solvers phase times the
                others) and a torch.profiler breakdown of one solve.
 
 The phases run in the sweep's own stage order: the EKF stage (8) before
-the FTE stage with uncertainty (13-15). ekf_after_posterior, which the
+the FTE stage with uncertainty (14-16). ekf_after_posterior, which the
 script does not run, times the EKF stage after the posterior in one
 process.
 
@@ -2741,6 +2752,268 @@ def phase_images(device):
         raise AssertionError("images: " + "; ".join(failed))
 
 
+#: the files phase: one full-width run (the reference's GoPro rig size),
+#: then a dataset root of FILES_SWEEP_RUNS such runs in two fps groups
+FILES_CAMS = 6
+FILES_N = 200
+FILES_RES = (2704, 1520)
+FILES_FPS = (90.0, 120.0)
+FILES_SWEEP_RUNS = 8
+#: tests/test_pipeline_e2e.py's bounds: tri and sba median marker error,
+#: the EKF's mean from frame 20 on, the FTE's mean; eval's RMSE and PCK
+FILES_TRI_MEDIAN_M = 0.05
+FILES_SBA_MEDIAN_M = 0.05
+FILES_EKF_MEAN_M = 0.12
+FILES_EKF_SKIP = 20
+FILES_FTE_MEAN_M = 0.05
+FILES_EVAL_RMSE_PX = 5.0
+FILES_EVAL_PCK = 0.95
+#: tri on the card against the CPU port (float64, the same DLT)
+FILES_TRI_CPU_M = 1e-9
+#: the sweep runs (their index) whose batched EKF loses the track in the
+#: JAX package's own float32 stage too: the inherited cold-init fault
+#: (ROADMAP Queue 3). Their EKF error is a reading, not gated; their FTE
+#: is. tests/test_torch_files_inherited.py holds this to the JAX package.
+FILES_EKF_JAX_LOST = (0,)
+
+
+class _StageClock(io.TextIOBase):
+    """Collects what the CLI prints and the time of each stage header it
+    prints (``========== TRI ==========``)."""
+
+    def __init__(self):
+        self.marks, self.parts, self.end = [], [], None
+
+    def write(self, s):
+        m = re.match(r"========== (\w+) ==========", s)
+        if m:
+            self.marks.append((m.group(1).lower(), time.perf_counter()))
+        self.parts.append(s)
+        return len(s)
+
+    def seconds(self):
+        ends = [t for _n, t in self.marks[1:]] + [self.end]
+        return {n: e - t for (n, t), e in zip(self.marks, ends)}
+
+    @property
+    def text(self):
+        return "".join(self.parts)
+
+
+def _cli(argv):
+    """cli.main(argv) with its output collected: (clock, seconds)."""
+    from acinoset_tpu_torch import cli
+
+    clock = _StageClock()
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(clock):
+        rc = cli.main(argv)
+    clock.end = time.perf_counter()
+    if rc != 0:
+        raise AssertionError(f"cli {argv[0]} returned {rc}")
+    return clock, clock.end - t1
+
+
+def _printed_metrics(text):
+    import ast
+
+    rows = {}
+    for line in text.splitlines():
+        cam, sep, rest = line.partition(" ")
+        if sep and rest.startswith("{"):
+            rows[cam] = ast.literal_eval(rest)
+    return rows
+
+
+def _files_errors(run, truth):
+    """Each stage's marker errors (m) against the truth, from its pickle."""
+    from acinoset_tpu_torch.pipeline import data as data_io
+
+    out = {}
+    for stage in ("tri", "sba", "ekf", "fte"):
+        payload = data_io.load_pickle(os.path.join(run, stage, f"{stage}.pickle"))
+        out[stage] = (np.linalg.norm(payload["positions"] - truth, axis=-1), payload)
+    return out
+
+
+def _files_gates(label, errs, failed):
+    """tests/test_pipeline_e2e.py's bounds on one run's stages; returns
+    the readings as text."""
+    tri = float(np.nanmedian(errs["tri"][0]))
+    sba = float(np.nanmedian(errs["sba"][0]))
+    ekf = float(np.nanmean(errs["ekf"][0][FILES_EKF_SKIP:]))
+    fte = float(np.nanmean(errs["fte"][0]))
+    conv = bool(errs["fte"][1]["converged"])
+    for name, val, bound in (("tri median", tri, FILES_TRI_MEDIAN_M),
+                             ("sba median", sba, FILES_SBA_MEDIAN_M),
+                             ("ekf mean", ekf, FILES_EKF_MEAN_M),
+                             ("fte mean", fte, FILES_FTE_MEAN_M)):
+        if not val < bound:
+            failed.append(f"{label}: {name} marker error {val} m (bound {bound})")
+    if not conv:
+        failed.append(f"{label}: fte not converged")
+    return (f"tri median {tri:.5f} m, sba median {sba:.5f} m, ekf mean {ekf:.5f} m, "
+            f"fte mean {fte:.5f} m converged {conv}")
+
+
+def files_sweep_run(root, i):
+    """Run i of the files phase's dataset root: the full-width run with
+    seed i + 1 at FILES_FPS[i % 2]. Returns make_synthetic_run_dir's
+    (run_dir, cams, X_true, pts3d)."""
+    from acinoset_tpu_torch.utils import synthetic as syn
+
+    return syn.make_synthetic_run_dir(os.path.join(root, f"r{i}"), n_cams=FILES_CAMS, N=FILES_N,
+                                      fps=FILES_FPS[i % 2], cam_res=FILES_RES, seed=i + 1)
+
+
+def phase_files(device):
+    """The file-level pipeline on the card, the user's path: a run
+    directory at full width (make_synthetic_run_dir: 6 cameras, N=200,
+    2704 x 1520, the 20 cheetah markers, its DLC .h5 files written by
+    utils.hdf5), each .h5 read back bit for bit; ``cli all`` (the dlc
+    stage's skip, then tri, sba, ekf, fte in float64) with each stage
+    held to tests/test_pipeline_e2e.py's bounds, tri against the CPU port
+    and fte's six reprojected .h5 files against the projection of its
+    positions; ``cli eval`` against ground-truth label files (the
+    noiseless projections of the truth, as tests/test_pipeline_e2e.py
+    evaluates); ``cli sweep --stages fte,ekf`` on a root of
+    FILES_SWEEP_RUNS such runs in two fps groups (float32), every run's
+    pickles present and held to the same bounds (the EKF of the runs in
+    FILES_EKF_JAX_LOST, which the JAX package's float32 stage loses too,
+    a reading); ``cli view``. Readings
+    not gated: s a stage, the .h5 read and write MB/s, the runs converged
+    before the rescue, and eval against the run's own DLC files (which
+    hold the synthetic outliers). No hand kernel lies on this path (the
+    FTE stage runs 'pcg'); the banded kernel's launch count over the
+    phase is printed."""
+    import tempfile
+
+    from acinoset_tpu_torch.eval import metrics
+    from acinoset_tpu_torch.kernels.banded_cuda import banded_solve
+    from acinoset_tpu_torch.models import cheetah
+    from acinoset_tpu_torch.pipeline import data as data_io
+    from acinoset_tpu_torch.pipeline import tri as tri_mod
+    from acinoset_tpu_torch.utils import synthetic as syn
+
+    t0 = time.perf_counter()
+    failed = []
+    banded_solve.launches = 0
+    markers = cheetah.get_markers()
+    with tempfile.TemporaryDirectory() as root:
+        run, cams, X_true, truth = syn.make_synthetic_run_dir(
+            os.path.join(root, "one"), n_cams=FILES_CAMS, N=FILES_N, fps=FILES_FPS[0],
+            cam_res=FILES_RES)
+        px, lik, _ = syn.render_measurements(X_true, cams, noise_px=1.0, outlier_frac=0.01,
+                                             bad_lik_frac=0.02, seed=0)
+        fpaths = [os.path.join(run, "dlc", f"cam{c + 1}DLC.h5") for c in range(FILES_CAMS)]
+        t1 = time.perf_counter()
+        reads = [data_io._read_dlc_h5(f) for f in fpaths]
+        s_read = time.perf_counter() - t1
+        exact = all(np.array_equal(fr, np.arange(FILES_N)) and bp == markers
+                    and np.array_equal(v[..., :2], px[c]) and np.array_equal(v[..., 2], lik[c])
+                    for c, (fr, bp, v) in enumerate(reads))
+        if not exact:
+            failed.append("a DLC .h5 file does not read back bit for bit")
+        t1 = time.perf_counter()
+        for c in range(FILES_CAMS):
+            data_io.save_dlc_points_h5(os.path.join(root, "rewrite", f"cam{c + 1}.h5"), px[c],
+                                       lik[c], markers)
+        s_write = time.perf_counter() - t1
+        mb = sum(os.path.getsize(f) for f in fpaths) / 1e6
+        _phase("files", t0, f"run of {FILES_CAMS} cameras x {FILES_N} frames x 20 markers "
+               f"({FILES_RES[0]} x {FILES_RES[1]}): {FILES_CAMS} .h5 files, {mb:.3f} MB, read "
+               f"back bit for bit {exact}; .h5 read {mb / s_read:.2f} MB/s, write "
+               f"{mb / s_write:.2f} MB/s (host)")
+
+        clock, s_all = _cli(["all", "--data_dir", run, "--device", device.type])
+        secs = clock.seconds()
+        errs = _files_errors(run, truth)
+        text = _files_gates("all", errs, failed)
+        tri_cpu = tri_mod.tri(run, 1, -1, 0.8, save=False, device="cpu")["positions"]
+        tri_card = errs["tri"][1]["positions"]
+        same_nan = bool(np.array_equal(np.isnan(tri_cpu), np.isnan(tri_card)))
+        d_tri = float(np.nanmax(np.abs(tri_cpu - tri_card))) if same_nan else np.inf
+        if not d_tri <= FILES_TRI_CPU_M:
+            failed.append(f"tri on the card off the CPU port by {d_tri} m")
+        k, d, r, t, *_ = data_io.find_scene_file(run, verbose=False)
+        fte_pos = errs["fte"][1]["positions"]
+        reproj_ok = True
+        for c in range(FILES_CAMS):
+            fr, _bp, v = data_io._read_dlc_h5(
+                os.path.join(run, "fte", f"cheetah_reprojected_cam{c + 1}.h5"))
+            want = metrics.reproject_positions(fte_pos, k[c], d[c], r[c], t[c], device=device)
+            reproj_ok &= bool(np.array_equal(fr, np.arange(FILES_N))
+                              and np.array_equal(v[..., :2], want)
+                              and np.array_equal(v[..., 2], np.isfinite(want[..., 0]) * 1.0))
+        if not reproj_ok:
+            failed.append("fte's reprojected .h5 files differ from its positions projected")
+        _phase("files", t0, f"cli all: {s_all:.3f} s (" + ", ".join(
+            f"{n} {v:.3f}" for n, v in secs.items()) + f" s); {text}; tri against the CPU port "
+            f"{d_tri:.3e} m (bound {FILES_TRI_CPU_M}); fte's {FILES_CAMS} reprojections equal "
+            f"its positions projected {reproj_ok}")
+
+        gt_dir = os.path.join(root, "gt")
+        gt = []
+        for c in range(FILES_CAMS):
+            p = metrics.reproject_positions(truth, k[c], d[c], r[c], t[c], device=device)
+            gt.append(os.path.join(gt_dir, f"cam{c + 1}.h5"))
+            data_io.save_dlc_points_h5(gt[-1], p, np.ones(p.shape[:2]), markers)
+        cams_arg = [str(c) for c in range(FILES_CAMS)]
+        result = os.path.join(run, "fte", "fte.pickle")
+        clock, s_eval = _cli(["eval", "--result", result, "--gt_h5", *gt, "--cams", *cams_arg,
+                              "--device", device.type])
+        ev = _printed_metrics(clock.text)["overall"]
+        if not (ev["rmse_px"] < FILES_EVAL_RMSE_PX and ev["pck"] > FILES_EVAL_PCK):
+            failed.append(f"eval against the truth: rmse {ev['rmse_px']} px, pck {ev['pck']}")
+        own = _printed_metrics(_cli(["eval", "--result", result, "--gt_h5", *fpaths, "--cams",
+                                     *cams_arg, "--device", device.type])[0].text)["overall"]
+        clock, s_view = _cli(["view", "--result", result, "--device", device.type])
+        html = os.path.join(run, "fte", "fte.html")
+        m = re.search(r"const DATA = (.*);\n", open(html).read())
+        view_ok = bool(m) and len(json.loads(m.group(1))["positions"]) == FILES_N
+        if not view_ok:
+            failed.append(f"cli view's page does not hold the {FILES_N} frames")
+        _phase("files", t0, f"cli eval against the truth's projections, cameras 0-5: "
+               f"{s_eval:.3f} s, rmse {ev['rmse_px']:.4f} px (bound {FILES_EVAL_RMSE_PX}), pck "
+               f"{ev['pck']:.4f} (bound {FILES_EVAL_PCK}); against the run's own DLC files "
+               f"(outliers in): rmse {own['rmse_px']:.4f} px, pck {own['pck']:.4f}; cli view "
+               f"{s_view:.3f} s, {os.path.getsize(html) / 1e6:.3f} MB")
+
+        sweep_root = os.path.join(root, "dataset")
+        truths = [files_sweep_run(sweep_root, i)[::3] for i in range(FILES_SWEEP_RUNS)]
+        clock, s_sweep = _cli(["sweep", "--root_dir", sweep_root, "--stages", "fte,ekf",
+                               "--device", device.type])
+        first = [int(m.group(1)) for m in re.finditer(
+            r"rescue: (\d+) unconverged runs re-solved at 60 iterations", clock.text)]
+        lines = []
+        for i, (r_i, tr) in enumerate(truths):
+            errs = {}
+            for stage in ("fte", "ekf"):
+                fp = os.path.join(r_i, stage, f"{stage}.pickle")
+                if not os.path.exists(fp):
+                    failed.append(f"sweep wrote no {fp}")
+                    continue
+                payload = data_io.load_pickle(fp)
+                errs[stage] = np.linalg.norm(payload["positions"] - tr, axis=-1)
+                if stage == "fte" and not payload["converged"]:
+                    failed.append(f"sweep: {r_i} not converged")
+            if len(errs) < 2:
+                continue
+            fte = float(np.nanmean(errs["fte"]))
+            ekf = float(np.nanmean(errs["ekf"][FILES_EKF_SKIP:]))
+            lost = i in FILES_EKF_JAX_LOST
+            lines.append(f"{fte:.5f}/{ekf:.5f}" + (" (EKF lost in JAX too)" if lost else ""))
+            if not (fte < FILES_FTE_MEAN_M and (lost or ekf < FILES_EKF_MEAN_M)):
+                failed.append(f"sweep: {r_i} fte mean {fte} m, ekf mean {ekf} m")
+        _phase("files", t0, f"cli sweep --stages fte,ekf, {FILES_SWEEP_RUNS} runs in "
+               f"{len(FILES_FPS)} fps groups (f32): {s_sweep:.3f} s; converged before the "
+               f"rescue {FILES_SWEEP_RUNS - sum(first)}/{FILES_SWEEP_RUNS}; fte/ekf mean marker "
+               f"error a run (m): {', '.join(lines)}; banded kernel launches in the phase "
+               f"{banded_solve.launches} (the path runs none)")
+    if failed:
+        raise AssertionError("files: " + "; ".join(failed))
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device is available")
@@ -2762,10 +3035,12 @@ def main():
     phase_sba(device)
     phase_calib(device)
     phase_images(device)
+    phase_files(device)
     phase_uncertainty(device)
     phase_solvers(device)
     phase_sweep_uncertainty(device, sweep)
     phase_profile(device)
+    phase_device()  # again: the card and its power limit beside the results
     print(f"[total] {time.perf_counter() - t_all:.2f} s", flush=True)
     print(json.dumps({"kernels": [rec] + probe_recs}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,260 @@
+"""The port's command line (acinoset_tpu_torch.cli) against the JAX
+package's (acinoset_tpu.cli) on the same run directory, with
+``--device cpu``, in float64.
+
+``all`` runs in both and its pickles are held at the stages' own
+tolerances (tests/test_torch_pipeline_files.py). The single-stage
+subcommands, ``sweep`` and ``build`` hand their stage the JAX CLI's
+arguments (stage functions recorded in both packages, not solved), and
+each single stage writes what ``all`` wrote. ``view`` and ``eval`` run in
+both. The refusals: ``eval --hist`` (no matplotlib), the ``dlc`` stage
+where videos exist, and every subcommand without a CUDA device unless
+given ``--device cpu``.
+"""
+import ast
+import os
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+import file_pipeline_cases as cases
+from acinoset_tpu import cli as jcli
+from acinoset_tpu.pipeline import data as jdata
+from acinoset_tpu.pipeline import ekf as jekf
+from acinoset_tpu.pipeline import fte as jfte
+from acinoset_tpu.pipeline import generic as jgen
+from acinoset_tpu.pipeline import sba as jsba
+from acinoset_tpu.pipeline import sweep as jsweep
+from acinoset_tpu.pipeline import tri as jtri
+from acinoset_tpu_torch import cli as tcli
+from acinoset_tpu_torch.pipeline import ekf as tekf
+from acinoset_tpu_torch.pipeline import fte as tfte
+from acinoset_tpu_torch.pipeline import generic as tgen
+from acinoset_tpu_torch.pipeline import sba as tsba
+from acinoset_tpu_torch.pipeline import sweep as tsweep
+from acinoset_tpu_torch.pipeline import tri as ttri
+
+torch.set_num_threads(2)
+N = 40
+STAGES = ("tri", "sba", "ekf", "fte")
+STAGE_FNS = {"tri": (jtri, ttri), "sba": (jsba, tsba), "ekf": (jekf, tekf), "fte": (jfte, tfte)}
+#: tests/test_torch_sweep.py's bound on the final 'pcg' cost of a run
+#: that is rounding-chaotic in both packages
+PCG_COST_RTOL = 5e-3
+
+
+def _load(run, stage):
+    return jdata.load_pickle(os.path.join(run, stage, f"{stage}.pickle"))
+
+
+@pytest.fixture(scope="module")
+def ran_all(tmp_path_factory):
+    """``all`` in both CLIs, each on its own copy of one run."""
+    base = tmp_path_factory.mktemp("cli")
+    src, pts = cases.make_run(base / "src", "port", N=N)
+    runs = {}
+    for name in ("jax", "port"):
+        runs[name] = str(shutil.copytree(src, base / name / "run"))
+        shutil.copytree(os.path.join(src, "..", "extrinsic_calib"),
+                        base / name / "extrinsic_calib")
+    assert jcli.main(["all", "--data_dir", runs["jax"], "--dlc_thresh", "0.5"]) == 0
+    assert tcli.main(["all", "--data_dir", runs["port"], "--dlc_thresh", "0.5",
+                      "--device", "cpu"]) == 0
+    return runs, pts
+
+
+def test_all_matches_jax_cli(ran_all, capsys):
+    runs, pts = ran_all
+    got = {s: _load(runs["port"], s) for s in STAGES}
+    want = {s: _load(runs["jax"], s) for s in STAGES}
+    for s in STAGES:
+        cases.assert_no_torch(got[s])
+        cases.assert_same_layout(got[s], want[s])
+    np.testing.assert_allclose(got["tri"]["positions"], want["tri"]["positions"], atol=1e-9)
+    np.testing.assert_allclose(got["sba"]["positions"], want["sba"]["positions"],
+                               atol=chip_smoke.LM_STATE_ATOL)
+    for key, w in want["ekf"].items():
+        if isinstance(w, np.ndarray) and w.dtype.kind == "f":
+            np.testing.assert_allclose(got["ekf"][key], w, rtol=1e-8,
+                                       atol=1e-8 * np.abs(w).max(), err_msg=key)
+    np.testing.assert_allclose(got["fte"]["cost0"], want["fte"]["cost0"], rtol=1e-12)
+    np.testing.assert_allclose(got["fte"]["cost"], want["fte"]["cost"], rtol=PCG_COST_RTOL)
+    assert got["fte"]["converged"] == want["fte"]["converged"]
+    for res in (got, want):
+        assert np.nanmedian(np.linalg.norm(res["tri"]["positions"] - pts, axis=-1)) < 0.05
+        assert np.nanmean(np.linalg.norm(res["fte"]["positions"] - pts, axis=-1)) < 0.05
+    # the plots: the JAX CLI drew them, the port names each it did not write
+    for rel in ("fte/fte.svg", "ekf/ekf.pdf", "reconstructions.png"):
+        assert os.path.exists(os.path.join(runs["jax"], rel))
+        assert not os.path.exists(os.path.join(runs["port"], rel))
+    assert sorted(os.listdir(os.path.join(runs["port"], "fte"))) == sorted(
+        ["fte.pickle"] + [f"cheetah_reprojected_cam{c + 1}.h5" for c in range(cases.N_CAMS)])
+
+
+def _recorders(monkeypatch, modules, name):
+    """Replace ``name`` in each package's module by a recorder; returns the
+    record {package: [(args, kwargs)]}, the port's device dropped."""
+    calls = {}
+    for package, module in zip(("jax", "port"), modules):
+        def record(*args, _package=package, **kw):
+            kw.pop("device", None)
+            calls.setdefault(_package, []).append((args, kw))
+            return {}
+        monkeypatch.setattr(module, name, record)
+    return calls
+
+
+@pytest.mark.parametrize("stage", STAGES)
+def test_single_stage_forwards_like_jax_and_writes_what_all_wrote(tmp_path, ran_all, stage,
+                                                                  monkeypatch):
+    runs, _pts = ran_all
+    flags = ["--data_dir", runs["port"], "--start_frame", "3", "--end_frame", "30",
+             "--dlc_thresh", "0.6", "--uncertainty"]
+    with monkeypatch.context() as mp:
+        calls = _recorders(mp, STAGE_FNS[stage], stage)
+        jcli.main([stage] + flags)
+        tcli.main([stage] + flags + ["--device", "cpu"])
+    assert calls["port"] == calls["jax"] and len(calls["jax"]) == 1
+    # the stage alone writes what `all` wrote, on a copy of the run
+    run = str(shutil.copytree(runs["port"], tmp_path / "run"))
+    shutil.copytree(os.path.join(runs["port"], "..", "extrinsic_calib"),
+                    tmp_path / "extrinsic_calib")
+    shutil.rmtree(os.path.join(run, stage))
+    assert tcli.main([stage, "--data_dir", run, "--dlc_thresh", "0.5", "--device", "cpu"]) == 0
+    got, want = _load(run, stage), _load(runs["port"], stage)
+    assert set(got) == set(want)
+    for key, w in want.items():
+        if isinstance(w, np.ndarray):
+            cases.assert_equal_arrays(got[key], w, key)
+        elif key == "scene_fpath":  # the same scene, found from the copy
+            assert os.path.relpath(got[key], run) == os.path.relpath(w, runs["port"])
+        else:
+            assert got[key] == w, key
+
+
+def test_dlc_stage_without_videos_prints_the_jax_skip_line(ran_all, capsys):
+    runs, _pts = ran_all
+    for cli in (jcli, tcli):
+        argv = ["dlc", "--data_dir", runs["port"]] + (["--device", "cpu"] if cli is tcli else [])
+        assert cli.main(argv) == 0
+        assert "No videos found; skipping dlc video labeling" in capsys.readouterr().out
+
+
+def test_dlc_stage_with_videos_raises_before_any_work(tmp_path):
+    run, _pts = cases.make_run(tmp_path, "port", N=12)
+    open(os.path.join(run, "cam1.mp4"), "wb").close()
+    for cmd in ("dlc", "all"):
+        with pytest.raises(NotImplementedError, match="pipeline.video"):
+            tcli.main([cmd, "--data_dir", run, "--device", "cpu"])
+    assert not any(os.path.exists(os.path.join(run, s)) for s in STAGES)
+
+
+SWEEP_FLAGS = [
+    ["--num_iters", "9", "--max_frames", "20", "--dlc_thresh", "0.6", "--stages", "fte,ekf",
+     "--warm_start", "on", "--relinearize_every", "2", "--uncertainty", "--no_rescue"],
+    ["--skeleton", "sk.pickle", "--init_marker", "nose", "--warm_start", "off"],
+    [],
+]
+
+
+@pytest.mark.parametrize("flags", SWEEP_FLAGS, ids=["cheetah", "skeleton", "defaults"])
+def test_sweep_forwards_like_jax(monkeypatch, flags):
+    name = "sweep_generic" if "--skeleton" in flags else "sweep"
+    calls = _recorders(monkeypatch, (jsweep, tsweep), name)
+    jcli.main(["sweep", "--root_dir", "root"] + flags)
+    tcli.main(["sweep", "--root_dir", "root"] + flags + ["--device", "cpu"])
+    assert calls["port"] == calls["jax"] and len(calls["jax"]) == 1
+
+
+def test_sweep_cli_writes_every_runs_pickles(tmp_path, capsys):
+    root = tmp_path / "root"
+    runs = cases.make_dataset(root, "port", runs=(("a", 16, 90.0, 1), ("b", 14, 120.0, 2)))
+    assert tcli.main(["sweep", "--root_dir", str(root), "--stages", "fte,ekf", "--num_iters",
+                      "4", "--dlc_thresh", "0.5", "--device", "cpu"]) == 0
+    for run in runs:
+        for stage in ("fte", "ekf"):
+            payload = _load(run, stage)
+            cases.assert_no_torch(payload)
+            assert payload["positions"].dtype == np.float64
+    assert "Found 2 runs under" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("flags", [[], ["--skeleton", "s.pickle", "--start_frame", "5",
+                                        "--n_frames", "50", "--dlc_thresh", "0.3"]])
+def test_build_forwards_like_jax(monkeypatch, flags):
+    calls = _recorders(monkeypatch, (jgen, tgen), "build_and_solve")
+    jcli.main(["build", "--top_dir", "proj"] + flags)
+    tcli.main(["build", "--top_dir", "proj"] + flags + ["--device", "cpu"])
+    assert calls["port"] == calls["jax"] and len(calls["jax"]) == 1
+
+
+@pytest.mark.parametrize("scene", [False, True])
+def test_view_matches_jax_cli(tmp_path, ran_all, scene):
+    runs, _pts = ran_all
+    result = os.path.join(runs["port"], "fte", "fte.pickle")
+    extra = ["--fps", "45"]
+    if scene:
+        extra += ["--scene", jdata.find_scene_file(runs["port"], verbose=False)[-1]]
+    out = {}
+    for name, cli in (("jax", jcli), ("port", tcli)):
+        out[name] = str(tmp_path / f"{name}.html")
+        argv = ["view", "--result", result, "--out", out[name]] + extra
+        assert cli.main(argv + (["--device", "cpu"] if cli is tcli else [])) == 0
+    assert open(out["port"]).read() == open(out["jax"]).read()
+
+
+def _printed_metrics(text):
+    rows = {}
+    for line in text.splitlines():
+        cam, sep, rest = line.partition(" ")
+        if sep and rest.startswith("{"):
+            rows[cam] = ast.literal_eval(rest)
+    return rows
+
+
+@pytest.mark.parametrize("options", [False, True])
+def test_eval_matches_jax_cli(ran_all, capsys, options):
+    """The printed metrics (rounded to 4 places by both) agree within the
+    rounding step; by default and with --start_frame and --scene given."""
+    runs, _pts = ran_all
+    extra = (["--start_frame", "0", "--scene",
+              jdata.find_scene_file(runs["port"], verbose=False)[-1]] if options else [])
+    h5s = sorted(os.path.join(runs["port"], "dlc", f) for f in os.listdir(
+        os.path.join(runs["port"], "dlc")))
+    argv = ["eval", "--result", os.path.join(runs["port"], "fte", "fte.pickle"), "--gt_h5",
+            *h5s[:3], "--cams", "0", "1", "2"] + extra
+    capsys.readouterr()
+    assert jcli.main(argv) == 0
+    want = _printed_metrics(capsys.readouterr().out)
+    assert tcli.main(argv + ["--device", "cpu"]) == 0
+    got = _printed_metrics(capsys.readouterr().out)
+    assert set(got) == set(want) == {"cam1", "cam2", "cam3", "overall"}
+    for cam in want:
+        assert set(got[cam]) == set(want[cam])
+        for key, w in want[cam].items():
+            assert abs(got[cam][key] - w) <= 1e-4, (cam, key, got[cam][key], w)
+
+
+def test_eval_hist_raises(ran_all, tmp_path):
+    runs, _pts = ran_all
+    h5 = os.path.join(runs["port"], "dlc", "cam1DLC.h5")
+    with pytest.raises(NotImplementedError, match="matplotlib"):
+        tcli.main(["eval", "--result", os.path.join(runs["port"], "fte", "fte.pickle"),
+                   "--gt_h5", h5, "--cams", "0", "--hist", str(tmp_path / "h.png"),
+                   "--device", "cpu"])
+    assert not os.path.exists(tmp_path / "h.png")
+
+
+@pytest.mark.parametrize("argv", [
+    [cmd, "--data_dir", "run"] for cmd in STAGES + ("dlc", "all")] + [
+    ["sweep", "--root_dir", "root"], ["build", "--top_dir", "proj"],
+    ["view", "--result", "r.pickle"], ["eval", "--result", "r.pickle", "--gt_h5", "a.h5",
+                                       "--cams", "0"]],
+    ids=lambda argv: argv[0])
+def test_every_subcommand_refuses_without_cuda(monkeypatch, argv):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tcli.main(argv)

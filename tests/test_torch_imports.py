@@ -14,10 +14,16 @@ import acinoset_tpu_torch
 from acinoset_tpu_torch import cli as tcli
 from acinoset_tpu_torch.calib import app as tapp
 from acinoset_tpu_torch.calib import corners as tcorners
+from acinoset_tpu_torch.eval import metrics as tmetrics
 from acinoset_tpu_torch.ops import camera as tcam
 from acinoset_tpu_torch.pipeline import ekf as tekf
+from acinoset_tpu_torch.pipeline import app as tpapp
 from acinoset_tpu_torch.pipeline import fte as tfte
+from acinoset_tpu_torch.pipeline import generic as tgen
+from acinoset_tpu_torch.pipeline import points2d as tp2d
+from acinoset_tpu_torch.pipeline import sba as tsba
 from acinoset_tpu_torch.pipeline import sweep as tsweep
+from acinoset_tpu_torch.pipeline import tri as ttri
 from acinoset_tpu_torch.probes import probe_mosaic as tpm
 from acinoset_tpu_torch.probes import probe_mosaic2 as tpm2
 from acinoset_tpu_torch.solvers import trajopt as ttraj
@@ -25,7 +31,7 @@ from acinoset_tpu_torch.utils import synthetic as tsyn
 
 torch.set_num_threads(2)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "acinoset_tpu", "h5py", "imageio", "pandas", "cv2")
+FORBIDDEN = ("jax", "jaxlib", "acinoset_tpu", "h5py", "imageio", "pandas", "cv2", "matplotlib")
 
 
 def test_port_and_chip_smoke_import_no_jax_nor_io_stack():
@@ -36,7 +42,9 @@ def test_port_and_chip_smoke_import_no_jax_nor_io_stack():
               "probes.probe_mosaic2", "pipeline.sweep", "solvers.ekf", "solvers.cyclic",
               "models.skeleton", "pipeline.generic", "solvers.lm", "pipeline.sba", "pipeline.data",
               "calib.pnp", "calib.intrinsics", "calib.extrinsics", "calib.corners", "calib.native",
-              "calib.app", "utils.png", "utils._gxx", "cli"):
+              "calib.app", "utils.png", "utils._gxx", "cli", "utils.hdf5", "utils.mp4",
+              "pipeline.app", "pipeline.tri", "pipeline.points2d", "pipeline.viewer",
+              "eval.metrics"):
         assert f"acinoset_tpu_torch.{m}" in modules
     code = (
         "import importlib, sys\n"
@@ -103,6 +111,29 @@ ENTRY_POINTS = {
     **{name: (lambda fn=getattr(tcam, name): fn(np.eye(3), np.zeros(4), np.eye(3), (6, 4)))
        for name in ("undistort_rectify_map_fisheye", "undistort_rectify_map_pinhole")},
     "cli calib": lambda: tcli.main(["calib", "--scene_dir", "extrinsic_calib"]),
+    **{f"{name} (file level)": (lambda fn=fn: fn("no_such_run", 1, -1, 0.5))
+       for name, fn in (("tri", ttri.tri), ("sba", tsba.sba), ("ekf", tekf.ekf),
+                        ("fte", tfte.fte))},
+    "triangulate_runs_batch": lambda: ttri.triangulate_runs_batch(
+        np.zeros((1, 2, 3, 20, 2)), np.ones((1, 2, 3, 20), bool),
+        [a[None] for a in _pixels()[0]]),
+    "sba_points_fisheye": lambda: tsba.sba_points_fisheye("no_scene.json", None),
+    "save_3d_cheetah_as_2d": lambda: tpapp.save_3d_cheetah_as_2d(
+        np.zeros((2, 20, 3)), "out", "no_scene.json", [], None, 0),
+    "estimate_part_path": lambda: tp2d.estimate_part_path("no_such_project", "nose"),
+    "sweep": lambda: tsweep.sweep("no_such_root"),
+    "sweep_generic": lambda: tsweep.sweep_generic("no_such_root", "no_skeleton.pickle"),
+    "build_and_solve": lambda: tgen.build_and_solve("no_skeleton.pickle", "no_such_project"),
+    "reproject_positions": lambda: tmetrics.reproject_positions(
+        np.zeros((2, 20, 3)), *[a[0] for a in _pixels()[0]]),
+    "evaluate_reconstruction": lambda: tmetrics.evaluate_reconstruction(
+        np.zeros((2, 20, 3)), [np.zeros((2, 20, 2))], *_pixels()[0]),
+    "reprojection_errors": lambda: tmetrics.reprojection_errors(
+        np.zeros((2, 20, 3)), [np.zeros((2, 20, 2))], *_pixels()[0]),
+    **{f"cli {cmd}": (lambda argv=argv: tcli.main(argv)) for cmd, argv in (
+        ("all", ["all", "--data_dir", "run"]), ("sweep", ["sweep", "--root_dir", "root"]),
+        ("build", ["build", "--top_dir", "proj"]), ("view", ["view", "--result", "r.pickle"]),
+        ("eval", ["eval", "--result", "r.pickle", "--gt_h5", "a.h5", "--cams", "0"]))},
     **{f"probe_mosaic.{name}": t for name, t in tpm.PROBES},
     **{f"probe_mosaic2.{name}": t for name, t in tpm2.PROBES},
 }

@@ -1,7 +1,8 @@
 """PyTorch/CUDA port of acinoset_tpu, beside the JAX package.
 
 The subpackages mirror ``acinoset_tpu`` (``ops models solvers kernels
-pipeline calib eval utils``) so each function has an obvious counterpart.
+pipeline calib eval utils parallel gui``) so each function has an
+obvious counterpart.
 The port imports torch, numpy and scipy only — never JAX, nor any module
 of the JAX package, nor the JAX package's I/O stack (h5py, imageio,
 pandas, cv2, matplotlib): it reads and writes DLC ``.h5`` files with its
@@ -23,10 +24,12 @@ the SBA reconstruction ``pipeline.sba.sba_run``, and camera calibration
 directories (``pipeline.tri.tri``, ``pipeline.sba.sba``,
 ``pipeline.ekf.ekf``, ``pipeline.fte.fte``, ``pipeline.sweep.sweep`` and
 ``sweep_generic``, ``pipeline.generic.build_and_solve``,
-``pipeline.points2d.estimate_part_path``, ``eval.metrics``) and the
-command line ``cli``) run on ``cuda`` unless
+``pipeline.points2d.estimate_part_path``, ``eval.metrics``), the
+command line ``cli`` and ``entry.entry``) run on ``cuda`` unless
 the caller passes ``device="cpu"``, and raise when no device is given
-and no CUDA device exists. The solvers of ``solvers.lm`` and the ops
+and no CUDA device exists. The sweep's batched stages and
+``parallel.mesh.sharded_fte_solver`` run over a device mesh, by default
+every visible CUDA device. The solvers of ``solvers.lm`` and the ops
 run where their tensors are. The banded-Cholesky kernel wrapper
 (``kernels.banded_cuda.banded_solve``) launches its CUDA kernel on CUDA
 tensors and runs its plain PyTorch version on CPU tensors.

@@ -17,8 +17,10 @@ Subcommands, with the JAX package's flags:
   view  — an interactive HTML viewer of a result pickle
   eval  — reprojection metrics of a result pickle against DLC labels
 
-``--device`` (default ``cuda``) is where the work runs; without a CUDA
-device every subcommand raises unless given ``--device cpu``.
+``--device`` (default ``cuda``) is where the work runs; ``sweep`` without
+it runs over every visible CUDA device (a data mesh, as the batched stages
+do by default). Without a CUDA device every subcommand raises unless given
+``--device cpu``.
 
 What the port does not do: the ``dlc`` stage (labelled videos,
 ``pipeline/video.py``, needs a video decoder) raises where cam[1-9].mp4
@@ -126,8 +128,9 @@ def _parser() -> ArgumentParser:
                     "scene_fpath, else walk up from the result)")
 
     for p in subs + [pc, pb, ps, pv, pe]:
-        p.add_argument("--device", type=str, default="cuda",
-                       help="torch device the work runs on (cuda or cpu)")
+        p.add_argument("--device", type=str, default=None,
+                       help="torch device the work runs on (cuda or cpu; default cuda, "
+                       "and for sweep every visible CUDA device)")
     return parser
 
 
@@ -253,7 +256,7 @@ def _eval(args, device):
 
 def main(argv=None):
     args = _parser().parse_args(argv)
-    device = torch.device(args.device)
+    device = torch.device(args.device or "cuda")
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass --device cpu to run on the CPU")
 
@@ -268,7 +271,7 @@ def main(argv=None):
         build_and_solve(skel, args.top_dir, start_frame=args.start_frame,
                         n_frames=args.n_frames, dlc_thresh=args.dlc_thresh, device=device)
     elif args.cmd == "sweep":
-        _sweep(args, device)
+        _sweep(args, device if args.device else None)
     elif args.cmd == "view":
         _view(args)
     else:

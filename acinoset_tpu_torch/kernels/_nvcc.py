@@ -7,11 +7,13 @@ from __future__ import annotations
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 TIMEOUT_S = 180
+_count_lock = threading.Lock()
 
 
 def log_path(library: Path) -> Path:
@@ -36,4 +38,11 @@ def build(source: Path, library: Path, extra_flags: tuple = ()) -> Path:
                            f"{proc.stdout}{proc.stderr}")
     log_path(library).write_text(proc.stdout + proc.stderr)
     os.replace(tmp, library)  # atomic: a concurrent loader sees the old or the new library
+    with _count_lock:
+        build.runs += 1
     return library
+
+
+#: builds this process has run (a library newer than its source is not
+#: rebuilt and not counted); read by utils.profiling.compile_count
+build.runs = 0

@@ -13,6 +13,7 @@ what ``FteConfig(linear_solver='pallas')`` selects.
 from __future__ import annotations
 
 import ctypes
+import threading
 from pathlib import Path
 from typing import Sequence
 
@@ -31,6 +32,9 @@ LIBRARY = Path(__file__).resolve().parents[1] / "_build" / "libbanded.so"
 CLOCKED_LIBRARY = LIBRARY.with_name("libbanded_chol_clocked.so")
 
 _lib = None
+#: guards the library's first load and the launch count: the shards of a
+#: device mesh (parallel.mesh) launch from threads of their own
+_lock = threading.Lock()
 
 
 def build(clocked: bool = False) -> Path:
@@ -43,13 +47,14 @@ def build(clocked: bool = False) -> Path:
 
 def _library():
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        lib.banded_chol_solve.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
-            ctypes.c_void_p
-        ]
-        lib.banded_chol_solve.restype = ctypes.c_int
-        _lib = lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            lib.banded_chol_solve.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
+                ctypes.c_void_p
+            ]
+            lib.banded_chol_solve.restype = ctypes.c_int
+            _lib = lib
     return _lib
 
 
@@ -104,7 +109,8 @@ def banded_solve(bands: Sequence[torch.Tensor], g: torch.Tensor) -> torch.Tensor
         )
     if err != 0:
         raise RuntimeError(f"banded_chol_solve failed to launch: CUDA error {err}")
-    banded_solve.launches += 1
+    with _lock:
+        banded_solve.launches += 1
     return x
 
 

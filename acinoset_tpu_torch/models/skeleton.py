@@ -29,7 +29,7 @@ would synchronise the stream.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -65,10 +65,20 @@ class SkeletonModel:
     #: ``fk_and_jac`` for a tree, ``fk_and_jac_dag`` when a part has two
     #: parents; None in compat="reference"
     fk_and_jac: Callable = None
+    #: the ``build_skeleton_model`` arguments the model was built from: a
+    #: pickled model is rebuilt from them (its functions are closures), so
+    #: it can go to a worker process (``parallel.mesh``)
+    source: Optional[tuple] = field(default=None, repr=False, compare=False)
 
     @property
     def n_markers(self) -> int:
         return len(self.markers)
+
+    def __reduce__(self):
+        if self.source is None:
+            raise TypeError("this SkeletonModel was not built by build_skeleton_model and "
+                            "cannot be pickled")
+        return build_skeleton_model, self.source
 
 
 def build_skeleton_model(
@@ -377,6 +387,7 @@ def build_skeleton_model(
             else fk_and_jac_dag if compat == "tpu"
             else None
         ),
+        source=(skel_dict, promote_markers_to_3dof, compat, allow_fk_mismatch),
     )
 
 

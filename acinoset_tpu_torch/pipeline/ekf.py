@@ -47,18 +47,70 @@ def nose_track_linreg(positions: np.ndarray, frames: np.ndarray, marker_idx: int
     return tuple(out)
 
 
+class RigFunction:
+    """A measurement function with its camera rig bound: calling it on
+    poses calls ``fn(pose, rig)``, ``rig = (K, D, R, T)`` with the
+    cameras on axis -3 of K and R and axis -2 of D and T.
+    ``on(device, cams)`` gives the same function over a copy of the rig
+    on ``device``, cut to the cameras ``cams`` (a slice or indices): how
+    ``parallel.mesh`` gives each shard its device and its own cameras."""
+
+    def __init__(self, fn, rig):
+        self.fn, self.rig = fn, tuple(rig)
+
+    def __call__(self, pose):
+        return self.fn(pose, self.rig)
+
+    @property
+    def n_cams(self) -> int:
+        return self.rig[0].shape[-3]
+
+    @property
+    def device(self) -> torch.device:
+        return self.rig[0].device
+
+    def on(self, device, cams=slice(None)):
+        K, D, R, T = (a.to(device) for a in self.rig)
+        return RigFunction(self.fn, (K[..., cams, :, :], D[..., cams, :], R[..., cams, :, :],
+                                     T[..., cams, :]))
+
+
 def make_h_fn(k_arr, d_arr, r_arr, t_arr, dtype=torch.float64, device=None):
     """pose25 (..., 25) -> predicted pixels (..., C, L, 2) through FK and
-    the fisheye projection, with the rig on ``device`` (CUDA unless given)."""
-    k, d, r, t = convert.rig_to_torch(k_arr, d_arr, r_arr, t_arr, resolve_device(device), dtype)
+    the fisheye projection, with the rig on ``device`` (CUDA unless
+    given), as a ``RigFunction``."""
+    aux = convert.rig_to_torch(k_arr, d_arr, r_arr, t_arr, resolve_device(device), dtype)
+    return RigFunction(h_aux, aux)
 
-    def h(pose25):
-        pts = cheetah.fk25(pose25)[..., None, :, :]  # (..., 1, L, 3)
+
+class _HAux:
+    """``h(pose, aux)`` of ``make_h_fn_aux_generic``; it pickles when its
+    FK does (a module's function, e.g. ``cheetah.fk25``)."""
+
+    def __init__(self, fk):
+        self.fk = fk
+
+    def __call__(self, pose, aux):
+        K, D, R, T = aux
+        D = D.reshape(*K.shape[:-2], -1)[..., :4]
+        pts = self.fk(pose)[..., None, :, :]  # (..., 1, L, 3)
         return cam_ops.project_points_fisheye(
-            pts, k[:, None], d[:, None], r[:, None], t[:, None]
-        )
+            pts, K[..., None, :, :], D[..., None, :], R[..., None, :, :], T[..., None, :])
 
-    return h
+
+class _HJPartsAux:
+    """``hj(pose, aux)`` of ``make_hj_parts_aux_generic``; it pickles when
+    its FK with Jacobian does."""
+
+    def __init__(self, fk_and_jac):
+        self.fk_and_jac = fk_and_jac
+
+    def __call__(self, pose, aux):
+        K, D, R, T = aux
+        D = D.reshape(*K.shape[:-2], -1)[..., :4]
+        pts, Jfk = self.fk_and_jac(pose)
+        h, Jp = cam_ops.project_rig_and_jac(pts, K, D, R, T)
+        return h.reshape(*h.shape[:-3], -1), Jp, Jfk
 
 
 def make_h_fn_aux_generic(fk):
@@ -66,35 +118,28 @@ def make_h_fn_aux_generic(fk):
     ``h(pose (..., P), aux) -> pixels (..., C, L, 2)``, ``aux = (K, D, R,
     T)`` with leading dimensions that broadcast against the poses' (for
     per-run rigs)."""
-
-    def h(pose, aux):
-        K, D, R, T = aux
-        D = D.reshape(*K.shape[:-2], -1)[..., :4]
-        pts = fk(pose)[..., None, :, :]  # (..., 1, L, 3)
-        return cam_ops.project_points_fisheye(
-            pts, K[..., None, :, :], D[..., None, :], R[..., None, :, :], T[..., None, :])
-
-    return h
+    return _HAux(fk)
 
 
 def make_hj_parts_aux_generic(fk_and_jac):
     """Measurement pieces of any FK with its Jacobian, the rig as an
     argument (see ``make_h_fn_aux_generic``): ``hj(pose (..., P), aux)
     -> (h (..., C*L*2), Jp (..., C, L, 2, 3), Jfk (..., L, 3, P))``."""
-
-    def hj(pose, aux):
-        K, D, R, T = aux
-        D = D.reshape(*K.shape[:-2], -1)[..., :4]
-        pts, Jfk = fk_and_jac(pose)
-        h, Jp = cam_ops.project_rig_and_jac(pts, K, D, R, T)
-        return h.reshape(*h.shape[:-3], -1), Jp, Jfk
-
-    return hj
+    return _HJPartsAux(fk_and_jac)
 
 
 #: the cheetah's measurement pieces with the rig as an argument:
 #: poses (..., 25) -> (h, Jp, Jfk (..., L, 3, 25))
 hj_parts_aux = make_hj_parts_aux_generic(cheetah.fk25_and_jac)
+#: the cheetah's pixels with the rig as an argument: poses (..., 25) ->
+#: (..., C, L, 2)
+h_aux = make_h_fn_aux_generic(cheetah.fk25)
+
+
+def hj_aux(pose25, aux):
+    """The cheetah's fused (h (..., C*L*2), J (..., C*L*2, 25)) with the
+    rig as an argument."""
+    return assemble_hj(*hj_parts_aux(pose25, aux))
 
 
 def make_hj_parts_fn(k_arr, d_arr, r_arr, t_arr, dtype=torch.float64, device=None):
@@ -102,25 +147,19 @@ def make_hj_parts_fn(k_arr, d_arr, r_arr, t_arr, dtype=torch.float64, device=Non
     ``solvers.trajopt.fte_solve``: poses (..., 25) -> (h (..., C*L*2),
     Jp (..., C, L, 2, 3), Jfk (..., L, 3, 25)). The full J = Jp @ Jfk is
     never formed: the solver assembles H = Jfk^T A Jfk from (3, 3)
-    per-marker cores. The rig lives on ``device`` (CUDA unless given)."""
+    per-marker cores. The rig lives on ``device`` (CUDA unless given); a
+    ``RigFunction``."""
     aux = convert.rig_to_torch(k_arr, d_arr, r_arr, t_arr, resolve_device(device), dtype)
-
-    def hj_parts(pose25):
-        return hj_parts_aux(pose25, aux)
-
-    return hj_parts
+    return RigFunction(hj_parts_aux, aux)
 
 
 def make_hj_fn(k_arr, d_arr, r_arr, t_arr, dtype=torch.float64, device=None):
     """Fused (pixels, Jacobian) by the chain rule, J = J_proj @ J_fk, for
     ``solvers.ekf.run_ekf``: poses (..., 25) -> (h (..., C*L*2),
-    J (..., C*L*2, 25)), with the rig on ``device`` (CUDA unless given)."""
-    hj_parts = make_hj_parts_fn(k_arr, d_arr, r_arr, t_arr, dtype, device)
-
-    def hj(pose25):
-        return assemble_hj(*hj_parts(pose25))
-
-    return hj
+    J (..., C*L*2, 25)), with the rig on ``device`` (CUDA unless given);
+    a ``RigFunction``."""
+    aux = convert.rig_to_torch(k_arr, d_arr, r_arr, t_arr, resolve_device(device), dtype)
+    return RigFunction(hj_aux, aux)
 
 
 def assemble_hj(h, Jp, Jfk):

@@ -24,7 +24,7 @@ from ..models.skeleton import (
 from ..solvers import trajopt
 from ..utils.device import resolve_device
 from . import data as data_io
-from .ekf import make_h_fn_aux_generic, make_hj_parts_aux_generic, nose_track_linreg
+from .ekf import RigFunction, make_h_fn_aux_generic, make_hj_parts_aux_generic, nose_track_linreg
 from .tri import triangulate_run
 
 
@@ -32,14 +32,9 @@ def make_h_fn_generic(model: SkeletonModel, k_arr, d_arr, r_arr, t_arr, dtype=to
                       device=None):
     """poses (..., n_pose) -> predicted pixels (..., C, R, 2) through the
     skeleton's FK and the fisheye rig, with the rig on ``device`` (CUDA
-    unless given)."""
+    unless given), as a ``pipeline.ekf.RigFunction``."""
     aux = convert.rig_to_torch(k_arr, d_arr, r_arr, t_arr, resolve_device(device), dtype)
-    h_aux = make_h_fn_aux_generic(model.fk)
-
-    def h(pose):
-        return h_aux(pose, aux)
-
-    return h
+    return RigFunction(make_h_fn_aux_generic(model.fk), aux)
 
 
 def make_hj_parts_fn_generic(model: SkeletonModel, k_arr, d_arr, r_arr, t_arr,
@@ -49,14 +44,10 @@ def make_hj_parts_fn_generic(model: SkeletonModel, k_arr, d_arr, r_arr, t_arr,
     Jp (..., C, R, 2, 3), Jfk (..., R, 3, n_pose)). The FK Jacobian is
     analytic for compat="tpu" skeletons and ``torch.func.jacfwd`` over the
     FK alone otherwise (``fk_and_jac_any``); the projection Jacobian is
-    the closed form. The rig lives on ``device`` (CUDA unless given)."""
+    the closed form. The rig lives on ``device`` (CUDA unless given); a
+    ``pipeline.ekf.RigFunction``."""
     aux = convert.rig_to_torch(k_arr, d_arr, r_arr, t_arr, resolve_device(device), dtype)
-    hj_aux = make_hj_parts_aux_generic(fk_and_jac_any(model))
-
-    def hj_parts(pose):
-        return hj_aux(pose, aux)
-
-    return hj_parts
+    return RigFunction(make_hj_parts_aux_generic(fk_and_jac_any(model)), aux)
 
 
 def generic_config(

@@ -16,10 +16,19 @@ natively batched, so where the JAX package caches one jitted program per
 configuration, the port calls the stage directly (``solve_stage``,
 ``ekf_stage``, ``solve_stage_generic``, ``ekf_stage_generic``).
 
+Each stage runs over a device mesh (``parallel.mesh``), as in the JAX
+package: the batch is padded to the mesh's data extent (``pad_batch``,
+the padded runs' results dropped) and each data row solves its slice on
+its own device, in a worker process of its own (``_on_mesh``). With
+neither ``mesh`` nor ``device`` given that is every visible CUDA device;
+with a ``device`` it is that one device, solved in the calling process.
+
 The file level: ``discover_runs`` finds the run directories under a
 dataset root, ``load_run`` reads one (DLC ``.h5`` files, scene, video
 info), and ``sweep`` / ``sweep_generic`` solve every run, grouped by fps,
-and write per-run pickles (the reference's all_flick.sh workload). The
+through the stages (over every visible CUDA device unless given a mesh
+or a device), and write per-run pickles (the reference's all_flick.sh
+workload). The
 JAX package's XLA compile cache (``enable_persistent_cache``) has no
 counterpart.
 """
@@ -37,6 +46,7 @@ import torch
 from ..models import cheetah
 from ..models.skeleton import fk_and_jac_any
 from ..ops import camera as cam_ops
+from ..parallel import mesh as mesh_lib
 from ..solvers import ekf as ekf_solver
 from ..solvers import trajopt
 from ..utils.device import resolve_device
@@ -264,6 +274,42 @@ def solve_stage(cfg, packed, auxp, n_valid, dlc_thresh, X0=None, compute_cov=Fal
     return X, cheetah.fk25(X), info
 
 
+def _stage_mesh(mesh, device) -> "mesh_lib.Mesh":
+    """The mesh a stage runs over: ``mesh``; else the one ``device``; else
+    a data-only mesh of every visible CUDA device (raises without CUDA)."""
+    if mesh is not None:
+        if device is not None:
+            raise ValueError("give a mesh or a device, not both")
+        return mesh
+    if device is not None:
+        return mesh_lib.make_mesh(devices=[resolve_device(device)], model_axis=False)
+    resolve_device(None)  # no CUDA device: raises
+    return mesh_lib.make_mesh(model_axis=False)
+
+
+def _on_mesh(mesh, stage, const, arrays):
+    """Run ``stage(device, *const, *row_arrays) -> {key: host array (b,
+    ...)}`` on every data row of the mesh (``mesh.run_rows``: in this
+    process for one row, else a worker process a row; on the row's first
+    device, as the stages use no 'model' axis). ``stage`` is a module's
+    function; ``arrays`` are the batch's host arrays (None passes
+    through), padded to the data extent by repeating the first run.
+    Returns the rows' outputs joined along the batch and cut to the real
+    runs."""
+    n = mesh.shape["data"]
+    B0 = len(arrays[0])
+    full = [None if a is None else mesh_lib.pad_batch([a], n)[0][0] for a in arrays]
+    b = len(full[0]) // n
+    row_args = [(stage, const, [None if a is None else a[i * b:(i + 1) * b] for a in full])
+                for i in range(n)]
+    outs = mesh_lib.run_rows(mesh, _stage_row, row_args)
+    return {k: np.concatenate([o[k] for o in outs])[:B0] for k in outs[0]}
+
+
+def _stage_row(devices, stage, const, arrays):
+    return stage(devices[0], *const, *arrays)
+
+
 def solve_batch(
     runs: Sequence[RunData],
     dlc_thresh: float,
@@ -277,10 +323,11 @@ def solve_batch(
     max_batch: Optional[int] = MAX_PROGRAM_BATCH,
     pad_frames: Optional[int] = None,
     pad_cams: Optional[int] = None,
+    mesh=None,
 ) -> List[Dict]:
-    """Solve a group of runs (same fps) as one batch on ``device`` (CUDA
-    unless the caller names another; raises without CUDA when none is
-    given).
+    """Solve a group of runs (same fps) as one batch over ``mesh``, or on
+    ``device`` alone, or over every visible CUDA device when neither is
+    given (raises without CUDA).
 
     Groups beyond ``max_batch`` runs solve as sequential chunks padded to
     a shared (frames, cams, batch) shape. ``pad_frames``/``pad_cams`` pin
@@ -293,7 +340,6 @@ def solve_batch(
     ``uncertainty`` adds fte_solve's Laplace posterior: each dict gains
     ``marker_std`` (n_i, L, 3), per-marker 1-sigma error bars, and the
     run's ``cov_ridge_shrink`` and ``cov_ridge_frac`` (0 in float64)."""
-    device = resolve_device(device)
     fps = runs[0].fps
     N = pad_frames or max(r.pixels.shape[1] for r in runs)
     C = pad_cams or max(r.pixels.shape[0] for r in runs)
@@ -305,7 +351,7 @@ def solve_batch(
                 dtype=dtype, X0_override=Xc,
                 relinearize_every=relinearize_every,
                 plain_iters=plain_iters, uncertainty=uncertainty,
-                max_batch=None, pad_frames=N, pad_cams=C,
+                max_batch=None, pad_frames=N, pad_cams=C, mesh=mesh,
             ),
             X0_override=X0_override,
         )
@@ -315,19 +361,32 @@ def solve_batch(
     if plain_iters is not None:
         cfg = dc_replace(cfg, plain_iters=plain_iters)
 
+    mesh = _stage_mesh(mesh, device)
     packed, auxp, n_valid = _pack_runs(runs, N, C)
+    host = _on_mesh(mesh, _fte_stage_host, (cfg, dtype, dlc_thresh, uncertainty),
+                    [packed, auxp, n_valid, _pad_X0(X0_override, N)])
+    return _stage_results(runs, n_valid, fps, host, uncertainty)
+
+
+def _fte_stage_host(dev, cfg, dtype, dlc_thresh, uncertainty, packed, auxp, n_valid, X0):
+    """``solve_stage`` on ``dev`` from host arrays, its outputs as host
+    arrays (``_stage_host``)."""
     X, pts, info = solve_stage(
         cfg,
-        torch.as_tensor(packed, dtype=dtype, device=device),
-        torch.as_tensor(auxp, dtype=dtype, device=device),
-        torch.as_tensor(n_valid, dtype=torch.int64, device=device),
-        dlc_thresh, _pad_X0(X0_override, N, dtype, device), compute_cov=uncertainty,
+        torch.as_tensor(packed, dtype=dtype, device=dev),
+        torch.as_tensor(auxp, dtype=dtype, device=dev),
+        torch.as_tensor(n_valid, dtype=torch.int64, device=dev),
+        dlc_thresh, _tensor(X0, dtype, dev), compute_cov=uncertainty,
     )
-    return _stage_results(runs, n_valid, fps, X, pts, info, uncertainty)
+    return _stage_host(X, pts, info, uncertainty)
 
 
-def _pad_X0(X0_override, N: int, dtype, device):
-    """Per-run initial trajectories (n_i, P) as one (B, N, P) tensor, each
+def _tensor(a, dtype, device):
+    return None if a is None else torch.as_tensor(a, dtype=dtype, device=device)
+
+
+def _pad_X0(X0_override, N: int):
+    """Per-run initial trajectories (n_i, P) as one (B, N, P) array, each
     held at its last frame through padding; None stays None."""
     if X0_override is None:
         return None
@@ -338,21 +397,28 @@ def _pad_X0(X0_override, N: int, dtype, device):
         Xp[: len(Xw)] = Xw
         Xp[len(Xw):] = Xw[-1]  # hold the last frame through padding
         X0_b.append(Xp)
-    return torch.as_tensor(np.stack(X0_b), dtype=dtype, device=device)
+    return np.stack(X0_b)
 
 
-def _stage_results(runs, n_valid, fps, X, pts, info, uncertainty):
-    """One result dict per run from an FTE stage's batched outputs, cut to
-    the run's length, with host-side derivatives."""
-    Xb, positions_b = X.cpu().numpy(), pts.cpu().numpy()
+def _stage_host(X, pts, info, uncertainty):
+    """An FTE stage's batched outputs as host arrays: x, positions and the
+    status (with the posterior's keys when ``uncertainty``)."""
     keys = ("cost", "cost0", "converged", "grad_norm")
     if uncertainty:
         keys += ("marker_std", "cov_ridge_shrink")
-    status = {k: info[k].cpu().numpy() for k in keys}
+    host = {k: info[k].cpu().numpy() for k in keys}
     if uncertainty:  # float64 has no ridge and no cov_ridge_frac: 0
-        status["cov_ridge_frac"] = info.get(
+        host["cov_ridge_frac"] = info.get(
             "cov_ridge_frac", torch.zeros_like(info["cov_ridge_shrink"])).cpu().numpy()
+    host["x"], host["positions"] = X.cpu().numpy(), pts.cpu().numpy()
+    return host
 
+
+def _stage_results(runs, n_valid, fps, status, uncertainty):
+    """One result dict per run from an FTE stage's host outputs
+    (``_stage_host``), cut to the run's length, with host-side
+    derivatives."""
+    Xb, positions_b = status["x"], status["positions"]
     results = []
     Ts = 1.0 / fps
     for i, run in enumerate(runs):
@@ -435,16 +501,16 @@ def solve_batch_ekf(
     max_batch: Optional[int] = MAX_PROGRAM_BATCH,
     pad_frames: Optional[int] = None,
     pad_cams: Optional[int] = None,
+    mesh=None,
 ) -> List[Dict]:
-    """Batched EKF + RTS across a group of runs (same fps) on ``device``
-    (CUDA unless the caller names another; raises without CUDA when none
-    is given), padded as ``solve_batch`` pads them. Groups beyond
+    """Batched EKF + RTS across a group of runs (same fps) over ``mesh``,
+    on ``device`` or over every visible CUDA device (raises without CUDA
+    when neither is given), padded as ``solve_batch`` pads them. Groups beyond
     ``max_batch`` or the memory cap (``_ekf_mem_cap``, which holds even
     at ``max_batch=None``) chunk. Each run's untrusted-measurement sigma
     is its own camera width. Returns one dict per run: ``states`` (the
     six state arrays and ``marker_std``, cut to the run's length),
     ``positions``, ``max_pixel_err`` and ``outliers`` (gated pairs)."""
-    device = resolve_device(device)
     fps = runs[0].fps
     N = pad_frames or max(r.pixels.shape[1] for r in runs)
     C = pad_cams or max(r.pixels.shape[0] for r in runs)
@@ -456,37 +522,59 @@ def solve_batch_ekf(
             runs, eff_max,
             lambda chunk, _Xc: solve_batch_ekf(
                 chunk, dlc_thresh, device=device, dtype=dtype,
-                max_batch=None, pad_frames=N, pad_cams=C,
+                max_batch=None, pad_frames=N, pad_cams=C, mesh=mesh,
             ),
         )
 
+    mesh = _stage_mesh(mesh, device)
     packed, auxp, n_valid = _pack_runs(runs, N, C)
     mpe = np.asarray([float(r.cam_res[0]) for r in runs])
+    host = _on_mesh(mesh, _ekf_stage_host, (fps, dtype, dlc_thresh),
+                    [packed, auxp, n_valid, mpe])
+    return _ekf_results(runs, n_valid, mpe, host)
+
+
+def _ekf_stage_host(dev, fps, dtype, dlc_thresh, packed, auxp, n_valid, mpe):
+    """``ekf_stage`` on ``dev`` from host arrays, its outputs as host
+    arrays (``_ekf_host``)."""
 
     def up(a, dt=dtype):
-        return torch.as_tensor(np.asarray(a), dtype=dt, device=device)
+        return torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
 
     cfg = ekf_solver.EkfConfig(dt=1.0 / fps, dlc_thresh=dlc_thresh,
                                meas_std_px=cheetah.MEAS_STD_PX, max_pixel_err=up(mpe))
-    out = ekf_stage(cfg, up(packed), up(auxp), up(n_valid, torch.int64), up(ekf_P0(n_pose)))
-    return _ekf_results(runs, n_valid, mpe, out, dtype)
+    out = ekf_stage(cfg, up(packed), up(auxp), up(n_valid, torch.int64),
+                    up(ekf_P0(cheetah.N_ACTIVE)))
+    return _ekf_host(out, dtype)
 
 
-def _ekf_results(runs, n_valid, mpe, out, dtype):
-    """One result dict per run from an EKF stage's batched outputs (one
-    download for the whole group), cut to the run's length."""
-    B = len(runs)
-    keys = ("x", "dx", "ddx", "smoothed_x", "smoothed_dx", "smoothed_ddx", "marker_std",
+#: the EKF stage outputs a result keeps
+EKF_KEYS = ("x", "dx", "ddx", "smoothed_x", "smoothed_dx", "smoothed_ddx", "marker_std",
             "positions")
-    flat = torch.cat([out[k].reshape(B, -1) for k in keys]
+
+
+def _ekf_host(out, dtype):
+    """An EKF stage's batched outputs as host arrays (one download for the
+    batch): ``EKF_KEYS`` and ``outliers``."""
+    B = out["x"].shape[0]
+    flat = torch.cat([out[k].reshape(B, -1) for k in EKF_KEYS]
                      + [out["outliers"].to(dtype).reshape(B, 1)], dim=1).cpu().numpy()
     host, o = {}, 0
-    for k in keys:
+    for k in EKF_KEYS:
         shape = out[k].shape[1:]
         size = int(np.prod(shape))
         host[k] = flat[:, o:o + size].reshape(B, *shape)
         o += size
+    host["outliers"] = flat[:, o]
+    return host
+
+
+def _ekf_results(runs, n_valid, mpe, host):
+    """One result dict per run from an EKF stage's host outputs
+    (``_ekf_host``), cut to the run's length."""
+    host = dict(host)
     pos_all = host.pop("positions")
+    outliers = host.pop("outliers")
     results = []
     for i, run in enumerate(runs):
         n0 = n_valid[i]
@@ -494,7 +582,7 @@ def _ekf_results(runs, n_valid, mpe, out, dtype):
             data_dir=run.data_dir, positions=pos_all[i, :n0].astype(np.float64),
             states={k: v[i][:n0] for k, v in host.items()},
             start_frame=run.start_frame, scene_fpath=run.scene_fpath,
-            max_pixel_err=float(mpe[i]), outliers=int(flat[i, o]),
+            max_pixel_err=float(mpe[i]), outliers=int(outliers[i]),
         ))
     return results
 
@@ -596,12 +684,13 @@ def solve_batch_generic(
     pad_frames: Optional[int] = None,
     pad_cams: Optional[int] = None,
     _cfg_override: Optional[Dict] = None,
+    mesh=None,
 ) -> List[Dict]:
     """Batched generic-skeleton FTE (the src/build.py path at sweep
-    scale) on ``device`` (CUDA unless the caller names another; raises
-    without CUDA when none is given): a group of runs of any skeleton
-    (same fps, ``runs[i].pixels`` in the model's marker order) padded and
-    chunked as ``solve_batch`` does, with ``generic_config``.
+    scale) over ``mesh``, on ``device`` or over every visible CUDA device
+    (raises without CUDA when neither is given): a group of runs of any
+    skeleton (same fps, ``runs[i].pixels`` in the model's marker order)
+    padded and chunked as ``solve_batch`` does, with ``generic_config``.
 
     ``warm_start=True`` replaces the cold init by the batched generic
     EKF's smoothed poses, with ``plain_iters=4`` unless given ('auto' is
@@ -611,7 +700,6 @@ def solve_batch_generic(
     and ``cov_ridge_frac`` to each result. ``_cfg_override``: raw
     FteConfig fields (e.g. ``{'linear_solver': 'pallas'}``). Returns one
     dict per run: positions, x, dx, ddx, markers and the solver status."""
-    device = resolve_device(device)
     fps = runs[0].fps
     N = pad_frames or max(r.pixels.shape[1] for r in runs)
     C = pad_cams or max(r.pixels.shape[0] for r in runs)
@@ -627,7 +715,7 @@ def solve_batch_generic(
                 plain_iters=plain_iters, warm_start=warm_start,
                 relinearize_every=relinearize_every,
                 max_batch=None, pad_frames=N, pad_cams=C,
-                _cfg_override=_cfg_override,
+                _cfg_override=_cfg_override, mesh=mesh,
             ),
             X0_override=X0_override,
         )
@@ -637,7 +725,7 @@ def solve_batch_generic(
     if X0_override is None and resolve_warm_start(warm_start):
         X0_override = ekf_warm_starts(solve_batch_ekf_generic(
             model, runs, dlc_thresh, device=device, dtype=dtype, init_marker=init_marker,
-            pad_frames=N, pad_cams=C,
+            pad_frames=N, pad_cams=C, mesh=mesh,
         ))
         if plain_iters is None:
             plain_iters = 4  # the EKF init is already near the optimum and 3-sigma gated
@@ -648,16 +736,13 @@ def solve_batch_generic(
 
     excl_idx = tuple(sorted(model.markers.index(m) for m in (exclude_markers or ())
                             if m in model.markers))
+    stage_mesh = _stage_mesh(mesh, device)
     packed, auxp, n_valid = _pack_runs(runs, N, C)
-    X, pts, info = solve_stage_generic(
-        model, cfg,
-        torch.as_tensor(packed, dtype=dtype, device=device),
-        torch.as_tensor(auxp, dtype=dtype, device=device),
-        torch.as_tensor(n_valid, dtype=torch.int64, device=device),
-        dlc_thresh, _pad_X0(X0_override, N, dtype, device),
-        init_idx=model.markers.index(init_marker), excl_idx=excl_idx, compute_cov=uncertainty,
-    )
-    results = _stage_results(runs, n_valid, fps, X, pts, info, uncertainty)
+    host = _on_mesh(stage_mesh, _generic_stage_host,
+                    (model, cfg, dtype, dlc_thresh, model.markers.index(init_marker), excl_idx,
+                     uncertainty),
+                    [packed, auxp, n_valid, _pad_X0(X0_override, N)])
+    results = _stage_results(runs, n_valid, fps, host, uncertainty)
     for r in results:
         r["markers"] = list(model.markers)
 
@@ -671,10 +756,25 @@ def solve_batch_generic(
                 exclude_markers=exclude_markers, X0_override=X0s,
                 uncertainty=uncertainty, rescue=False,
                 plain_iters=0,  # continuing a graduated solve
-                relinearize_every=relinearize_every,
+                relinearize_every=relinearize_every, mesh=mesh,
             ),
         )
     return results
+
+
+def _generic_stage_host(dev, model, cfg, dtype, dlc_thresh, init_idx, excl_idx, uncertainty,
+                        packed, auxp, n_valid, X0):
+    """``solve_stage_generic`` on ``dev`` from host arrays, its outputs as
+    host arrays (``_stage_host``)."""
+    X, pts, info = solve_stage_generic(
+        model, cfg,
+        torch.as_tensor(packed, dtype=dtype, device=dev),
+        torch.as_tensor(auxp, dtype=dtype, device=dev),
+        torch.as_tensor(n_valid, dtype=torch.int64, device=dev),
+        dlc_thresh, _tensor(X0, dtype, dev), init_idx=init_idx, excl_idx=excl_idx,
+        compute_cov=uncertainty,
+    )
+    return _stage_host(X, pts, info, uncertainty)
 
 
 def ekf_stage_generic(model, cfg, packed, auxp, n_valid, P0, qb, init_idx, smoother="auto"):
@@ -723,10 +823,11 @@ def solve_batch_ekf_generic(
     pad_frames: Optional[int] = None,
     pad_cams: Optional[int] = None,
     smoother: str = "auto",
+    mesh=None,
 ) -> List[Dict]:
-    """Batched EKF + RTS for any skeleton on ``device`` (CUDA unless the
-    caller names another; raises without CUDA when none is given), padded
-    and chunked as ``solve_batch_ekf`` (the memory cap holds even at
+    """Batched EKF + RTS for any skeleton over ``mesh``, on ``device`` or
+    over every visible CUDA device (raises without CUDA when neither is
+    given), padded and chunked as ``solve_batch_ekf`` (the memory cap holds even at
     ``max_batch=None``). Process noise is blanket per kind: root jerk
     ``pos_process_std`` m/s^3, angle jerk ``ang_process_std`` rad/s^3,
     with the angle prior ``ang_prior_std``. The soft defaults (8 px, 5
@@ -734,7 +835,6 @@ def solve_batch_ekf_generic(
     filter on a 2-camera human does not diverge. ``smoother`` passes
     through to ``run_ekf``. Returns one dict per run as
     ``solve_batch_ekf``'s."""
-    device = resolve_device(device)
     fps = runs[0].fps
     N = pad_frames or max(r.pixels.shape[1] for r in runs)
     C = pad_cams or max(r.pixels.shape[0] for r in runs)
@@ -749,18 +849,13 @@ def solve_batch_ekf_generic(
                 init_marker=init_marker, meas_std_px=meas_std_px,
                 pos_process_std=pos_process_std, ang_process_std=ang_process_std,
                 ang_prior_std=ang_prior_std, max_batch=None, pad_frames=N, pad_cams=C,
-                smoother=smoother,
+                smoother=smoother, mesh=mesh,
             ),
         )
 
+    mesh = _stage_mesh(mesh, device)
     packed, auxp, n_valid = _pack_runs(runs, N, C)
     mpe = np.asarray([float(r.cam_res[0]) for r in runs])
-
-    def up(a, dt=dtype):
-        return torch.as_tensor(np.asarray(a), dtype=dt, device=device)
-
-    cfg = ekf_solver.EkfConfig(dt=1.0 / fps, dlc_thresh=dlc_thresh, meas_std_px=meas_std_px,
-                               max_pixel_err=up(mpe))
     qb = np.concatenate([np.full(3, pos_process_std), np.full(n_pose - 3, ang_process_std)])
     p_ang = np.ones(n_pose - 3)
     P0 = np.diag(np.concatenate([
@@ -768,9 +863,26 @@ def solve_batch_ekf_generic(
         np.ones(3) * 25.0, p_ang * 9.0,              # velocity
         np.ones(3) * 9.0, p_ang * 25.0,              # acceleration
     ]))
+    host = _on_mesh(mesh, _generic_ekf_stage_host,
+                    (model, fps, dtype, dlc_thresh, meas_std_px, P0, qb,
+                     model.markers.index(init_marker), smoother),
+                    [packed, auxp, n_valid, mpe])
+    return _ekf_results(runs, n_valid, mpe, host)
+
+
+def _generic_ekf_stage_host(dev, model, fps, dtype, dlc_thresh, meas_std_px, P0, qb, init_idx,
+                            smoother, packed, auxp, n_valid, mpe):
+    """``ekf_stage_generic`` on ``dev`` from host arrays, its outputs as
+    host arrays (``_ekf_host``)."""
+
+    def up(a, dt=dtype):
+        return torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
+
+    cfg = ekf_solver.EkfConfig(dt=1.0 / fps, dlc_thresh=dlc_thresh, meas_std_px=meas_std_px,
+                               max_pixel_err=up(mpe))
     out = ekf_stage_generic(model, cfg, up(packed), up(auxp), up(n_valid, torch.int64), up(P0),
-                            qb, model.markers.index(init_marker), smoother=smoother)
-    return _ekf_results(runs, n_valid, mpe, out, dtype)
+                            qb, init_idx, smoother=smoother)
+    return _ekf_host(out, dtype)
 
 
 # ---- the file level: every run under a dataset root ----
@@ -796,6 +908,16 @@ def _save_ekf_results(ekf_results, dlc_thresh):
                      positions=res["positions"])
 
 
+def _placement(device, mesh) -> Dict:
+    """The ``device`` and ``mesh`` a sweep hands its stages: only those
+    the caller named, so that with neither the stages take their own
+    default (a data mesh of every visible CUDA device). Raises at once
+    where neither is named and no CUDA device is present."""
+    if device is None and mesh is None:
+        resolve_device(None)
+    return {k: v for k, v in (("device", device), ("mesh", mesh)) if v is not None}
+
+
 def sweep(
     root_dir: str,
     dlc_thresh: float = 0.8,
@@ -808,10 +930,12 @@ def sweep(
     rescue: bool = True,
     uncertainty: bool = False,
     device=None,
+    mesh=None,
 ) -> List[Dict]:
     """Batched reconstruction of every run under ``root_dir`` (the
-    reference's all_flick.sh) on ``device`` (CUDA unless given), in
-    float32 as the batched stages run. Runs are grouped by fps; each group is solved as one batch
+    reference's all_flick.sh) over ``mesh``, on ``device``, or over every
+    visible CUDA device when neither is given (the batched stages'
+    default), in float32 as the batched stages run. Runs are grouped by fps; each group is solved as one batch
     per requested stage ('fte' and/or 'ekf') and each run's pickles are
     written (``<run>/fte/fte.pickle``, ``<run>/ekf/ekf.pickle``).
 
@@ -820,7 +944,7 @@ def sweep(
     'auto' is the cold start. ``rescue`` re-solves the runs whose
     stationarity test failed (``_rescue_unconverged``). Returns the FTE
     results (or, without 'fte', the EKF results) of every run."""
-    device = resolve_device(device)
+    place = _placement(device, mesh)
     run_dirs = discover_runs(root_dir)
     print(f"Found {len(run_dirs)} runs under {root_dir}")
     runs = [load_run(d, end_frame=(max_frames or -1)) for d in run_dirs]
@@ -831,7 +955,7 @@ def sweep(
         ekf_results = None
         if "ekf" in stages or (warm and "fte" in stages):
             print(f"EKF: {len(group)} runs @ {fps} fps as one batch")
-            ekf_results = solve_batch_ekf(group, dlc_thresh, device=device)
+            ekf_results = solve_batch_ekf(group, dlc_thresh, **place)
             if save and "ekf" in stages:
                 _save_ekf_results(ekf_results, dlc_thresh)
             if "fte" not in stages:
@@ -841,7 +965,7 @@ def sweep(
         print(f"FTE: {len(group)} runs @ {fps} fps as one batch"
               + (" (EKF warm start)" if warm else ""))
         results = solve_batch(
-            group, dlc_thresh, num_iters=num_iters, device=device,
+            group, dlc_thresh, num_iters=num_iters, **place,
             X0_override=ekf_warm_starts(ekf_results) if warm else None,
             relinearize_every=relinearize_every,
             # the EKF init is already near the optimum and 3-sigma gated:
@@ -853,7 +977,7 @@ def sweep(
             results = _rescue_unconverged(
                 results, "", num_iters,
                 lambda bad, X0s, budget: solve_batch(
-                    [group[i] for i in bad], dlc_thresh, num_iters=budget, device=device,
+                    [group[i] for i in bad], dlc_thresh, num_iters=budget, **place,
                     X0_override=X0s, relinearize_every=relinearize_every,
                     plain_iters=0,  # continuing a graduated solve
                     uncertainty=uncertainty,
@@ -891,16 +1015,18 @@ def sweep_generic(
     stages: Sequence[str] = ("fte",),
     relinearize_every: int = 1,
     device=None,
+    mesh=None,
 ) -> List[Dict]:
     """``sweep`` for any skeleton pickle (the src/build.py model family)
-    on ``device`` (CUDA unless given), in float32: 'fte' through
+    over ``mesh``, on ``device``, or over every visible CUDA device when
+    neither is given, in float32: 'fte' through
     ``solve_batch_generic`` writes ``<run>/fte/traj_results.pickle`` in
     build.py's result schema (src/build.py:344-378) with the solver
     status; 'ekf' through ``solve_batch_ekf_generic`` writes
     ``<run>/ekf/ekf.pickle``."""
     from ..models.skeleton import build_skeleton_model
 
-    device = resolve_device(device)
+    place = _placement(device, mesh)
     model = build_skeleton_model(data_io.load_skeleton(skeleton_fpath))
     run_dirs = discover_runs(root_dir)
     print(f"Found {len(run_dirs)} runs under {root_dir}")
@@ -914,7 +1040,7 @@ def sweep_generic(
         ekf_results = None
         if "ekf" in stages or (warm and "fte" in stages):
             print(f"generic EKF: {len(group)} runs @ {fps} fps as one batch")
-            ekf_results = solve_batch_ekf_generic(model, group, dlc_thresh, device=device,
+            ekf_results = solve_batch_ekf_generic(model, group, dlc_thresh, **place,
                                                   init_marker=init_marker)
             if save and "ekf" in stages:
                 _save_ekf_results(ekf_results, dlc_thresh)
@@ -925,7 +1051,7 @@ def sweep_generic(
         print(f"generic FTE: {len(group)} runs @ {fps} fps as one batch"
               + (" (EKF warm start)" if warm else ""))
         results = solve_batch_generic(
-            model, group, dlc_thresh, num_iters=num_iters, device=device,
+            model, group, dlc_thresh, num_iters=num_iters, **place,
             warm_start=False,
             X0_override=(ekf_warm_starts(ekf_results) if warm else None),
             plain_iters=(4 if warm else None),

@@ -41,6 +41,7 @@ from .cyclic import banded_solve_cr
 
 LINEAR_SOLVERS = ("pcg", "cg", "chol", "chol_unrolled", "grouped", "cr", "pallas")
 MEAS_LOSSES = ("redescending", "l1", "quadratic")
+ASSEMBLIES = ("auto", "einsum", "vpu")
 
 
 @dataclass(frozen=True)
@@ -75,9 +76,15 @@ class FteConfig:
     relinearize_every: int = 1
     stat_tol: float = 0.05
     polish_iters: int = 1
-    #: 'auto' and 'einsum' both mean the einsum assembly; the JAX
-    #: package's 'vpu' is a TPU layout workaround and is not ported
+    #: H/g assembly of the measurement pieces in hj_parts form: 'einsum'
+    #: (per-marker cores A by einsum, G = A Jfk by matmul) or 'vpu' (A and
+    #: G as broadcast-multiply-reduce, the JAX package's TPU order); the
+    #: H = Jfk^T G product is one merged K = 3L matmul in both. 'auto'
+    #: means 'einsum' (the JAX package picks 'vpu' on a TPU only)
     assembly: str = "auto"
+    #: 'pcg' only: the measurement matvec multiplies H_meas and x rounded
+    #: to bfloat16, accumulating in the working dtype; the diagonal it
+    #: cancels is the rounded H's own
     pcg_meas_bf16: bool = False
 
 
@@ -157,14 +164,39 @@ def _check_config(cfg: FteConfig):
         raise ValueError(f"unknown linear_solver {cfg.linear_solver!r}; choose from {LINEAR_SOLVERS}")
     if cfg.meas_loss not in MEAS_LOSSES:
         raise ValueError(f"unknown meas_loss {cfg.meas_loss!r}; choose from {MEAS_LOSSES}")
-    if cfg.assembly not in ("auto", "einsum"):
-        raise ValueError(f"assembly {cfg.assembly!r} is not ported; use 'einsum'")
-    if cfg.pcg_meas_bf16:
-        raise NotImplementedError("pcg_meas_bf16 is not ported yet")
+    if cfg.assembly not in ASSEMBLIES:
+        raise ValueError(f"unknown assembly {cfg.assembly!r}; choose from {ASSEMBLIES}")
+
+
+def pcg_meas_operator(H_meas: torch.Tensor, bf16: bool = False) -> Callable:
+    """The measurement term of the 'pcg' operator: x (..., N, P) ->
+    H_meas x less H's diagonal times x (the diagonal sits in the
+    operator's diagonal term). With ``bf16`` (``FteConfig.pcg_meas_bf16``)
+    H_meas and x are rounded to bfloat16, their products (exact in the
+    working dtype) accumulated in the working dtype, and the diagonal
+    cancelled is the rounded H's own; x in the diagonal term is not
+    rounded."""
+    dtype = H_meas.dtype
+    if bf16:
+        H_mv = H_meas.to(torch.bfloat16).to(dtype)
+
+        def round_x(x):
+            return x.to(torch.bfloat16).to(dtype)
+    else:
+        H_mv = H_meas
+
+        def round_x(x):
+            return x
+    diag_H = torch.diagonal(H_mv, dim1=-2, dim2=-1)
+
+    def meas_mul(x):
+        return (H_mv @ round_x(x)[..., None])[..., 0] - diag_H * x
+
+    return meas_mul
 
 
 def fte_solve(
-    hj_parts_fn: Callable,
+    hj_parts_fn: Optional[Callable],
     X0,  # (B, N, P) initial trajectories
     meas,  # (B, N, C, L, 2) pixel measurements
     w_meas,  # (B, N, C, L) weights: 1/R if trusted else 0
@@ -172,16 +204,26 @@ def fte_solve(
     n_valid=None,  # (B,) true trajectory lengths when frames are padded
     compute_cov: bool = False,
     device=None,
+    *,
+    h_fn: Optional[Callable] = None,
+    hj_fn: Optional[Callable] = None,
+    camera_sum: Optional[Callable] = None,
 ):
     """Solve B FTE trajectories at once. Returns (X (B, N, P), info) with
     per-run ``cost``, ``cost0``, ``cost_history`` (B, num_iters), ``lam``,
     ``converged`` and ``grad_norm``.
 
-    ``hj_parts_fn`` maps poses (B, N, P) to the unassembled measurement
-    pieces (h (B, N, m), Jp (B, N, C, L, 2, 3), Jfk (B, N, L, 3, P)), see
-    ``pipeline.ekf.make_hj_parts_fn``; it must produce tensors on
-    ``device``. Runs on ``device`` (CUDA unless ``device="cpu"``; no
-    device and no CUDA raises), in the dtype of X0.
+    The measurement model comes in one of three forms, exactly one given:
+    ``hj_parts_fn`` maps poses (B, N, P) to the unassembled pieces (h
+    (B, N, m), Jp (B, N, C, L, 2, 3), Jfk (B, N, L, 3, P)), see
+    ``pipeline.ekf.make_hj_parts_fn``, and H is assembled from (3, 3)
+    per-marker cores (``cfg.assembly``); ``hj_fn`` maps them to the fused
+    (h (B, N, m), J (B, N, m, P)), see ``pipeline.ekf.make_hj_fn``; and
+    ``h_fn`` maps them to pixels (B, N, C, L, 2), its Jacobian taken by
+    forward mode (``torch.func``, one tangent per pose parameter). The
+    last two assemble H = J^T W J from the dense J. The function must
+    produce tensors on ``device``. Runs on ``device`` (CUDA unless
+    ``device="cpu"``; no device and no CUDA raises), in the dtype of X0.
 
     ``n_valid`` masks third-difference rows touching frames >= n_valid
     (padded frames then carry zero measurement weight and zero model
@@ -192,32 +234,74 @@ def fte_solve(
     ``compute_cov`` adds the Laplace posterior at the solution before the
     final clamp: ``pose_cov`` (B, N, P, P), the per-frame diagonal blocks
     of the inverse objective Hessian (``banded.
-    block_banded_marginal_covariance``), and the per-marker ``marker_cov``
-    (B, N, L, 3, 3) and ``marker_std`` (B, N, L, 3) in metres. In float32
-    a ridge of 1e-6 on the Jacobi-scaled diagonal keeps the recurrence's
-    pivots positive; the recurrence also runs at twice the ridge, and the
-    Richardson extrapolation of each variance to no ridge gives the
-    per-run ``cov_ridge_shrink`` (the worst relative variance deficit of
-    a live pose direction), ``marker_std_ridge_shrink`` (B, N, L, 3) and
-    ``cov_ridge_frac`` (the share of live marker cells understated by
-    more than 10% in variance). In float64 there is no ridge and
-    ``cov_ridge_shrink`` is 0.
+    block_banded_marginal_covariance``), and, in hj_parts form, the
+    per-marker ``marker_cov`` (B, N, L, 3, 3) and ``marker_std``
+    (B, N, L, 3) in metres. In float32 a ridge of 1e-6 on the
+    Jacobi-scaled diagonal keeps the recurrence's pivots positive; the
+    recurrence also runs at twice the ridge, and the Richardson
+    extrapolation of each variance to no ridge gives the per-run
+    ``cov_ridge_shrink`` (the worst relative variance deficit of a live
+    pose direction) and, in hj_parts form, ``marker_std_ridge_shrink``
+    (B, N, L, 3) and ``cov_ridge_frac`` (the share of live marker cells
+    understated by more than 10% in variance). In float64 there is no
+    ridge and ``cov_ridge_shrink`` is 0.
 
     With ``cfg.relinearize_every = k > 1`` the Jacobians refresh on
     iterations k-1, 2k-1, ... and after a rejected step, per run; the
     residual stays exact every iteration: every run takes the h of the
-    iteration's one ``hj_parts_fn`` pass."""
+    iteration's one measurement pass.
+
+    ``camera_sum`` is for ``parallel.mesh``: when the cameras of the
+    measurements are a shard of the rig's, it returns the sum of a
+    camera-partial tensor over every shard of the rig (the measurement
+    term of the objective, the per-marker cores or H and g), the same on
+    every shard."""
+    forms = [f for f in (hj_parts_fn, hj_fn, h_fn) if f is not None]
+    if len(forms) != 1:
+        raise ValueError("give exactly one of hj_parts_fn, hj_fn and h_fn")
     _check_config(cfg)
     device = resolve_device(device)
     X0 = torch.as_tensor(X0, device=device)
     dtype = X0.dtype
     meas = torch.as_tensor(meas, dtype=dtype, device=device)
     w_meas = torch.as_tensor(w_meas, dtype=dtype, device=device)
+    if hj_parts_fn is not None:
+        form = "parts", hj_parts_fn
+    elif hj_fn is not None:
+        form = "dense", hj_fn
+    else:
+        form = "dense", _jacfwd(h_fn)
     with f32_matmuls():
-        return _fte_solve(hj_parts_fn, X0, meas, w_meas, cfg, n_valid, compute_cov)
+        return _fte_solve(form, X0, meas, w_meas, cfg, n_valid, compute_cov, camera_sum)
 
 
-def _fte_solve(hj_parts_fn, X0, meas, w_meas, cfg, n_valid, compute_cov):
+def _jacfwd(h_fn):
+    """(h, J) of a batched h_fn: h flattened to (..., m), J (..., m, P) by
+    one forward-mode pass per pose parameter. Frames are independent, so
+    the tangent e_p on every pose at once gives column p of every
+    frame's Jacobian."""
+
+    def hj(X):
+        lead, P = X.shape[:-1], X.shape[-1]
+
+        def h_flat(x):
+            return h_fn(x).reshape(*lead, -1)
+
+        def column(t):
+            return torch.func.jvp(h_flat, (X,), (t,))
+
+        eye = torch.eye(P, dtype=X.dtype, device=X.device)
+        tangents = eye.reshape(P, *(1,) * len(lead), P).expand(P, *lead, P)
+        h, J = torch.func.vmap(column)(tangents)
+        return h[0], torch.movedim(J, 0, -1)
+
+    return hj
+
+
+def _fte_solve(form, X0, meas, w_meas, cfg, n_valid, compute_cov, camera_sum):
+    kind, meas_fn = form
+    parts = kind == "parts"
+    csum = camera_sum or (lambda t: t)
     B, N, P = X0.shape
     dtype, device = X0.dtype, X0.device
     _, _, C, Lm, _ = meas.shape
@@ -267,22 +351,39 @@ def _fte_solve(hj_parts_fn, X0, meas, w_meas, cfg, n_valid, compute_cov):
     def objective_from_h(X, hX):
         d3 = third_difference(X, Ts) * rmask
         model_term = rsum(wq * d3 * d3)
-        meas_term = rsum(_meas_rho(cfg, w_flat * (hX - meas_flat)))
+        meas_term = csum(rsum(_meas_rho(cfg, w_flat * (hX - meas_flat))))
         viol = torch.clamp(lo - X, min=0.0) + torch.clamp(X - hi, min=0.0)
         return model_term + meas_term + cfg.limit_penalty * rsum(viol**2)
 
+    vpu = cfg.assembly == "vpu"
+
     def meas_normal_pieces(hX, JX, robust_on):
         """Measurement GN Hessian blocks H_meas (B, N, P, P) and gradient
-        g_meas (B, N, P), contracted through the (L, 3, 3) per-marker
-        cores: H = Jfk^T [sum_c Jp^T omega Jp] Jfk, g = Jfk^T [sum_c Jp^T omega e]."""
-        JpX, JfkX = JX
+        g_meas (B, N, P). In hj_parts form they are contracted through
+        the (L, 3, 3) per-marker cores: H = Jfk^T [sum_c Jp^T omega Jp] Jfk,
+        g = Jfk^T [sum_c Jp^T omega e]; else H = J^T W J, g = J^T W e of
+        the dense J. The camera sums run over every shard of the rig."""
         e = w_flat * (hX - meas_flat)
         w_irls = _meas_irls(cfg, e) if robust_on else torch.ones_like(e)
+        if not parts:
+            J = JX * w_flat[..., None]  # d e / d x (B, N, m, P)
+            H_meas = csum(torch.einsum("bnmi,bnm,bnmj->bnij", J, w_irls, J))
+            g_meas = csum(torch.einsum("bnmi,bnm,bnm->bni", J, w_irls, e))
+            return H_meas, g_meas
+        JpX, JfkX = JX
         omega = (w_flat**2 * w_irls).reshape(B, N, C, Lm, 2)
         er = (w_flat * w_irls * e).reshape(B, N, C, Lm, 2)
-        A = torch.einsum("bnclui,bncluj->bnlij", JpX * omega[..., None], JpX)
-        H_meas = JfkX.reshape(B, N, Lm * 3, P).mT @ (A @ JfkX).reshape(B, N, Lm * 3, P)
-        bv = torch.einsum("bnclui,bnclu->bnli", JpX, er)
+        if vpu:
+            # broadcast-multiply-reduce over the (C, 2) axes, then over the
+            # 3-wide marker axis
+            Jw = JpX * omega[..., None]
+            A = csum(torch.sum(Jw[..., :, None] * JpX[..., None, :], dim=(2, 4)))
+            G = torch.sum(A[..., None] * JfkX[..., None, :, :], dim=-2)  # (B, N, L, 3, P)
+        else:
+            A = csum(torch.einsum("bnclui,bncluj->bnlij", JpX * omega[..., None], JpX))
+            G = A @ JfkX
+        H_meas = JfkX.reshape(B, N, Lm * 3, P).mT @ G.reshape(B, N, Lm * 3, P)
+        bv = csum(torch.einsum("bnclui,bnclu->bnli", JpX, er))
         g_meas = torch.einsum("bnlxa,bnlx->bna", JfkX, bv)
         return H_meas, g_meas
 
@@ -323,13 +424,12 @@ def _fte_solve(hj_parts_fn, X0, meas, w_meas, cfg, n_valid, compute_cov):
             # as the D3 stencil, the measurement term as one batched
             # matvec with H's diagonal cancelled (it is in diag_extra)
             diag_extra = diag0 + damp - diag_model
-            diag_H = torch.diagonal(H_meas, dim1=-2, dim2=-1)
+            meas_mul = pcg_meas_operator(H_meas, cfg.pcg_meas_bf16)
 
             def A_mul(x):
                 d3x = third_difference(x, Ts) * rmask
                 model = 2.0 * _d3_correlate(d3x * wq, Ts)
-                meas_ = (H_meas @ x[..., None])[..., 0] - diag_H * x
-                return model + meas_ + diag_extra * x
+                return model + meas_mul(x) + diag_extra * x
 
             c_pc = torch.clamp(torch.mean(diag_extra, dim=-2), min=1e-12)  # (B, P)
             return pcg_solve(A_mul, spectral_minv(U_pc, e_pc, wq, c_pc), -g,
@@ -370,24 +470,38 @@ def _fte_solve(hj_parts_fn, X0, meas, w_meas, cfg, n_valid, compute_cov):
             # rejected step and otherwise keeps its factors (the JAX
             # package's per-run cond under vmap, which runs both branches)
             refresh = need_refresh | (it % lag == lag - 1)
-            J_new = tuple(where_run(refresh, a, b) for a, b in zip(J_new, JX))
+            J_new = choose(refresh, J_new, JX)
         new_cost = objective_from_h(X_new, h_new)
         ok = (new_cost < cost) & torch.isfinite(dX).all(dim=-1).all(dim=-1)
         X = where_run(ok, X_new, X)
         hX = where_run(ok, h_new, hX)
-        JX = tuple(where_run(ok, a, b) for a, b in zip(J_new, JX))
+        JX = choose(ok, J_new, JX)
         cost = torch.where(ok, new_cost, cost)
         lam = torch.clamp(torch.where(ok, lam * cfg.lam_down, lam * cfg.lam_up), 1e-10, 1e10)
         return X, hX, JX, lam, cost, ~ok
 
     def hj_batch(X):
-        h, Jp, Jfk = hj_parts_fn(X)
+        if not parts:
+            return meas_fn(X)
+        h, Jp, Jfk = meas_fn(X)
         return h, (Jp, Jfk)
+
+    def choose(ok, a, b):  # per run: the flat J, or the (Jp, Jfk) factors
+        if parts:
+            return tuple(where_run(ok, x, y) for x, y in zip(a, b))
+        return where_run(ok, a, b)
+
+    def shrink(v1, v2):
+        """Relative deficit of the variance v1 = v(r) against its
+        extrapolation to r = 0, v0 ~ v(r) + (v(r) - v(2r)): 0 where the
+        ridge does not matter, towards 1 for near-floppy directions."""
+        return torch.clamp((v1 - v2) / torch.clamp(2.0 * v1 - v2, min=1e-30), 0.0, 1.0)
 
     def posterior(X, hX, JX):
         """The Laplace posterior at the final accepted (X, hX, JX): the
         undamped Hessian bands, Jacobi-scaled, selected-inverted, scaled
-        back, and pushed through the FK Jacobian to the markers."""
+        back, and, in hj_parts form, pushed through the FK Jacobian to
+        the markers."""
         H_f, _ = meas_normal_pieces(hX, JX, cfg.num_iters > cfg.plain_iters)
         bands = hessian_bands(H_f, limit_hessian(X)[2])
         eye = torch.eye(P, dtype=dtype, device=device)
@@ -408,6 +522,15 @@ def _fte_solve(hj_parts_fn, X0, meas, w_meas, cfg, n_valid, compute_cov):
         else:
             Z = block_banded_marginal_covariance(bands)
         pose_cov = Z * s[..., :, None] * s[..., None, :]
+        if ridge:
+            rel_pose = shrink(torch.diagonal(Z, dim1=-2, dim2=-1),
+                              torch.diagonal(Z2, dim1=-2, dim2=-1))
+            rel_pose = torch.where(live[..., None], rel_pose, torch.zeros_like(rel_pose))
+            shrink_pose = torch.amax(rel_pose, dim=(-2, -1))
+        else:
+            shrink_pose = torch.zeros((B,), dtype=dtype, device=device)
+        if not parts:  # no marker Jacobian to push the covariance through
+            return dict(pose_cov=pose_cov, cov_ridge_shrink=shrink_pose)
         _Jp, Jfk = JX
 
         def marker_var(pc):
@@ -416,20 +539,9 @@ def _fte_solve(hj_parts_fn, X0, meas, w_meas, cfg, n_valid, compute_cov):
         v1 = marker_var(pose_cov)
         out = dict(pose_cov=pose_cov,
                    marker_cov=torch.einsum("rnlxa,rnab,rnlyb->rnlxy", Jfk, pose_cov, Jfk),
-                   marker_std=torch.sqrt(v1))
+                   marker_std=torch.sqrt(v1), cov_ridge_shrink=shrink_pose)
         if not ridge:
-            out["cov_ridge_shrink"] = torch.zeros((B,), dtype=dtype, device=device)
             return out
-
-        def shrink(v1, v2):
-            """Relative deficit of the variance v1 = v(r) against its
-            extrapolation to r = 0, v0 ~ v(r) + (v(r) - v(2r)): 0 where the
-            ridge does not matter, towards 1 for near-floppy directions."""
-            return torch.clamp((v1 - v2) / torch.clamp(2.0 * v1 - v2, min=1e-30), 0.0, 1.0)
-
-        rel_pose = shrink(torch.diagonal(Z, dim1=-2, dim2=-1), torch.diagonal(Z2, dim1=-2, dim2=-1))
-        rel_pose = torch.where(live[..., None], rel_pose, torch.zeros_like(rel_pose))
-        out["cov_ridge_shrink"] = torch.amax(rel_pose, dim=(-2, -1))
         rel = shrink(v1, marker_var(Z2 * s[..., :, None] * s[..., None, :]))
         out["marker_std_ridge_shrink"] = rel
         live_cells = live[..., None, None].to(dtype).expand_as(rel)

@@ -7,11 +7,13 @@ from __future__ import annotations
 import os
 import shutil
 import subprocess
+import threading
 import tempfile
 from pathlib import Path
 
 GXX_FLAGS = ["-O3", "-march=native", "-std=c++17", "-fPIC", "-pthread", "-shared"]
 TIMEOUT_S = 180
+_count_lock = threading.Lock()
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 
 
@@ -39,4 +41,11 @@ def build(source: Path, library: Path) -> Path:
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
+    with _count_lock:
+        build.runs += 1
     return library
+
+
+#: builds this process has run (a library newer than its source is not
+#: rebuilt and not counted); read by utils.profiling.compile_count
+build.runs = 0

@@ -19,6 +19,17 @@ Phases, one line each with its seconds:
   4. main    - the batched flagship FTE solve (B=96, N=100, C=6, L=20,
                float32, 13 GN iterations, linear_solver='pallas') on
                bench.py's synthetic input, counting kernel launches;
+     mesh    - the device mesh (parallel/mesh.py) on main's input: every
+               visible card as one mesh through sharded_fte_solver
+               (bit for bit fte_solve on one card, 13 banded launches a
+               shard), a (data 1, model 2) mesh with both camera shards
+               on the card (40 iterations of 'pcg', cost within 2% of
+               the unsharded solve), a data mesh of 2 shards on the card
+               beside one call, the h_fn and hj_fn forms, assembly='vpu'
+               and pcg_meas_bf16 each in turns with its default, and
+               solve_batch over the mesh against device= on 24 of the
+               sweep's runs; with two cards or more, a data-only mesh
+               over all of them;
   5. golden  - fte_run with the default config (pcg, float64) against
                tests/golden/fte_synthetic_n30.npz;
   6. probes  - the 13 probe kernels (scripts/probe_mosaic*.py's rows)
@@ -533,6 +544,249 @@ def phase_main(device, B=96, N=100, C=6, iters=13, reps=3):
            f"n_converged {n_conv}/{B}; max_grad_norm {gmax:.4g}; "
            f"mean_marker_err_m {mk_err:.5f}; banded_chol launches {launches}")
     return launches
+
+
+#: tests/test_parallel.py's rule for camera-sharded 'pcg': every run's
+#: cost within 2% of the unsharded solve's after 40 iterations
+MESH_PCG_ITERS, MESH_PCG_COST_RTOL = 40, 0.02
+#: runs of the sweep phase's set that phase_mesh solves through solve_batch
+MESH_SWEEP_RUNS = 24
+
+
+def _sync_time(fn):
+    t1 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t1, out
+
+
+def _mean_marker_err(X, pts3d):
+    from acinoset_tpu_torch.models import cheetah
+
+    mk = cheetah.fk25(X).cpu().numpy()
+    if not np.isfinite(mk).all():
+        raise AssertionError("non-finite marker positions")
+    return float(np.mean(np.linalg.norm(mk - pts3d[None], axis=-1)))
+
+
+def _worker_launches(devices, reset):
+    """The banded kernel's launch count in this process (a mesh row's
+    worker process), set to 0 first when ``reset``."""
+    from acinoset_tpu_torch.kernels.banded_cuda import banded_solve
+
+    if reset:
+        banded_solve.launches = 0
+    return banded_solve.launches
+
+
+def _worker_solve_s(devices, B, N, C, iters):
+    """Seconds of two 'pallas' solves of the main path's input made and
+    solved on the row's device inside a mesh row's worker process (no
+    pipe in the time): the rows' own speed."""
+    d = devices[0]
+    cfg, hj_parts, args, _pts = _main_inputs(d, B, N, C, iters, "pallas")
+    from acinoset_tpu_torch.solvers.trajopt import fte_solve
+
+    times = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        fte_solve(hj_parts, *args, cfg, device=d)
+        torch.cuda.synchronize(d)
+        times.append(time.perf_counter() - t1)
+    return times[1:]
+
+
+def mesh_launches(mesh, reset=False):
+    """The banded kernel's launches by a mesh's rows: this process's count
+    for a mesh of one row, else the sum of the rows' worker processes'."""
+    from acinoset_tpu_torch.parallel import mesh as mesh_lib
+
+    n = mesh.shape["data"]
+    return sum(mesh_lib.run_rows(mesh, _worker_launches, [(reset,)] * n))
+
+
+def phase_mesh(device, B=96, N=100, C=6, iters=13):
+    """The device mesh (parallel/mesh.py) and the solver's last options on
+    the main path's input. (a) every visible card as one mesh
+    (``make_mesh()``) through ``sharded_fte_solver(with_status=True)``
+    with 'pallas': on one card bit for bit ``fte_solve``, 13 banded
+    launches a shard; (b) a (data 1, model 2) mesh with both camera
+    shards on this card, 40 iterations of 'pcg', every run's cost within
+    2% of the unsharded solve's; a data mesh of 2 rows on this card
+    beside one call (the rows' worker processes, timed); (c) the h_fn
+    and hj_fn forms, assembly='vpu' ('pallas') and pcg_meas_bf16
+    ('pcg'), each in turns with its default, mean marker error under
+    0.02 m; (d)
+    solve_batch over the mesh against the same call with device= (on
+    several cards, with max_batch at each card's share: the same work),
+    on the first 24 runs of the sweep phase's set (a whole share a
+    card), mean marker error under 0.02 m; (e) with two cards or more, a
+    data-only mesh over all of them, at B and at B a card, and the rows'
+    own solve s inside their workers."""
+    from acinoset_tpu_torch.parallel import mesh as mesh_lib
+    from acinoset_tpu_torch.pipeline import ekf as tekf
+    from acinoset_tpu_torch.pipeline.sweep import solve_batch
+    from acinoset_tpu_torch.solvers.trajopt import fte_objective, fte_solve
+
+    t0 = time.perf_counter()
+    cfg, hj_parts, args, pts3d = _main_inputs(device, B, N, C, iters, "pallas")
+    h_fn = tekf.make_h_fn(*hj_parts.rig, torch.float32, device)
+
+    def say(line):
+        print(f"[mesh] {line}", flush=True)
+
+    # (a) every visible card as one mesh
+    mesh = mesh_lib.make_mesh()
+    s_ref, (X_ref, info_ref) = _sync_time(lambda: fte_solve(hj_parts, *args, cfg, device=device))
+    solver = mesh_lib.sharded_fte_solver(mesh, None, cfg, hj_parts_fn=hj_parts, with_status=True)
+    if mesh.shape["data"] > 1:
+        solver(*args)  # warm-up: the rows' worker processes and their cards
+    mesh_launches(mesh, reset=True)
+    s_mesh, (X, conv, gn) = _sync_time(lambda: solver(*args))
+    launches = mesh_launches(mesh)
+    if launches != iters * mesh.size:
+        raise AssertionError(f"{launches} banded launches over {mesh.size} shards, "
+                             f"not {iters} a shard")
+    if mesh.size == 1:
+        if not (torch.equal(X, X_ref) and torch.equal(conv, info_ref["converged"])
+                and torch.equal(gn, info_ref["grad_norm"])):
+            raise AssertionError("a one-card mesh is not fte_solve bit for bit")
+        same = "bit for bit fte_solve"
+    else:
+        same = f"max |X - fte_solve X| {float((X.to(device) - X_ref).abs().max()):.3g}"
+    mk = _mean_marker_err(X, pts3d)
+    if not mk < 0.02:
+        raise AssertionError(f"mesh solve mean marker error {mk} m is not under 0.02 m")
+    say(f"(a) mesh {mesh.shape} ('pallas'): solve s {s_mesh:.4f} (fte_solve "
+        f"{s_ref:.4f}); {same}; banded_chol launches {launches} "
+        f"({launches // mesh.size} a shard); mean_marker_err_m {mk:.5f}")
+
+    # (b) the camera reduction: two camera shards on this card
+    cfg_pcg = replace(cfg, linear_solver="pcg", num_iters=MESH_PCG_ITERS)
+    s1, (X1, _i1) = _sync_time(lambda: fte_solve(hj_parts, *args, cfg_pcg, device=device))
+    mesh_c = mesh_lib.make_mesh(devices=[device, device], model_size=2)
+    solver_c = mesh_lib.sharded_fte_solver(mesh_c, None, cfg_pcg, hj_parts_fn=hj_parts)
+    s2, X2 = _sync_time(lambda: solver_c(*args))
+    c1 = fte_objective(X1, h_fn, args[1], args[2], cfg_pcg)
+    c2 = fte_objective(X2, h_fn, args[1], args[2], cfg_pcg)
+    gap = (c2 - c1).abs() / c1
+    if not bool((gap < MESH_PCG_COST_RTOL).all()):
+        raise AssertionError(f"camera-sharded pcg cost gap {float(gap.max())} over "
+                             f"{MESH_PCG_COST_RTOL}")
+    say(f"(b) mesh {mesh_c.shape} on one card ('pcg', {MESH_PCG_ITERS} iterations, "
+        f"camera sums by {mesh_lib.TRANSPORT}): solve s {s2:.4f} (unsharded "
+        f"{s1:.4f}); cost gap max {float(gap.max()):.3g}, median "
+        f"{float(gap.median()):.3g}; mean_marker_err_m {_mean_marker_err(X2, pts3d):.5f}")
+    mesh_d = mesh_lib.make_mesh(devices=[device, device], model_axis=False)
+    solver_d = mesh_lib.sharded_fte_solver(mesh_d, None, cfg, hj_parts_fn=hj_parts)
+    solver_d(*args)  # warm-up: the rows' worker processes
+    sd, Xd = _sync_time(lambda: solver_d(*args))
+    say(f"    mesh {mesh_d.shape} on one card ('pallas', B={B // 2} a shard): solve s "
+        f"{sd:.4f} (one call {s_ref:.4f}); mean_marker_err_m "
+        f"{_mean_marker_err(Xd, pts3d):.5f}")
+
+    # (c) the measurement forms and the options, each in turns with its default
+    cfg_bf = replace(cfg, linear_solver="pcg")
+    variants = [
+        ("h_fn (jacfwd)", cfg, dict(h_fn=h_fn), cfg),
+        ("hj_fn", cfg, dict(hj_fn=tekf.make_hj_fn(*hj_parts.rig, torch.float32, device)), cfg),
+        ("assembly='vpu'", replace(cfg, assembly="vpu"), {}, cfg),
+        ("pcg_meas_bf16", replace(cfg_bf, pcg_meas_bf16=True), {}, cfg_bf),
+    ]
+    for name, cfg_v, kw, cfg_d in variants:
+        def run_v():
+            return fte_solve(None if kw else hj_parts, *args, cfg_v, device=device, **kw)
+
+        def run_d():
+            return fte_solve(hj_parts, *args, cfg_d, device=device)
+
+        times_v, times_d = [], []
+        for _ in range(2):
+            sv, (Xv, _iv) = _sync_time(run_v)
+            sdf, (Xdf, _idf) = _sync_time(run_d)
+            times_v.append(sv)
+            times_d.append(sdf)
+        mk_v, mk_d = _mean_marker_err(Xv, pts3d), _mean_marker_err(Xdf, pts3d)
+        if not mk_v < 0.02:
+            raise AssertionError(f"{name}: mean marker error {mk_v} m is not under 0.02 m")
+        say(f"(c) {name} ({cfg_v.linear_solver}): solve s "
+            f"{', '.join(f'{t:.4f}' for t in times_v)} against the default's "
+            f"{', '.join(f'{t:.4f}' for t in times_d)}; mean_marker_err_m {mk_v:.5f} "
+            f"(default {mk_d:.5f})")
+
+    # (d) one stage over the mesh, on a whole share of runs a card
+    mesh_s = mesh_lib.make_mesh(model_axis=False)
+    n_rows = mesh_s.shape["data"]
+    runs, truth = make_sweep_runs(limit=MESH_SWEEP_RUNS // n_rows * n_rows)
+    kw = dict(num_iters=iters, plain_iters=5)
+    if mesh_s.shape["data"] > 1:
+        solve_batch(runs, 0.5, mesh=mesh_s, **kw)  # warm-up: the rows' cards
+    s_dev, by_dev = _sync_time(lambda: solve_batch(runs, 0.5, device=device, **kw))
+    s_msh, by_mesh = _sync_time(lambda: solve_batch(runs, 0.5, mesh=mesh_s, **kw))
+    def equal(got, want):
+        return all(np.array_equal(rg["x"], rw["x"]) and rg["cost"] == rw["cost"]
+                   and rg["converged"] == rw["converged"] for rg, rw in zip(got, want))
+
+    def cost_gap(got, want):
+        return max(abs(rg["cost"] - rw["cost"]) / abs(rw["cost"]) for rg, rw in zip(got, want))
+
+    err_dev, err_mesh = (np.mean([np.mean(np.linalg.norm(r["positions"] - p, axis=-1))
+                                  for r, p in zip(res, truth)]) for res in (by_dev, by_mesh))
+    if not err_mesh < 0.02:
+        raise AssertionError(f"solve_batch(mesh=) mean marker error {err_mesh} m is not under "
+                             "0.02 m")
+    if n_rows == 1:
+        if not equal(by_mesh, by_dev):
+            raise AssertionError("solve_batch(mesh=) differs from device=")
+        same = "equal"
+    else:
+        # each card solves its share of the batch, padded as the whole batch
+        # is: the work of device= with max_batch at that share, bit for bit;
+        # the cost gap to one batch of every run is what the batch size
+        # alone changes in the rounding
+        share = len(runs) // n_rows
+        by_share = solve_batch(runs, 0.5, device=device, max_batch=share, **kw)
+        if not equal(by_mesh, by_share):
+            raise AssertionError(f"solve_batch(mesh=) differs from device= in batches of "
+                                 f"{share} (max cost gap {cost_gap(by_mesh, by_share):.3g})")
+        same = (f"equal to device= in batches of {share}; against one batch of {len(runs)}: "
+                f"cost gap max {cost_gap(by_mesh, by_dev):.3g}, converged "
+                f"{sum(r['converged'] for r in by_mesh)} against "
+                f"{sum(r['converged'] for r in by_dev)}")
+    say(f"(d) solve_batch of {len(runs)} runs over mesh {mesh_s.shape}: "
+        f"{s_msh:.4f} s, device= {s_dev:.4f} s; {same}; mean_marker_err_m {err_mesh:.5f} "
+        f"(device= {err_dev:.5f})")
+
+    # (e) a data-only mesh over every card
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        mesh_e = mesh_lib.make_mesh(model_axis=False)
+        solver_e = mesh_lib.sharded_fte_solver(mesh_e, None, cfg, hj_parts_fn=hj_parts)
+        solver_e(*args)  # warm-up: every card's allocator and cuBLAS handles
+        mesh_launches(mesh_e, reset=True)
+        se, Xe = _sync_time(lambda: solver_e(*args))
+        mk_e = _mean_marker_err(Xe, pts3d)
+        launches_e = mesh_launches(mesh_e)
+        if not (mk_e < 0.02 and launches_e == iters * n_cards):
+            raise AssertionError(f"data mesh over {n_cards} cards: marker error {mk_e}, "
+                                 f"{launches_e} launches")
+        say(f"(e) data mesh {mesh_e.shape} over {n_cards} cards ('pallas'): solve s "
+            f"{se:.4f} against one card's {s_ref:.4f}; mean_marker_err_m {mk_e:.5f}")
+        # the same B runs a card: n_cards times the main path's batch
+        big = tuple(torch.cat([a] * n_cards) for a in args)
+        solver_e(*big)
+        sb, Xb = _sync_time(lambda: solver_e(*big))
+        say(f"    {n_cards * B} runs ({B} a card) over the mesh: solve s {sb:.4f}, "
+            f"{n_cards * B / sb:.2f} traj/s against one card's {B / s_ref:.2f}; "
+            f"mean_marker_err_m {_mean_marker_err(Xb, pts3d):.5f}")
+        inner = mesh_lib.run_rows(mesh_e, _worker_solve_s, [(B, N, C, iters)] * n_cards)
+        say(f"    inside each row's worker, {B} runs made there: solve s "
+            f"{'; '.join(', '.join(f'{t:.4f}' for t in row) for row in inner)}")
+    else:
+        say("(e) not run: one card is visible (the data mesh over every card needs two "
+            "or more)")
+    mesh_lib.shutdown_workers()  # the rows' worker processes end with the phase
+    _phase("mesh", t0, f"B={B} N={N} C={C} f32 iters={iters}")
 
 
 #: the calibration rule of tests/test_fte.py's posterior test: frames
@@ -1185,10 +1439,11 @@ def phase_probes(device):
 
 # ---- sweep: the batched FTE stage with chunking and rescue ----
 
-def make_sweep_runs(n_rigs=8, n_seeds=16, seed=0):
+def make_sweep_runs(n_rigs=8, n_seeds=16, seed=0, limit=None):
     """128 synthetic runs: 8 rigs (6 cameras, radius 10..14 m) x 16
     seeds, 80..100 frames at 90 fps, the flagship's noise. Returns
-    (RunData list, ground-truth marker positions per run)."""
+    (RunData list, ground-truth marker positions per run); ``limit`` keeps
+    the first runs of the same set."""
     from acinoset_tpu_torch.pipeline.sweep import RunData
     from acinoset_tpu_torch.utils import synthetic
 
@@ -1201,6 +1456,8 @@ def make_sweep_runs(n_rigs=8, n_seeds=16, seed=0):
         k, d, r, t, res = cams
         for si in range(n_seeds):
             i = ri * n_seeds + si
+            if limit is not None and i >= limit:
+                return runs, truth
             X = synthetic.cheetah_gallop(N=int(lengths[i]), fps=90.0)
             px, lik, pts3d = synthetic.render_measurements(
                 X, cams, noise_px=1.5, outlier_frac=0.02, bad_lik_frac=0.05, seed=1000 + i)
@@ -3027,6 +3284,7 @@ def main():
     phase_build()
     rec = phase_kernel(device)
     rec["launches"] = phase_main(device)
+    phase_mesh(device)
     phase_golden(device)
     probe_recs = phase_probes(device)
     sweep = phase_sweep(device)

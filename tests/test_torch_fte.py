@@ -194,11 +194,13 @@ def test_fte_run_reproduces_golden_fixture():
 @pytest.mark.parametrize(
     "change,error",
     [
-        (dict(assembly="vpu"), ValueError),
-        (dict(pcg_meas_bf16=True), NotImplementedError),
+        (dict(assembly="mxu"), ValueError),
+        (dict(linear_solver="lu"), ValueError),
     ],
 )
 def test_unported_options_raise(batch, change, error):
+    """Option values that neither package has raise (every option of the
+    JAX FteConfig is ported: tests/test_torch_fte_forms.py)."""
     rig, X0b, measb, wb, _nv = batch
     cfg = replace(convert.fte_config_from_dict(asdict(_cfg("pcg"))), **change)
     with pytest.raises(error):

@@ -25,6 +25,7 @@ from acinoset_tpu.pipeline import data as jdata
 from acinoset_tpu.pipeline import generic as jgen
 from acinoset_tpu.pipeline import sweep as jsweep
 from acinoset_tpu_torch.models import cheetah as tcheetah
+from acinoset_tpu_torch.parallel import mesh as tmesh
 from acinoset_tpu_torch.pipeline import data as tdata
 from acinoset_tpu_torch.pipeline import generic as tgen
 from acinoset_tpu_torch.pipeline import sweep as tsweep
@@ -95,6 +96,29 @@ def test_sweep_generic_matches_jax(swept):
         for key in ("cost", "cost0"):
             assert abs(rt[key] - rj[key]) <= 1e-8 * abs(rj[key]), (key, rt[key], rj[key])
         assert rt["converged"] == rj["converged"]
+
+
+@pytest.mark.parametrize("given", ["neither", "device", "mesh"])
+def test_sweep_generic_hands_its_stages_only_the_placement_it_was_given(dataset, monkeypatch,
+                                                                        given):
+    """As tests/test_torch_sweep_files.py holds ``sweep``: with neither
+    ``device`` nor ``mesh`` the stages get neither and take their default
+    (every visible CUDA device); a named one reaches both stages."""
+    seen = []
+
+    def record(model, runs, dlc_thresh, **kw):
+        seen.append({k: kw[k] for k in ("device", "mesh") if k in kw})
+        return [dict(data_dir=r.data_dir, x=np.zeros((2, 63)),
+                     states=dict(smoothed_x=np.zeros((2, 63)))) for r in runs]
+
+    monkeypatch.setattr(tsweep, "solve_batch_generic", record)
+    monkeypatch.setattr(tsweep, "solve_batch_ekf_generic", record)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    mesh = tmesh.make_mesh(2, model_axis=False, devices=[torch.device("cpu")] * 2)
+    kw = {"neither": {}, "device": dict(device="cpu"), "mesh": dict(mesh=mesh)}[given]
+    tsweep.sweep_generic(dataset[1], dataset[0], save=False, init_marker="nose",
+                         stages=("fte", "ekf"), max_frames=12, **kw)
+    assert len(seen) == 2 and all(s == kw for s in seen)
 
 
 @pytest.mark.parametrize("path", ["fte/traj_results.pickle", "ekf/ekf.pickle"])

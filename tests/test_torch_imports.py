@@ -12,10 +12,12 @@ import torch
 
 import acinoset_tpu_torch
 from acinoset_tpu_torch import cli as tcli
+from acinoset_tpu_torch import entry as tentry
 from acinoset_tpu_torch.calib import app as tapp
 from acinoset_tpu_torch.calib import corners as tcorners
 from acinoset_tpu_torch.eval import metrics as tmetrics
 from acinoset_tpu_torch.ops import camera as tcam
+from acinoset_tpu_torch.parallel import mesh as tmesh
 from acinoset_tpu_torch.pipeline import ekf as tekf
 from acinoset_tpu_torch.pipeline import app as tpapp
 from acinoset_tpu_torch.pipeline import fte as tfte
@@ -44,7 +46,8 @@ def test_port_and_chip_smoke_import_no_jax_nor_io_stack():
               "calib.pnp", "calib.intrinsics", "calib.extrinsics", "calib.corners", "calib.native",
               "calib.app", "utils.png", "utils._gxx", "cli", "utils.hdf5", "utils.mp4",
               "pipeline.app", "pipeline.tri", "pipeline.points2d", "pipeline.viewer",
-              "eval.metrics"):
+              "eval.metrics", "parallel.mesh", "entry", "utils.profiling",
+              "utils.pan_compensation", "gui.label_session", "gui.skeleton_builder"):
         assert f"acinoset_tpu_torch.{m}" in modules
     code = (
         "import importlib, sys\n"
@@ -98,6 +101,8 @@ ENTRY_POINTS = {
     "marker_std_from_smoothed": lambda: tekf.marker_std_from_smoothed(
         np.zeros((2, 25)), np.tile(np.eye(25), (2, 1, 1))),
     "time_chain": lambda: tpm2.time_chain(1, K=1),
+    "entry": lambda: tentry.entry(),
+    "make_mesh": lambda: tmesh.make_mesh(),
     "find_corners_batch": lambda: tcorners.find_corners_batch([np.zeros((32, 32))], (9, 6)),
     "find_corners": lambda: tcorners.find_corners(np.zeros((32, 32)), (9, 6)),
     "find_corners_images": lambda: tcorners.find_corners_images([], (9, 6)),

@@ -22,6 +22,7 @@ import torch
 import file_pipeline_cases as cases
 from acinoset_tpu.pipeline import data as jdata
 from acinoset_tpu.pipeline import sweep as jsweep
+from acinoset_tpu_torch.parallel import mesh as tmesh
 from acinoset_tpu_torch.pipeline import sweep as tsweep
 
 torch.set_num_threads(2)
@@ -102,8 +103,7 @@ def _run_name(res, root):
     return os.path.relpath(res["data_dir"], root).split(os.sep)[0]
 
 
-def test_sweep_matches_jax(swept):
-    (jroot, want), (troot, got) = swept["jax"], swept["port"]
+def _assert_sweeps_match(got, troot, want, jroot):
     assert [_run_name(r, troot) for r in got] == [_run_name(r, jroot) for r in want] == [
         "a", "c", "b", "d"]  # grouped by fps: 90 then 120
     for rt, rj in zip(got, want):
@@ -115,6 +115,51 @@ def test_sweep_matches_jax(swept):
             name, rt["cost"], rj["cost"])
         assert rt["converged"] == rj["converged"], name
         assert rt["start_frame"] == rj["start_frame"] == 0
+
+
+def test_sweep_matches_jax(swept):
+    (jroot, want), (troot, got) = swept["jax"], swept["port"]
+    _assert_sweeps_match(got, troot, want, jroot)
+
+
+def test_sweep_over_a_mesh_matches_jax(tmp_path, roots, swept):
+    """``sweep(mesh=)`` over a data mesh of 2 CPU shards (each stage's
+    batch padded to 2 rows, each row solved in a worker process) against
+    the JAX package's sweep over its own every-device mesh, by the same
+    rules as the one-device sweep."""
+    root = str(tmp_path / "mesh")
+    shutil.copytree(roots["jax"][0], root)
+    mesh = tmesh.make_mesh(2, model_axis=False, devices=[torch.device("cpu")] * 2)
+    with pytest.MonkeyPatch.context() as mp:
+        for fn in ("solve_batch", "solve_batch_ekf"):
+            mp.setattr(tsweep, fn, functools.partial(getattr(tsweep, fn), dtype=torch.float64))
+        got = tsweep.sweep(root, dlc_thresh=cases.THRESH, num_iters=ITERS,
+                           stages=("fte", "ekf"), mesh=mesh)
+    jroot, want = swept["jax"]
+    _assert_sweeps_match(got, root, want, jroot)
+
+
+@pytest.mark.parametrize("given", ["neither", "device", "mesh"])
+def test_sweep_hands_its_stages_only_the_placement_it_was_given(roots, monkeypatch, given):
+    """With neither ``device`` nor ``mesh`` the stages get neither, so they
+    take their default, a data mesh of every visible CUDA device (the JAX
+    package's sweep passes neither); a named device or mesh goes through
+    to every stage call, the rescue's too."""
+    seen = []
+
+    def record(runs, dlc_thresh, **kw):
+        seen.append({k: kw[k] for k in ("device", "mesh") if k in kw})
+        return [dict(data_dir=r.data_dir, x=np.zeros((2, 25)), converged=False,
+                     states=dict(smoothed_x=np.zeros((2, 25)))) for r in runs]
+
+    monkeypatch.setattr(tsweep, "solve_batch", record)
+    monkeypatch.setattr(tsweep, "solve_batch_ekf", record)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    mesh = tmesh.make_mesh(2, model_axis=False, devices=[torch.device("cpu")] * 2)
+    kw = {"neither": {}, "device": dict(device="cpu"), "mesh": dict(mesh=mesh)}[given]
+    tsweep.sweep(roots["port"][0], save=False, stages=("fte", "ekf"), max_frames=12, **kw)
+    assert len(seen) == 8  # two fps groups: ekf, fte and the rescue's two rounds
+    assert all(s == kw for s in seen)
 
 
 @pytest.mark.parametrize("stage", ["fte", "ekf"])

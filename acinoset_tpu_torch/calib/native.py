@@ -7,11 +7,13 @@ method as calib.corners.
 The library is built from the checkout's ``native/corners.cpp`` at
 first use, with ``native/Makefile``'s flags (``utils._gxx``), into
 ``acinoset_tpu_torch/_build/libacinoset_native.so``. A failed build
-raises; no prebuilt library is looked for.
+raises; no prebuilt library is looked for. ``available()`` says whether
+the library builds and loads here.
 """
 from __future__ import annotations
 
 import ctypes
+import subprocess
 import threading
 from pathlib import Path
 from typing import List, Tuple
@@ -56,6 +58,18 @@ def _load():
         ctypes.c_int,
     ]
     return lib
+
+
+def available() -> bool:
+    """Whether the engine builds (or is built) and loads: False where
+    ``native/corners.cpp`` or ``g++`` is missing or the build fails.
+    It selects nothing: ``find_corners_images(engine='auto')`` raises
+    either way."""
+    try:
+        _library()
+    except (RuntimeError, OSError, subprocess.SubprocessError):
+        return False
+    return True
 
 
 def _to_gray_f32(image: np.ndarray) -> np.ndarray:

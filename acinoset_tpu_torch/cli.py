@@ -22,11 +22,11 @@ it runs over every visible CUDA device (a data mesh, as the batched stages
 do by default). Without a CUDA device every subcommand raises unless given
 ``--device cpu``.
 
-What the port does not do: the ``dlc`` stage (labelled videos,
-``pipeline/video.py``, needs a video decoder) raises where cam[1-9].mp4
-exist; the plots (``fte.svg``, ``ekf.pdf``, ``reconstructions.png``) need
-matplotlib and are not written (a line names each); ``eval --hist``
-raises.
+The ``dlc`` stage writes no labelled video: the port has no video
+decoder, so for each cam[1-9].mp4 it prints a ``Not written:`` line
+naming the video the JAX package would write, and ``all`` goes on to tri.
+``all`` ends with ``reconstructions.png``, the sba, ekf and fte results
+overlaid; the fte and ekf stages write their state plots.
 """
 from __future__ import annotations
 
@@ -118,8 +118,7 @@ def _parser() -> ArgumentParser:
     pe.add_argument("--gt_h5", type=str, nargs="+", required=True)
     pe.add_argument("--cams", type=int, nargs="+", required=True)
     pe.add_argument("--hist", type=str, default=None,
-                    help="the reprojection-error histogram png: needs "
-                    "matplotlib, which the port does not use, so it raises")
+                    help="Save the reprojection-error histogram png here")
     pe.add_argument("--start_frame", type=int, default=None,
                     help="GT frame offset of the result window "
                     "(default: the result pickle's start_frame, else 0)")
@@ -139,12 +138,14 @@ def _run_stages(args, device):
     for stage in stages:
         print(f"========== {stage.upper()} ==========\n")
         if stage == "dlc":
+            from .pipeline.video import labeled_video_fpath
+
             vids = sorted(glob(os.path.join(args.data_dir, "cam[1-9].mp4")))
-            if vids:
-                raise NotImplementedError(
-                    f"{args.data_dir} holds videos ({len(vids)} cam*.mp4): the dlc stage "
-                    "(labelled videos, acinoset_tpu.pipeline.video) is not ported")
-            print("No videos found; skipping dlc video labeling")
+            for vid in vids:
+                out = labeled_video_fpath(vid, os.path.join(args.data_dir, "dlc"))
+                print(f"Not written: {out} (the port has no video decoder)")
+            if not vids:
+                print("No videos found; skipping dlc video labeling")
         elif stage == "tri":
             from .pipeline.tri import tri
 
@@ -163,8 +164,12 @@ def _run_stages(args, device):
             fte(args.data_dir, args.start_frame, args.end_frame, args.dlc_thresh,
                 uncertainty=args.uncertainty, device=device)
     if args.cmd == "all":
-        print(f"Not written: {os.path.join(args.data_dir, 'reconstructions.png')} "
-              "(plots need matplotlib)")
+        from .pipeline.plots import plot_multiple_cheetah_reconstructions
+
+        fpaths = [os.path.join(args.data_dir, s, f"{s}.pickle") for s in ("sba", "ekf", "fte")]
+        plot_multiple_cheetah_reconstructions(
+            [f for f in fpaths if os.path.exists(f)], reprojections=False, dark_mode=True,
+            out_fpath=os.path.join(args.data_dir, "reconstructions.png"))
 
 
 def _calib(args, device):
@@ -216,12 +221,9 @@ def _view(args):
 
 
 def _eval(args, device):
-    from .eval.metrics import evaluate_reconstruction
+    from .eval.metrics import evaluate_reconstruction, reprojection_errors, save_error_histogram
     from .pipeline import data as data_io
 
-    if args.hist:
-        raise NotImplementedError(
-            f"--hist {args.hist}: the histogram needs matplotlib, which the port does not use")
     payload = data_io.load_pickle(args.result)
     scene = args.scene or payload.get("scene_fpath")
     if not (scene and os.path.exists(scene)):
@@ -252,6 +254,11 @@ def _eval(args, device):
     )
     for cam, m in res.items():
         print(cam, {k2: round(v, 4) if isinstance(v, float) else v for k2, v in m.items()})
+    if args.hist:
+        errs = reprojection_errors(payload["positions"], gt, k, d.reshape(-1, 4), r, t,
+                                   cam_indices=args.cams, device=device)
+        save_error_histogram(errs, args.hist)
+        print(f"saved histogram: {args.hist} ({errs.size} points)")
 
 
 def main(argv=None):

@@ -6,8 +6,11 @@ written through ``utils.hdf5`` (no h5py, pandas or PyTables), the dense
 ``Points2D`` container, and the skeleton and result pickles. A file
 written by either package loads in the other to equal arrays.
 
-The JAX package's DataFrame shims (``load_dlc_points_as_df``,
-``points2d_from_df``) are not ported: they return pandas objects.
+The JAX package's DataFrame shims have column-table twins here
+(``load_dlc_points_as_df``, ``points2d_from_df``): a table is any
+mapping from a column name to a 1-D array, read by ``t[name]``, so a
+pandas DataFrame is one; the port returns a ``dict`` of numpy arrays in
+the DataFrame's column order.
 """
 from __future__ import annotations
 
@@ -321,6 +324,53 @@ def load_dlc_points(fpaths: Sequence[str], markers: Optional[List[str]] = None) 
             if m in bp_idx:
                 pixels[c, frames, i] = vals[:, bp_idx[m], :2]
                 likelihood[c, frames, i] = vals[:, bp_idx[m], 2]
+    return Points2D(pixels, likelihood, np.arange(n_frames), list(markers))
+
+
+#: the reference's tidy 2D table (src/calib/utils.py:105-120)
+TABLE_COLUMNS = ("frame", "camera", "marker", "x", "y", "likelihood")
+
+
+def load_dlc_points_as_df(fpaths: Sequence[str], verbose: bool = False) -> Dict[str, np.ndarray]:
+    """Per-camera DLC .h5 files -> the reference's tidy table
+    [frame, camera, marker, x, y, likelihood], a row a (camera, frame,
+    marker) in file order, as columns: the JAX package's DataFrame as a
+    dict of numpy arrays (markers an object array)."""
+    parts = []
+    for c, p in enumerate(fpaths):
+        frames, bodyparts, vals = _read_dlc_h5(p)
+        if verbose:
+            print(f"Loaded {p}: {len(frames)} frames, {len(bodyparts)} markers")
+        n, L = vals.shape[:2]
+        parts.append((np.repeat(frames, L), np.full(n * L, c, np.int64),
+                      np.tile(np.array(bodyparts, dtype=object), n), vals[:, :, 0].ravel(),
+                      vals[:, :, 1].ravel(), vals[:, :, 2].ravel()))
+    if not parts:
+        raise ValueError("load_dlc_points_as_df: no files given")
+    return {name: np.concatenate(cols) for name, cols in zip(TABLE_COLUMNS, zip(*parts))}
+
+
+def points2d_from_df(df, markers: List[str]) -> Points2D:
+    """A tidy table (any mapping of the columns frame, camera, marker, x,
+    y, likelihood; a DataFrame is one) -> a dense Points2D over frames 0
+    to the last, cameras in sorted order; rows of other markers are
+    dropped."""
+    camera, frame, marker = (np.asarray(df[k]) for k in ("camera", "frame", "marker"))
+    cams = sorted(np.unique(camera))
+    n_frames = int(frame.max()) + 1
+    C, L = len(cams), len(markers)
+    pixels = np.full((C, n_frames, L, 2), np.nan)
+    likelihood = np.full((C, n_frames, L), np.nan)
+    m_idx = {m: i for i, m in enumerate(markers)}
+    x, y, lik = (np.asarray(df[k], dtype=np.float64) for k in ("x", "y", "likelihood"))
+    for c_i, c in enumerate(cams):
+        sel = camera == c
+        li = np.array([m_idx.get(m, -1) for m in marker[sel]], dtype=np.int64)
+        ok = li >= 0
+        li, fi = li[ok], frame[sel].astype(int)[ok]
+        pixels[c_i, fi, li, 0] = x[sel][ok]
+        pixels[c_i, fi, li, 1] = y[sel][ok]
+        likelihood[c_i, fi, li] = lik[sel][ok]
     return Points2D(pixels, likelihood, np.arange(n_frames), list(markers))
 
 

@@ -7,8 +7,8 @@ reference's initial covariance (AcinoSet src/all_optimizations.py:
 
 Every measurement function maps poses (..., 25) with any leading batch
 dimensions through FK and the fisheye rig. ``ekf`` is the file level: a
-run directory's DLC ``.h5`` files in, ``ekf.pickle`` out (the state plot
-``ekf.pdf`` needs matplotlib and is not written).
+run directory's DLC ``.h5`` files in, ``ekf.pickle`` and the state plot
+``ekf.pdf`` (x and smoothed_x) out.
 """
 from __future__ import annotations
 
@@ -26,6 +26,7 @@ from ..solvers import ekf as ekf_solver
 from ..utils.device import resolve_device
 from . import app
 from . import data as data_io
+from .plots import plot_cheetah_states
 from .tri import triangulate_run
 
 
@@ -257,7 +258,8 @@ def ekf(
     fit of the triangulated nose track (position, heading and velocity,
     the reference's :699-711). Writes ``<out_dir or data_dir/ekf>/
     ekf.pickle`` with the filtered and smoothed states and per-marker
-    error bars."""
+    error bars, and ``ekf.pdf``, x and smoothed_x against the frame
+    index."""
     device = resolve_device(device)
     out_dir = out_dir or os.path.join(data_dir, "ekf")
     dlc_dir = os.path.join(data_dir, "dlc")
@@ -312,5 +314,5 @@ def ekf(
     if save:
         os.makedirs(out_dir, exist_ok=True)
         app.save_ekf(keep, out_dir, scene_fpath, start0, dlc_thresh, positions=positions)
-        print(f"Not written: {os.path.join(out_dir, 'ekf.pdf')} (plots need matplotlib)")
+        plot_cheetah_states(keep["x"], keep["smoothed_x"], os.path.join(out_dir, "ekf.pdf"))
     return dict(positions=positions, states=keep, outliers=int(states["outliers"]))

@@ -1,9 +1,8 @@
 """FTE pipeline for the cheetah model, the counterpart of
 acinoset_tpu.pipeline.fte: default config, the linear-regression initial
 trajectory, one run's solve (``fte_run``), and ``fte``, the file level (a
-run directory's DLC ``.h5`` files in; ``fte.pickle`` and the per-camera
-reprojections out; the state plot ``fte.svg`` needs matplotlib and is
-not written)."""
+run directory's DLC ``.h5`` files in; ``fte.pickle``, the per-camera
+reprojections and the state plot ``fte.svg`` out)."""
 from __future__ import annotations
 
 import os
@@ -20,6 +19,7 @@ from ..utils.device import resolve_device
 from . import app
 from . import data as data_io
 from .ekf import make_hj_parts_fn, nose_track_linreg
+from .plots import plot_cheetah_states
 from .tri import triangulate_run
 
 
@@ -155,8 +155,9 @@ def fte(
     unless given), in float64. ``start_frame`` is 1-based; ``end_frame``
     -1 is the video's last frame. Writes ``<out_dir or data_dir/fte>/
     fte.pickle`` (the states in the reference's column order,
-    ``cheetah.to_fte_order``; ``marker_std`` with ``uncertainty``) and
-    ``cheetah_reprojected_cam{c}.h5`` for every camera."""
+    ``cheetah.to_fte_order``; ``marker_std`` with ``uncertainty``),
+    ``cheetah_reprojected_cam{c}.h5`` for every camera, and ``fte.svg``,
+    the solved states against the frame index."""
     device = resolve_device(device)
     out_dir = out_dir or os.path.join(data_dir, "fte")
     dlc_dir = os.path.join(data_dir, "dlc")
@@ -200,5 +201,5 @@ def fte(
             result["positions"], out_dir, scene_fpath, markers,
             cam_ops.project_points_fisheye, start0, device=device,
         )
-        print(f"Not written: {os.path.join(out_dir, 'fte.svg')} (plots need matplotlib)")
+        plot_cheetah_states(result["x"], out_fpath=os.path.join(out_dir, "fte.svg"))
     return result

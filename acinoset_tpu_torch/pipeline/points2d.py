@@ -1,10 +1,8 @@
 """2D-point project helpers, the counterpart of
 acinoset_tpu.pipeline.points2d (the reference's src/get_points.py): the
-bodyparts of a project's DLC files, and the straight-line 3D path of one
-part that the reference used to seed optimisations.
-
-The JAX package's ``get_2d_points_df`` is not ported: it returns a
-pandas DataFrame.
+bodyparts of a project's DLC files, its tidy 2D table (a dict of
+columns, ``pipeline.data.load_dlc_points_as_df``), and the straight-line
+3D path of one part that the reference used to seed optimisations.
 """
 from __future__ import annotations
 
@@ -32,6 +30,13 @@ def get_bodyparts(project_dir: str) -> List[str]:
     assert fpaths, f"no .h5 files under {project_dir}"
     _frames, bodyparts, _vals = data_io._read_dlc_h5(fpaths[0])
     return list(bodyparts)
+
+
+def get_2d_points_df(project_dir: str):
+    """The tidy [frame, camera, marker, x, y, likelihood] table of a
+    project's DLC files (data/*.h5, else dlc/*.h5) as a dict of columns
+    (src/get_points.py:8-20)."""
+    return data_io.load_dlc_points_as_df(_dlc_files(project_dir))
 
 
 def estimate_part_path(

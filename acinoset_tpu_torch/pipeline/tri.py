@@ -2,10 +2,9 @@
 acinoset_tpu.pipeline.tri (the reference's ``tri()`` entry point,
 AcinoSet src/all_optimizations.py:906-939): filter detections by
 likelihood, triangulate every adjacent camera pair, average the pair
-estimates per (frame, marker).
-
-The JAX package's DataFrame twin ``get_pairwise_3d_points_from_df`` is
-not ported: it takes and returns pandas objects.
+estimates per (frame, marker). ``get_pairwise_3d_points_from_df`` is
+the column-table twin of the JAX package's DataFrame function
+(``pipeline.data``'s tables).
 """
 from __future__ import annotations
 
@@ -47,6 +46,30 @@ def triangulate_runs_batch(
     B, C = K.shape[:2]
     return triangulate_run(pixels_b, valid_b, K, D.reshape(B, C, -1)[..., :4], R,
                            T.reshape(B, C, 3), device)
+
+
+def get_pairwise_3d_points_from_df(
+    points_2d_df, k_arr, d_arr, r_arr, t_arr, triangulate_func=None, device=None
+):
+    """A tidy table of detections [frame, camera, marker, x, y] (a
+    mapping of columns; a DataFrame is one) -> the pair-averaged 3D
+    points [frame, marker, x, y, z] of every (frame, marker) seen, as a
+    dict of numpy arrays (src/calib/calib.py:394-423). Every detection
+    counts; the triangulation runs on ``device`` (CUDA unless given).
+    ``triangulate_func`` is accepted and unused, as in the JAX package."""
+    device = resolve_device(device)
+    markers = sorted(set(np.asarray(points_2d_df["marker"]).tolist()))
+    table = {k: points_2d_df[k] for k in ("frame", "camera", "marker", "x", "y")}
+    table["likelihood"] = np.ones(len(np.asarray(table["x"])))
+    p2d = data_io.points2d_from_df(table, markers)
+    pts3d = triangulate_run(np.nan_to_num(p2d.pixels), np.isfinite(p2d.pixels).all(axis=-1),
+                            k_arr, d_arr, r_arr, t_arr, device)
+    N, L, _ = pts3d.shape
+    flat = pts3d.reshape(-1, 3)
+    ok = np.isfinite(flat).all(axis=1)
+    return {"frame": np.repeat(np.arange(N), L)[ok],
+            "marker": np.tile(np.array(markers, dtype=object), N)[ok],
+            "x": flat[ok, 0], "y": flat[ok, 1], "z": flat[ok, 2]}
 
 
 def tri(

@@ -1,7 +1,8 @@
 """A PNG reader for calibration frames, the port's stand-in for
 ``imageio.imread``: 8-bit, non-interlaced grey, grey+alpha, RGB and
 RGBA images (PNG specification, sections 5-9). Any other file raises,
-naming it.
+naming it. Also the writer of the same images, with optional ``tEXt``
+chunks (section 11.3.4.3), and a reader of those chunks.
 
 The stream is inflated with ``zlib``. Scanline filters 0-2 (None, Sub,
 Up) are undone in numpy; filters 3 and 4 (Average, Paeth) depend on the
@@ -118,3 +119,77 @@ def read_png(path) -> np.ndarray:
     rows = np.frombuffer(raw, np.uint8).reshape(H, 1 + W * C).copy()
     img = np.ascontiguousarray(_unfilter(path, rows, C))
     return img.reshape(H, W) if C == 1 else img.reshape(H, W, C)
+
+
+def read_png_text(path) -> dict:
+    """The keyword -> text pairs of a PNG file's ``tEXt`` chunks, in file
+    order (Latin-1, as the specification has them)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if not data.startswith(SIGNATURE):
+        raise ValueError(f"{path}: not a PNG file")
+    out = {}
+    for kind, payload in _chunks(path, data):
+        if kind == b"tEXt":
+            key, _nul, text = payload.partition(b"\x00")
+            out[key.decode("latin-1")] = text.decode("latin-1")
+    return out
+
+
+def _chunk(kind, payload):
+    return (struct.pack(">I", len(payload)) + kind + payload
+            + struct.pack(">I", zlib.crc32(kind + payload)))
+
+
+def _text_chunk(key, text):
+    """A ``tEXt`` chunk: a keyword of 1-79 Latin-1 characters, no
+    leading, trailing or doubled spaces; characters outside Latin-1
+    become '?'."""
+    k = " ".join(str(key).split()).encode("latin-1", "replace")
+    if not 1 <= len(k) <= 79:
+        raise ValueError(f"PNG tEXt keyword {key!r}: 1-79 characters")
+    return _chunk(b"tEXt", k + b"\x00" + str(text).encode("latin-1", "replace"))
+
+
+def write_png(path, img, level=1, text=None):
+    """Write a uint8 image (H, W) or (H, W, C), C = 2 (grey+alpha), 3
+    (RGB) or 4 (RGBA), as an 8-bit PNG whose row i has filter type
+    i % 5, so that a reader meets all five (PNG specification, section
+    9). ``text``, a mapping or (keyword, text) pairs, adds a ``tEXt``
+    chunk each, between the header and the image data."""
+    a = np.ascontiguousarray(img, np.uint8)
+    H, W = a.shape[:2]
+    C = 1 if a.ndim == 2 else a.shape[2]
+    raw = a.reshape(H, W * C).astype(np.int16)
+    prev = np.zeros_like(raw)
+    prev[1:] = raw[:-1]
+    left = np.zeros_like(raw)
+    left[:, C:] = raw[:, :-C]
+    upleft = np.zeros_like(raw)
+    upleft[:, C:] = prev[:, :-C]
+    out = np.empty((H, 1 + W * C), np.uint8)
+    for kind in range(5):
+        x, lf, up, ul = (m[kind::5] for m in (raw, left, prev, upleft))
+        if kind == 0:
+            pred = 0
+        elif kind == 1:
+            pred = lf
+        elif kind == 2:
+            pred = up
+        elif kind == 3:
+            pred = (lf + up) >> 1
+        else:
+            p = lf + up - ul
+            pa, pb, pc = np.abs(p - lf), np.abs(p - up), np.abs(p - ul)
+            pred = np.where((pa <= pb) & (pa <= pc), lf, np.where(pb <= pc, up, ul))
+        out[kind::5, 0] = kind
+        out[kind::5, 1:] = (x - pred) & 0xFF
+
+    pairs = text.items() if isinstance(text, dict) else (text or ())
+    colour = {1: 0, 2: 4, 3: 2, 4: 6}[C]
+    with open(path, "wb") as f:
+        f.write(SIGNATURE
+                + _chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, colour, 0, 0, 0))
+                + b"".join(_text_chunk(k, v) for k, v in pairs)
+                + _chunk(b"IDAT", zlib.compress(out.tobytes(), level))
+                + _chunk(b"IEND", b""))

@@ -4,12 +4,13 @@ and numpy RNG call order, with the port's FK and projection evaluated
 on the CPU in float64, so the data equal the JAX package's. Also
 synthetic checkerboard views for calibration, by the rules of the
 JAX package's calibration tests (tests/test_calib.py,
-tests/test_pinhole_calib.py), and rendered calibration frames with a
-PNG writer, to drive calibration from images."""
+tests/test_pinhole_calib.py), and rendered calibration frames
+(``write_png``, from ``utils.png``), to drive calibration from images;
+and box-only MP4 files, which declare a video's size, frame rate and
+frame count and hold no frame (``write_box_mp4``)."""
 import json
 import os
 import struct
-import zlib
 
 import numpy as np
 import torch
@@ -19,6 +20,7 @@ from ..ops import camera as cam_ops
 from ..ops.rotations import rodrigues
 from ..pipeline import data as data_io
 from ..pipeline.data import create_board_object_pts
+from .png import write_png  # noqa: F401  (the rendered frames' writer)
 
 
 def ring_cameras(n_cams=6, radius=12.0, height=1.2, fx=700.0, res=(2704, 1520)):
@@ -325,46 +327,40 @@ def render_board_frame(rays, R, t, generator, noise=2.0, margin=2, board_shape=(
     return torch.round(rgb).clamp(0, 255).to(torch.uint8)
 
 
-def write_png(path, img, level=1):
-    """Write a uint8 image (H, W) or (H, W, C), C = 2 (grey+alpha), 3
-    (RGB) or 4 (RGBA), as an 8-bit PNG whose row i has filter type
-    i % 5, so that a reader meets all five (PNG specification, section
-    9)."""
-    a = np.ascontiguousarray(img, np.uint8)
-    H, W = a.shape[:2]
-    C = 1 if a.ndim == 2 else a.shape[2]
-    raw = a.reshape(H, W * C).astype(np.int16)
-    prev = np.zeros_like(raw)
-    prev[1:] = raw[:-1]
-    left = np.zeros_like(raw)
-    left[:, C:] = raw[:, :-C]
-    upleft = np.zeros_like(raw)
-    upleft[:, C:] = prev[:, :-C]
-    out = np.empty((H, 1 + W * C), np.uint8)
-    for kind in range(5):
-        x, lf, up, ul = (m[kind::5] for m in (raw, left, prev, upleft))
-        if kind == 0:
-            pred = 0
-        elif kind == 1:
-            pred = lf
-        elif kind == 2:
-            pred = up
-        elif kind == 3:
-            pred = (lf + up) >> 1
-        else:
-            p = lf + up - ul
-            pa, pb, pc = np.abs(p - lf), np.abs(p - up), np.abs(p - ul)
-            pred = np.where((pa <= pb) & (pa <= pc), lf, np.where(pb <= pc, up, ul))
-        out[kind::5, 0] = kind
-        out[kind::5, 1:] = (x - pred) & 0xFF
+# ---- box-only videos ----
 
-    def chunk(kind, payload):
-        return (struct.pack(">I", len(payload)) + kind + payload
-                + struct.pack(">I", zlib.crc32(kind + payload)))
 
-    colour = {1: 0, 2: 4, 3: 2, 4: 6}[C]
+def _box(kind, payload):
+    return struct.pack(">I4s", 8 + len(payload), kind) + payload
+
+
+def _full_box(kind, payload):
+    return _box(kind, bytes(4) + payload)  # version 0, no flags
+
+
+def write_box_mp4(path, size, fps, n_frames):
+    """An MP4 file whose one video track declares ``size`` (width,
+    height), ``fps`` and ``n_frames`` frames in its boxes (ftyp, then
+    moov/trak with tkhd, mdhd, hdlr, and stbl's stsd, stts, stsz, stco)
+    and holds no sample: what ``utils.mp4.video_info`` reads, and no
+    decoder could play. The timescale is fps x 1000 ticks a second, one
+    frame 1000 ticks, so a rate with three decimals reads back exactly."""
+    width, height = (int(v) for v in size)
+    timescale = int(round(float(fps) * 1000))
+    tkhd = struct.pack(">III4xI", 0, 0, 1, n_frames * 1000) + bytes(52) + struct.pack(
+        ">II", width << 16, height << 16)
+    mdhd = struct.pack(">IIII", 0, 0, timescale, n_frames * 1000) + bytes(4)
+    hdlr = struct.pack(">I4s12x", 0, b"vide") + b"\x00"
+    # VisualSampleEntry: reserved, data_reference_index, 16 bytes, the size, the rest
+    entry = (bytes(6) + struct.pack(">H", 1) + bytes(16) + struct.pack(">HH", width, height)
+             + bytes(50))
+    stbl = _box(b"stbl", _full_box(b"stsd", struct.pack(">I", 1) + _box(b"mp4v", entry))
+                + _full_box(b"stts", struct.pack(">III", 1, n_frames, 1000))
+                + _full_box(b"stsz", struct.pack(">II", 0, n_frames) + bytes(4 * n_frames))
+                + _full_box(b"stco", struct.pack(">I", 0)))
+    mdia = _box(b"mdia", _full_box(b"mdhd", mdhd) + _full_box(b"hdlr", hdlr)
+                + _box(b"minf", stbl))
+    moov = _box(b"moov", _box(b"trak", _full_box(b"tkhd", tkhd) + mdia))
     with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n"
-                + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, colour, 0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(out.tobytes(), level))
-                + chunk(b"IEND", b""))
+        f.write(_box(b"ftyp", b"isom" + bytes(4) + b"isommp41") + moov)
+    return path

@@ -94,13 +94,18 @@ Phases, one line each with its seconds:
  13. files   - the file-level pipeline, the user's path: a run directory
                at full width (make_synthetic_run_dir: 6 cameras x 200
                frames x 20 markers, 2704 x 1520, its DLC .h5 files written
-               by utils.hdf5 and read back bit for bit), `cli all` (tri,
-               sba, ekf, fte; each held to tests/test_pipeline_e2e.py's
-               bounds, tri to the CPU port, fte's six reprojected .h5
-               files to its positions projected), `cli eval` against the
-               truth's projections, `cli view`, and `cli sweep --stages
-               fte,ekf` over 8 such runs in two fps groups; s a stage,
-               .h5 MB/s and the runs converged before the rescue;
+               by utils.hdf5 and read back bit for bit, and six box-only
+               cam*.mp4 beside them), `cli all` (dlc's six Not written
+               lines, then tri, sba, ekf, fte; each held to
+               tests/test_pipeline_e2e.py's bounds, tri to the CPU port,
+               fte's six reprojected .h5 files to its positions
+               projected; fte.svg, ekf.pdf and reconstructions.png read
+               back), `cli eval --hist` against the truth's projections
+               (the histogram's counts against np.histogram), `cli view`,
+               and `cli sweep --stages fte,ekf` over 8 such runs in two
+               fps groups; s a stage, .h5 MB/s, the runs converged
+               before the rescue and the s the videos, plots and
+               histogram add;
  14. uncertainty - the main path's solve with compute_cov=True (the
                Laplace posterior), timed in turns with the plain solve,
                its error bars checked for symmetry, calibration against
@@ -3027,6 +3032,12 @@ FILES_EVAL_RMSE_PX = 5.0
 FILES_EVAL_PCK = 0.95
 #: tri on the card against the CPU port (float64, the same DLT)
 FILES_TRI_CPU_M = 1e-9
+#: the most the files phase's videos, plots and histogram may add, s
+FILES_SLICE_S = 10.0
+#: the series polylines of fte.svg: the 25 states
+FILES_STATES = 25
+#: the histogram's bins (eval.metrics.save_error_histogram's default)
+FILES_HIST_BINS = 20
 #: the sweep runs (their index) whose batched EKF loses the track in the
 #: JAX package's own float32 stage too: the inherited cold-init fault
 #: (ROADMAP Queue 3). Their EKF error is a reading, not gated; their FTE
@@ -3069,6 +3080,78 @@ def _cli(argv):
     if rc != 0:
         raise AssertionError(f"cli {argv[0]} returned {rc}")
     return clock, clock.end - t1
+
+
+class _Seconds:
+    """Times every call of ``owner.name`` while it is entered: .s, .calls."""
+
+    def __init__(self, owner, name):
+        self.owner, self.name, self.s, self.calls = owner, name, 0.0, 0
+
+    def __enter__(self):
+        fn = self.orig = getattr(self.owner, self.name)
+
+        def timed(*args, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.s += time.perf_counter() - t
+                self.calls += 1
+
+        setattr(self.owner, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.orig)
+
+
+def _pdf_xref_ok(path):
+    """Each offset of a PDF's xref table lands on its 'n 0 obj'."""
+    data = open(path, "rb").read()
+    m = re.search(rb"startxref\n(\d+)\n%%EOF\n$", data)
+    if not m or not data[int(m.group(1)):].startswith(b"xref\n0 "):
+        return False
+    rows = data[int(m.group(1)):].split(b"\n")
+    n = int(rows[1].split()[1])
+    return n > 1 and all(data[int(row[:10]):].startswith(f"{i} 0 obj".encode())
+                         for i, row in enumerate(rows[3:2 + n], 1))
+
+
+def files_plots_check(run, failed):
+    """The plots ``cli all`` wrote in a run directory, read back: fte.svg
+    parses with FILES_STATES series polylines, ekf.pdf's xref offsets
+    land on their objects, reconstructions.png reads at its size with
+    pixels off the dark background, and plot_cheetah_states of
+    fte.pickle's x holds x's columns bit for bit. Returns the readings."""
+    import xml.etree.ElementTree as ET
+
+    from acinoset_tpu_torch.pipeline import data as data_io
+    from acinoset_tpu_torch.pipeline.plots import plot_cheetah_states
+    from acinoset_tpu_torch.utils.png import read_png
+
+    svg = ET.parse(os.path.join(run, "fte", "fte.svg")).getroot()
+    n_svg = sum(e.get("class") == "series"
+                for e in svg.iter("{http://www.w3.org/2000/svg}polyline"))
+    if n_svg != FILES_STATES:
+        failed.append(f"fte.svg holds {n_svg} series polylines, not {FILES_STATES}")
+    pdf_ok = _pdf_xref_ok(os.path.join(run, "ekf", "ekf.pdf"))
+    if not pdf_ok:
+        failed.append("ekf.pdf's xref offsets do not land on their objects")
+    img = read_png(os.path.join(run, "reconstructions.png"))
+    lit = int((img != 0).any(axis=-1).sum())
+    if img.shape != (600, 1400, 3) or not lit:
+        failed.append(f"reconstructions.png: {img.shape}, {lit} pixels off the background")
+    x = data_io.load_pickle(os.path.join(run, "fte", "fte.pickle"))["x"]
+    fig = plot_cheetah_states(x)
+    held = all(np.array_equal(ax.lines[0].data[1], x[:, i])
+               and np.array_equal(ax.lines[0].data[0], np.arange(len(x)))
+               for i, ax in enumerate(fig.flat[:x.shape[1]]))
+    if not held:
+        failed.append("plot_cheetah_states does not hold fte.pickle's x bit for bit")
+    return (f"fte.svg {n_svg} series polylines, ekf.pdf xref {pdf_ok}, reconstructions.png "
+            f"{img.shape[1]} x {img.shape[0]} with {lit} lit pixels, plot_cheetah_states holds "
+            f"x {x.shape} bit for bit {held}")
 
 
 def _printed_metrics(text):
@@ -3127,18 +3210,23 @@ def phase_files(device):
     """The file-level pipeline on the card, the user's path: a run
     directory at full width (make_synthetic_run_dir: 6 cameras, N=200,
     2704 x 1520, the 20 cheetah markers, its DLC .h5 files written by
-    utils.hdf5), each .h5 read back bit for bit; ``cli all`` (the dlc
-    stage's skip, then tri, sba, ekf, fte in float64) with each stage
-    held to tests/test_pipeline_e2e.py's bounds, tri against the CPU port
-    and fte's six reprojected .h5 files against the projection of its
-    positions; ``cli eval`` against ground-truth label files (the
-    noiseless projections of the truth, as tests/test_pipeline_e2e.py
-    evaluates); ``cli sweep --stages fte,ekf`` on a root of
-    FILES_SWEEP_RUNS such runs in two fps groups (float32), every run's
-    pickles present and held to the same bounds (the EKF of the runs in
-    FILES_EKF_JAX_LOST, which the JAX package's float32 stage loses too,
-    a reading); ``cli view``. Readings
-    not gated: s a stage, the .h5 read and write MB/s, the runs converged
+    utils.hdf5), each .h5 read back bit for bit, and box-only
+    cam1..6.mp4 of its size, fps and frames beside them (get_vid_info
+    reads the sidecar's values from them); ``cli all`` (the dlc stage's
+    six Not written lines, then tri, sba, ekf, fte in float64) with each
+    stage held to tests/test_pipeline_e2e.py's bounds, tri against the
+    CPU port and fte's six reprojected .h5 files against the projection
+    of its positions, and its plots read back (files_plots_check);
+    ``cli eval --hist`` against ground-truth label files (the noiseless
+    projections of the truth, as tests/test_pipeline_e2e.py evaluates),
+    the histogram's counts against np.histogram of the reprojection
+    errors and their sum against the finite errors; what the videos,
+    plots and histogram add, under FILES_SLICE_S; ``cli sweep --stages
+    fte,ekf`` on a root of FILES_SWEEP_RUNS such runs in two fps groups
+    (float32), every run's pickles present and held to the same bounds
+    (the EKF of the runs in FILES_EKF_JAX_LOST, which the JAX package's
+    float32 stage loses too, a reading); ``cli view``. Readings not
+    gated: s a stage, the .h5 read and write MB/s, the runs converged
     before the rescue, and eval against the run's own DLC files (which
     hold the synthetic outliers). No hand kernel lies on this path (the
     FTE stage runs 'pcg'); the banded kernel's launch count over the
@@ -3148,9 +3236,12 @@ def phase_files(device):
     from acinoset_tpu_torch.eval import metrics
     from acinoset_tpu_torch.kernels.banded_cuda import banded_solve
     from acinoset_tpu_torch.models import cheetah
+    from acinoset_tpu_torch.pipeline import app
     from acinoset_tpu_torch.pipeline import data as data_io
     from acinoset_tpu_torch.pipeline import tri as tri_mod
     from acinoset_tpu_torch.utils import synthetic as syn
+    from acinoset_tpu_torch.utils.figure import Figure
+    from acinoset_tpu_torch.utils.png import read_png_text
 
     t0 = time.perf_counter()
     failed = []
@@ -3182,8 +3273,28 @@ def phase_files(device):
                f"back bit for bit {exact}; .h5 read {mb / s_read:.2f} MB/s, write "
                f"{mb / s_write:.2f} MB/s (host)")
 
-        clock, s_all = _cli(["all", "--data_dir", run, "--device", device.type])
+        t1 = time.perf_counter()
+        vids = [syn.write_box_mp4(os.path.join(run, f"cam{c + 1}.mp4"), FILES_RES, FILES_FPS[0],
+                                  FILES_N) for c in range(FILES_CAMS)]
+        with open(os.path.join(run, "video_info.json")) as f:
+            sidecar = json.load(f)
+        info = app.get_vid_info(run)
+        vid_ok = (info[0] == tuple(sidecar["resolution"]) and info[1] == sidecar["fps"]
+                  and info[2] == sidecar["tot_frames"] and info[3] == vids)
+        if not vid_ok:
+            failed.append(f"get_vid_info reads {info[:3]} from the videos, the sidecar {sidecar}")
+        s_slice = time.perf_counter() - t1
+        with _Seconds(Figure, "save") as saves:
+            clock, s_all = _cli(["all", "--data_dir", run, "--device", device.type])
         secs = clock.seconds()
+        t1 = time.perf_counter()
+        not_written = [ln for ln in clock.text.splitlines() if ln.startswith("Not written: ")]
+        want_lines = [f"Not written: {os.path.join(run, 'dlc', f'cam{c + 1}_labeled.mp4')} (the "
+                      "port has no video decoder)" for c in range(FILES_CAMS)]
+        if not_written != want_lines:
+            failed.append(f"cli all's dlc stage printed {not_written}")
+        plots_text = files_plots_check(run, failed)
+        s_slice += time.perf_counter() - t1 + saves.s
         errs = _files_errors(run, truth)
         text = _files_gates("all", errs, failed)
         tri_cpu = tri_mod.tri(run, 1, -1, 0.8, save=False, device="cpu")["positions"]
@@ -3208,20 +3319,46 @@ def phase_files(device):
             f"{n} {v:.3f}" for n, v in secs.items()) + f" s); {text}; tri against the CPU port "
             f"{d_tri:.3e} m (bound {FILES_TRI_CPU_M}); fte's {FILES_CAMS} reprojections equal "
             f"its positions projected {reproj_ok}")
+        _phase("files", t0, f"dlc beside {FILES_CAMS} box-only cam*.mp4: {len(not_written)} "
+               f"Not written lines; get_vid_info reads the sidecar's {info[0][0]} x {info[0][1]}, "
+               f"{info[1]} fps, {info[2]} frames from the videos {vid_ok}; {plots_text}; the "
+               f"{saves.calls} plots written in cli all in {saves.s:.3f} s")
 
         gt_dir = os.path.join(root, "gt")
-        gt = []
+        gt, gt_px = [], []
         for c in range(FILES_CAMS):
             p = metrics.reproject_positions(truth, k[c], d[c], r[c], t[c], device=device)
             gt.append(os.path.join(gt_dir, f"cam{c + 1}.h5"))
+            gt_px.append(p)
             data_io.save_dlc_points_h5(gt[-1], p, np.ones(p.shape[:2]), markers)
         cams_arg = [str(c) for c in range(FILES_CAMS)]
         result = os.path.join(run, "fte", "fte.pickle")
-        clock, s_eval = _cli(["eval", "--result", result, "--gt_h5", *gt, "--cams", *cams_arg,
-                              "--device", device.type])
+        hist = os.path.join(root, "hist.png")
+        with _Seconds(Figure, "save") as saves:
+            clock, s_eval = _cli(["eval", "--result", result, "--gt_h5", *gt, "--cams", *cams_arg,
+                                  "--hist", hist, "--device", device.type])
         ev = _printed_metrics(clock.text)["overall"]
         if not (ev["rmse_px"] < FILES_EVAL_RMSE_PX and ev["pck"] > FILES_EVAL_PCK):
             failed.append(f"eval against the truth: rmse {ev['rmse_px']} px, pck {ev['pck']}")
+        t1 = time.perf_counter()
+        errs_px = metrics.reprojection_errors(fte_pos, gt_px, k, d.reshape(-1, 4), r, t,
+                                              cam_indices=range(FILES_CAMS), device=device)
+        want_counts = np.histogram(errs_px, FILES_HIST_BINS)[0]
+        counts = np.array([float(v) for v in
+                           read_png_text(hist)["axes 1 bars 1 heights"].split()])
+        n_finite = sum(int(np.isfinite(np.linalg.norm(
+            metrics.reproject_positions(fte_pos, k[c], d[c], r[c], t[c], device=device)
+            - gt_px[c], axis=-1)).sum()) for c in range(FILES_CAMS))
+        hist_line = f"saved histogram: {hist} ({errs_px.size} points)"
+        hist_ok = (np.array_equal(counts, want_counts) and counts.sum() == n_finite
+                   and hist_line in clock.text.splitlines())
+        if not hist_ok:
+            failed.append(f"eval --hist: counts {counts.tolist()} against np.histogram's "
+                          f"{want_counts.tolist()} over {n_finite} finite errors")
+        s_slice += time.perf_counter() - t1 + saves.s
+        if not s_slice < FILES_SLICE_S:
+            failed.append(f"the videos, plots and histogram add {s_slice} s (bound "
+                          f"{FILES_SLICE_S})")
         own = _printed_metrics(_cli(["eval", "--result", result, "--gt_h5", *fpaths, "--cams",
                                      *cams_arg, "--device", device.type])[0].text)["overall"]
         clock, s_view = _cli(["view", "--result", result, "--device", device.type])
@@ -3230,9 +3367,12 @@ def phase_files(device):
         view_ok = bool(m) and len(json.loads(m.group(1))["positions"]) == FILES_N
         if not view_ok:
             failed.append(f"cli view's page does not hold the {FILES_N} frames")
-        _phase("files", t0, f"cli eval against the truth's projections, cameras 0-5: "
+        _phase("files", t0, f"cli eval --hist against the truth's projections, cameras 0-5: "
                f"{s_eval:.3f} s, rmse {ev['rmse_px']:.4f} px (bound {FILES_EVAL_RMSE_PX}), pck "
-               f"{ev['pck']:.4f} (bound {FILES_EVAL_PCK}); against the run's own DLC files "
+               f"{ev['pck']:.4f} (bound {FILES_EVAL_PCK}); histogram of {n_finite} finite errors, "
+               f"{FILES_HIST_BINS} counts equal to np.histogram's {hist_ok}, written in "
+               f"{saves.s:.3f} s; the videos, plots and histogram add {s_slice:.3f} s (bound "
+               f"{FILES_SLICE_S}); against the run's own DLC files "
                f"(outliers in): rmse {own['rmse_px']:.4f} px, pck {own['pck']:.4f}; cli view "
                f"{s_view:.3f} s, {os.path.getsize(html) / 1e6:.3f} MB")
 

@@ -6,9 +6,10 @@ package's (acinoset_tpu.cli) on the same run directory, with
 tolerances (tests/test_torch_pipeline_files.py). The single-stage
 subcommands, ``sweep`` and ``build`` hand their stage the JAX CLI's
 arguments (stage functions recorded in both packages, not solved), and
-each single stage writes what ``all`` wrote. ``view`` and ``eval`` run in
-both. The refusals: ``eval --hist`` (no matplotlib), the ``dlc`` stage
-where videos exist, and every subcommand without a CUDA device unless
+each single stage writes what ``all`` wrote, and ``all`` writes the
+plots where the JAX CLI does. ``view`` and ``eval`` (with ``--hist``)
+run in both. The ``dlc`` stage names each labelled video it does not
+write and goes on; every subcommand refuses without a CUDA device unless
 given ``--device cpu``.
 """
 import ast
@@ -22,6 +23,7 @@ import torch
 import chip_smoke
 import file_pipeline_cases as cases
 from acinoset_tpu import cli as jcli
+from acinoset_tpu.eval import metrics as jmetrics
 from acinoset_tpu.pipeline import data as jdata
 from acinoset_tpu.pipeline import ekf as jekf
 from acinoset_tpu.pipeline import fte as jfte
@@ -36,6 +38,8 @@ from acinoset_tpu_torch.pipeline import generic as tgen
 from acinoset_tpu_torch.pipeline import sba as tsba
 from acinoset_tpu_torch.pipeline import sweep as tsweep
 from acinoset_tpu_torch.pipeline import tri as ttri
+from acinoset_tpu_torch.utils import png
+from acinoset_tpu_torch.utils import synthetic as tsyn
 
 torch.set_num_threads(2)
 N = 40
@@ -86,12 +90,21 @@ def test_all_matches_jax_cli(ran_all, capsys):
     for res in (got, want):
         assert np.nanmedian(np.linalg.norm(res["tri"]["positions"] - pts, axis=-1)) < 0.05
         assert np.nanmean(np.linalg.norm(res["fte"]["positions"] - pts, axis=-1)) < 0.05
-    # the plots: the JAX CLI drew them, the port names each it did not write
+    # the plots: each written where the JAX CLI writes it, and read back
     for rel in ("fte/fte.svg", "ekf/ekf.pdf", "reconstructions.png"):
         assert os.path.exists(os.path.join(runs["jax"], rel))
-        assert not os.path.exists(os.path.join(runs["port"], rel))
+        assert os.path.exists(os.path.join(runs["port"], rel))
     assert sorted(os.listdir(os.path.join(runs["port"], "fte"))) == sorted(
-        ["fte.pickle"] + [f"cheetah_reprojected_cam{c + 1}.h5" for c in range(cases.N_CAMS)])
+        ["fte.pickle", "fte.svg"]
+        + [f"cheetah_reprojected_cam{c + 1}.h5" for c in range(cases.N_CAMS)])
+    failed = []
+    chip_smoke.files_plots_check(runs["port"], failed)  # fte.svg, ekf.pdf, the png, x held
+    assert not failed, failed
+    img = png.read_png(os.path.join(runs["port"], "reconstructions.png"))
+    jax_img = png.read_png(os.path.join(runs["jax"], "reconstructions.png"))
+    assert img.shape[:2] == jax_img.shape[:2] == (600, 1400)
+    assert png.read_png_text(os.path.join(runs["port"], "reconstructions.png"))[
+        "axes 1 legend"] == "sba; ekf; fte"
 
 
 def _recorders(monkeypatch, modules, name):
@@ -143,13 +156,27 @@ def test_dlc_stage_without_videos_prints_the_jax_skip_line(ran_all, capsys):
         assert "No videos found; skipping dlc video labeling" in capsys.readouterr().out
 
 
-def test_dlc_stage_with_videos_raises_before_any_work(tmp_path):
+def test_dlc_stage_with_videos_raises_before_any_work(tmp_path, capsys):
+    """The name is the old one; the stage no longer raises. With box-only
+    cam*.mp4 that declare the run's size, fps and 12 frames (and no
+    video_info.json), ``dlc`` names each labelled video the JAX package
+    would write and does not write, and ``all`` goes on and writes every
+    stage's pickle, its frame count read from the videos."""
     run, _pts = cases.make_run(tmp_path, "port", N=12)
-    open(os.path.join(run, "cam1.mp4"), "wb").close()
+    os.remove(os.path.join(run, "video_info.json"))
+    vids = [tsyn.write_box_mp4(os.path.join(run, f"cam{c + 1}.mp4"), (2704, 1520), 90.0, 12)
+            for c in range(cases.N_CAMS)]
+    lines = [f"Not written: {os.path.join(run, 'dlc', f'cam{c + 1}_labeled.mp4')} (the port "
+             f"has no video decoder)" for c in range(cases.N_CAMS)]
     for cmd in ("dlc", "all"):
-        with pytest.raises(NotImplementedError, match="pipeline.video"):
-            tcli.main([cmd, "--data_dir", run, "--device", "cpu"])
-    assert not any(os.path.exists(os.path.join(run, s)) for s in STAGES)
+        assert tcli.main([cmd, "--data_dir", run, "--dlc_thresh", "0.5", "--device", "cpu"]) == 0
+        out = capsys.readouterr().out
+        assert [ln for ln in out.splitlines() if ln.startswith("Not written")] == lines
+    assert not any(os.path.exists(v.replace(".mp4", "_labeled.mp4")) for v in vids)
+    for s in STAGES:
+        assert _load(run, s)["positions"].shape == (12, 20, 3)
+    for rel in ("fte/fte.svg", "ekf/ekf.pdf", "reconstructions.png"):
+        assert os.path.exists(os.path.join(run, rel))
 
 
 SWEEP_FLAGS = [
@@ -238,14 +265,28 @@ def test_eval_matches_jax_cli(ran_all, capsys, options):
             assert abs(got[cam][key] - w) <= 1e-4, (cam, key, got[cam][key], w)
 
 
-def test_eval_hist_raises(ran_all, tmp_path):
+def test_eval_hist_raises(ran_all, tmp_path, capsys, monkeypatch):
+    """The name is the old one; ``--hist`` no longer raises. It writes the
+    histogram, with the counts of np.histogram over the JAX package's
+    reprojection errors on the same inputs, and prints the JAX CLI's line."""
     runs, _pts = ran_all
-    h5 = os.path.join(runs["port"], "dlc", "cam1DLC.h5")
-    with pytest.raises(NotImplementedError, match="matplotlib"):
-        tcli.main(["eval", "--result", os.path.join(runs["port"], "fte", "fte.pickle"),
-                   "--gt_h5", h5, "--cams", "0", "--hist", str(tmp_path / "h.png"),
-                   "--device", "cpu"])
-    assert not os.path.exists(tmp_path / "h.png")
+    h5s = [os.path.join(runs["port"], "dlc", f"cam{c}DLC.h5") for c in (1, 2)]
+    argv = ["eval", "--result", os.path.join(runs["port"], "fte", "fte.pickle"), "--gt_h5",
+            *h5s, "--cams", "0", "1", "--hist"]
+    errors = []
+    monkeypatch.setattr(jmetrics, "save_error_histogram",
+                        lambda errs, path: errors.append(errs) or path)
+    capsys.readouterr()
+    assert jcli.main(argv + [str(tmp_path / "jax.png")]) == 0
+    want = capsys.readouterr().out.splitlines()[-1]
+    out = str(tmp_path / "h.png")
+    assert tcli.main(argv + [out, "--device", "cpu"]) == 0
+    got = capsys.readouterr().out.splitlines()[-1]
+    assert got == want.replace(str(tmp_path / "jax.png"), out)
+    assert got == f"saved histogram: {out} ({errors[0].size} points)"
+    heights = png.read_png_text(out)["axes 1 bars 1 heights"].split()
+    np.testing.assert_array_equal([float(v) for v in heights], np.histogram(errors[0], 20)[0])
+    assert png.read_png(out).shape == (480, 720, 3)
 
 
 @pytest.mark.parametrize("argv", [

@@ -22,6 +22,7 @@ from acinoset_tpu_torch.pipeline import ekf as tekf
 from acinoset_tpu_torch.pipeline import app as tpapp
 from acinoset_tpu_torch.pipeline import fte as tfte
 from acinoset_tpu_torch.pipeline import generic as tgen
+from acinoset_tpu_torch.pipeline import plots as tplots
 from acinoset_tpu_torch.pipeline import points2d as tp2d
 from acinoset_tpu_torch.pipeline import sba as tsba
 from acinoset_tpu_torch.pipeline import sweep as tsweep
@@ -47,7 +48,8 @@ def test_port_and_chip_smoke_import_no_jax_nor_io_stack():
               "calib.app", "utils.png", "utils._gxx", "cli", "utils.hdf5", "utils.mp4",
               "pipeline.app", "pipeline.tri", "pipeline.points2d", "pipeline.viewer",
               "eval.metrics", "parallel.mesh", "entry", "utils.profiling",
-              "utils.pan_compensation", "gui.label_session", "gui.skeleton_builder"):
+              "utils.pan_compensation", "gui.label_session", "gui.skeleton_builder",
+              "pipeline.plots", "pipeline.video", "utils.argus", "utils.figure"):
         assert f"acinoset_tpu_torch.{m}" in modules
     code = (
         "import importlib, sys\n"
@@ -126,6 +128,11 @@ ENTRY_POINTS = {
     "save_3d_cheetah_as_2d": lambda: tpapp.save_3d_cheetah_as_2d(
         np.zeros((2, 20, 3)), "out", "no_scene.json", [], None, 0),
     "estimate_part_path": lambda: tp2d.estimate_part_path("no_such_project", "nose"),
+    "get_pairwise_3d_points_from_df": lambda: ttri.get_pairwise_3d_points_from_df(
+        {"frame": [0], "camera": [0], "marker": ["nose"], "x": [1.0], "y": [1.0]},
+        *_pixels()[0]),
+    "plot_points_fisheye_undistort": lambda: tplots.plot_points_fisheye_undistort(
+        "points.json", "camera.json"),
     "sweep": lambda: tsweep.sweep("no_such_root"),
     "sweep_generic": lambda: tsweep.sweep_generic("no_such_root", "no_skeleton.pickle"),
     "build_and_solve": lambda: tgen.build_and_solve("no_skeleton.pickle", "no_such_project"),

@@ -6,8 +6,9 @@ obvious counterpart.
 The port imports torch, numpy and scipy only — never JAX, nor any module
 of the JAX package, nor the JAX package's I/O stack (h5py, imageio,
 pandas, cv2, matplotlib): it reads and writes DLC ``.h5`` files with its
-own HDF5 subset (``utils.hdf5``) and reads video metadata from the MP4
-boxes (``utils.mp4``). Tests hold every ported function to its JAX
+own HDF5 subset (``utils.hdf5``), reads video metadata from the MP4
+boxes (``utils.mp4``) and decodes and encodes mp4v video with its own
+codec (``utils.mpeg4``). Tests hold every ported function to its JAX
 counterpart on the same inputs.
 
 Entry points (``solvers.trajopt.fte_solve``, ``pipeline.fte.fte_run``,
@@ -24,8 +25,10 @@ the SBA reconstruction ``pipeline.sba.sba_run``, and camera calibration
 directories (``pipeline.tri.tri``, ``pipeline.sba.sba``,
 ``pipeline.ekf.ekf``, ``pipeline.fte.fte``, ``pipeline.sweep.sweep`` and
 ``sweep_generic``, ``pipeline.generic.build_and_solve``,
-``pipeline.points2d.estimate_part_path``, ``eval.metrics``), the
-command line ``cli`` and ``entry.entry``) run on ``cuda`` unless
+``pipeline.points2d.estimate_part_path``, ``eval.metrics``), the video
+functions (``pipeline.video``'s, ``pipeline.plots.animate_reconstruction``,
+``utils.mpeg4.Reader`` and ``Writer``), the command line ``cli`` and
+``entry.entry``) run on ``cuda`` unless
 the caller passes ``device="cpu"``, and raise when no device is given
 and no CUDA device exists. The sweep's batched stages and
 ``parallel.mesh.sharded_fte_solver`` run over a device mesh, by default

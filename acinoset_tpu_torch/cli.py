@@ -22,10 +22,11 @@ it runs over every visible CUDA device (a data mesh, as the batched stages
 do by default). Without a CUDA device every subcommand raises unless given
 ``--device cpu``.
 
-The ``dlc`` stage writes no labelled video: the port has no video
-decoder, so for each cam[1-9].mp4 it prints a ``Not written:`` line
-naming the video the JAX package would write, and ``all`` goes on to tri.
-``all`` ends with ``reconstructions.png``, the sba, ekf and fte results
+The ``dlc`` stage writes dlc/camN_labeled.mp4 for each cam[1-9].mp4, its
+labels burnt in (``pipeline.video.create_labeled_videos``, the port's own
+mp4v codec); a video in another codec (GoPro's H.264) gets a
+``Not written:`` line naming it, and ``all`` goes on to tri. ``all``
+ends with ``reconstructions.png``, the sba, ekf and fte results
 overlaid; the fte and ekf stages write their state plots.
 """
 from __future__ import annotations
@@ -133,19 +134,34 @@ def _parser() -> ArgumentParser:
     return parser
 
 
+def _label_videos(args, device):
+    """The dlc stage: create_labeled_videos on the run's cam[1-9].mp4, a
+    video at a time, so that one in a codec the port does not decode
+    (GoPro's H.264) is named in a ``Not written:`` line and the rest are
+    labelled."""
+    from .pipeline.video import create_labeled_video, labeled_video_fpath
+    from .utils.mpeg4 import UnsupportedVideo
+
+    vids = sorted(glob(os.path.join(args.data_dir, "cam[1-9].mp4")))
+    if not vids:
+        print("No videos found; skipping dlc video labeling")
+        return
+    out_dir = os.path.join(args.data_dir, "dlc")
+    os.makedirs(out_dir, exist_ok=True)
+    for ci, vid in enumerate(vids):
+        try:
+            create_labeled_video(vid, ci, out_dir, draw_skeleton=True, pcutoff=args.dlc_thresh,
+                                 device=device)
+        except UnsupportedVideo as err:
+            print(f"Not written: {labeled_video_fpath(vid, out_dir)} ({err.reason})")
+
+
 def _run_stages(args, device):
     stages = [args.cmd] if args.cmd != "all" else list(RUN_STAGES)
     for stage in stages:
         print(f"========== {stage.upper()} ==========\n")
         if stage == "dlc":
-            from .pipeline.video import labeled_video_fpath
-
-            vids = sorted(glob(os.path.join(args.data_dir, "cam[1-9].mp4")))
-            for vid in vids:
-                out = labeled_video_fpath(vid, os.path.join(args.data_dir, "dlc"))
-                print(f"Not written: {out} (the port has no video decoder)")
-            if not vids:
-                print("No videos found; skipping dlc video labeling")
+            _label_videos(args, device)
         elif stage == "tri":
             from .pipeline.tri import tri
 

@@ -44,6 +44,9 @@ DARK_CYCLE = ("#8dd3c7", "#feffb3", "#bfbbd9", "#fa8174", "#81b1d2", "#fdb462", 
 #: the single-letter colours of a format string ("b-")
 LETTER_COLOURS = {"b": "#0000ff", "g": "#008000", "r": "#ff0000", "c": "#00bfbf",
                   "m": "#bf00bf", "y": "#bfbf00", "k": "#000000", "w": "#ffffff"}
+#: matplotlib's "tab:" names of its default cycle's colours
+TAB_COLOURS = dict(zip(("tab:blue", "tab:orange", "tab:green", "tab:red", "tab:purple",
+                        "tab:brown", "tab:pink", "tab:gray", "tab:olive", "tab:cyan"), CYCLE))
 #: the markers drawn: a point, a disc, a square
 MARKERS = ".os"
 #: matplotlib's box aspect of a 3D axes
@@ -88,6 +91,15 @@ def _parse_fmt(fmt):
     return colour, marker, line
 
 
+def _colour(c):
+    """A colour argument as "#rrggbb" (None stays None)."""
+    if c is None or (isinstance(c, str) and c.startswith("#") and len(c) == 7):
+        return c
+    if c in TAB_COLOURS:
+        return TAB_COLOURS[c]
+    raise ValueError(f"colour {c!r}: '#rrggbb' or one of {', '.join(TAB_COLOURS)}")
+
+
 def _finite(*arrays):
     ok = np.ones(np.shape(arrays[0]), bool)
     for a in arrays:
@@ -121,8 +133,9 @@ class Axes:
         self._n_fills += 1
         return cycle[(self._n_fills - 1) % len(cycle)]
 
-    def plot(self, *args, label=None, lw=1.5, ms=6.0, alpha=1.0):
-        """plot(y), plot(x, y[, z][, fmt]): one line series; NaN breaks it."""
+    def plot(self, *args, label=None, lw=1.5, ms=6.0, alpha=1.0, c=None):
+        """plot(y), plot(x, y[, z][, fmt]): one line series; NaN breaks it.
+        ``c`` (a "#rrggbb" or "tab:" colour) takes no colour of the cycle."""
         fmt = args[-1] if args and isinstance(args[-1], str) else None
         arrays = [np.asarray(a, dtype=np.float64).reshape(-1) for a in
                   (args[:-1] if fmt is not None else args)]
@@ -133,18 +146,19 @@ class Axes:
             raise ValueError(f"plot on a {dims}D axes takes {dims} coordinate arrays, "
                              f"got {len(arrays)}")
         fcol, marker, line = _parse_fmt(fmt) if fmt else (None, None, "-")
-        s = Series("line", tuple(arrays), fcol or self._next("line"), label,
+        s = Series("line", tuple(arrays), _colour(c) or fcol or self._next("line"), label,
                    linewidth=lw, linestyle=line, marker=marker, size=ms, alpha=alpha)
         self.series.append(s)
         return s
 
-    def scatter(self, *xyz, s=20.0, marker="o", label=None, alpha=1.0):
+    def scatter(self, *xyz, s=20.0, marker="o", label=None, alpha=1.0, c=None):
         """Markers at the points where every coordinate is finite (the
-        others are dropped, as matplotlib's scatter drops them)."""
+        others are dropped, as matplotlib's scatter drops them); ``c`` as
+        for ``plot``."""
         arrays = [np.asarray(a, dtype=np.float64).reshape(-1) for a in xyz]
         ok = _finite(*arrays)
         arrays = tuple(a[ok] for a in arrays)
-        series = Series("scatter", arrays, self._next("fill"), label, marker=marker,
+        series = Series("scatter", arrays, _colour(c) or self._next("fill"), label, marker=marker,
                         size=float(s), alpha=alpha)
         self.series.append(series)
         return series

@@ -6,8 +6,11 @@ synthetic checkerboard views for calibration, by the rules of the
 JAX package's calibration tests (tests/test_calib.py,
 tests/test_pinhole_calib.py), and rendered calibration frames
 (``write_png``, from ``utils.png``), to drive calibration from images;
-and box-only MP4 files, which declare a video's size, frame rate and
-frame count and hold no frame (``write_box_mp4``)."""
+box-only MP4 files, which declare a video's size, frame rate and frame
+count and hold no frame (``write_box_mp4``); and camera footage as mp4v
+video: a textured static scene, a textured patch moving by whole and
+half pixels, and the markers' projections drawn over it
+(``scene_frames``, ``write_scene_mp4``)."""
 import json
 import os
 import struct
@@ -363,4 +366,80 @@ def write_box_mp4(path, size, fps, n_frames):
     moov = _box(b"moov", _box(b"trak", _full_box(b"tkhd", tkhd) + mdia))
     with open(path, "wb") as f:
         f.write(_box(b"ftyp", b"isom" + bytes(4) + b"isommp41") + moov)
+    return path
+
+
+# ---- camera footage ----
+
+#: the moving patch's speed, pixels a frame (x, y): whole and half pixels
+PATCH_SPEED = (1.5, 0.5)
+
+
+def _texture(x, y, phase):
+    """A smooth BGR texture of float pixel coordinates (broadcast)."""
+    return torch.stack([
+        128 + 60 * torch.sin(x / 23.0 + phase) * torch.cos(y / 17.0),
+        128 + 50 * torch.sin((x + 2 * y) / 41.0 + 2 * phase),
+        128 + 70 * torch.cos(x / 31.0 - y / 13.0 + 3 * phase)], -1)
+
+
+def scene_frames(size, n_frames, markers_px=None, seed=0, device="cpu", sensor_noise=0.0):
+    """Frames (uint8 BGR (H, W, 3) tensors on ``device``) of a static
+    camera: a smooth texture with frozen noise (a seeded numpy stream,
+    +-12 levels over 4 x 4 pixel cells), a patch of another texture, an
+    eighth of the frame wide and a sixth high, moving PATCH_SPEED pixels a
+    frame (its content resampled at the sub-pixel offset), with
+    sensor_noise > 0 a camera's temporal noise (Gaussian, that many levels
+    of standard deviation, drawn anew for every pixel, channel and frame
+    from a torch generator on ``device`` seeded with ``seed``), and, with
+    markers_px (N, L, 2), frame n's projected markers drawn over it as
+    labelled videos draw them (pipeline.video.draw_labels: the cheetah
+    skeleton and a dot a marker)."""
+    from ..pipeline.plots import CHEETAH_LINKS
+    from ..pipeline.video import _frame_labels, draw_labels, marker_colours
+
+    W, H = (int(v) for v in size)
+    dev = torch.device(device)
+    rng = np.random.default_rng(seed)
+    y = torch.arange(H, dtype=torch.float32, device=dev)[:, None]
+    x = torch.arange(W, dtype=torch.float32, device=dev)[None, :]
+    noise = torch.from_numpy(rng.uniform(-12, 12, ((H + 3) // 4, (W + 3) // 4, 3))
+                             .astype(np.float32)).to(dev)
+    noise = noise.repeat_interleave(4, 0).repeat_interleave(4, 1)[:H, :W]
+    bg = (_texture(x, y, 0.0) + noise).round().clamp(0, 255).to(torch.uint8)
+    pw, ph = max(W // 8, 1), max(H // 6, 1)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    links, colours = [], None
+    if markers_px is not None:
+        markers = cheetah.get_markers()
+        links = [(markers.index(a), markers.index(b)) for a, b in CHEETAH_LINKS]
+        colours = np.array(marker_colours(len(markers)), np.uint8)
+    for n in range(n_frames):
+        frame = bg.clone()
+        ox, oy = PATCH_SPEED[0] * n, PATCH_SPEED[1] * n
+        x0 = int(W // 4 + ox) % max(W - pw, 1)
+        y0 = int(H // 3 + oy) % max(H - ph, 1)
+        px = torch.arange(x0, x0 + pw, dtype=torch.float32, device=dev)[None, :] - ox
+        py = torch.arange(y0, y0 + ph, dtype=torch.float32, device=dev)[:, None] - oy
+        frame[y0:y0 + ph, x0:x0 + pw] = _texture(2.1 * px, 1.7 * py, 1.0).round().clamp(
+            0, 255).to(torch.uint8)
+        if sensor_noise > 0:
+            noisy = frame + sensor_noise * torch.randn((H, W, 3), generator=gen, device=dev)
+            frame = noisy.round().clamp(0, 255).to(torch.uint8)
+        if markers_px is not None and n < len(markers_px):
+            pts = np.concatenate([markers_px[n], np.ones((len(markers_px[n]), 1))], 1)
+            segments, dots, which = _frame_labels(pts, links, 1.0, True)
+            draw_labels(frame, segments, dots, colours[which])
+        yield frame
+
+
+def write_scene_mp4(path, size, fps, n_frames, markers_px=None, seed=0, device="cpu"):
+    """``scene_frames`` written as an mp4v video by the port's writer
+    (utils.mpeg4, on ``device``). Returns path."""
+    from . import mpeg4
+
+    with mpeg4.Writer(path, size, fps, device) as writer:
+        for frame in scene_frames(size, n_frames, markers_px, seed, device):
+            writer.write(frame)
     return path

@@ -91,21 +91,32 @@ Phases, one line each with its seconds:
                native engine against it, fx and fy, the chain's poses, the
                board SBA's RMS and undistort_image_fisheye against its
                CPU run; s a frame a stage and s a stage;
+     video   - the port's mp4v codec at the rig's width: one camera's
+               footage (a textured scene, a moving patch, the run's
+               markers drawn), 200 frames of 2704 x 1520 at 90 fps,
+               encoded and decoded on the card (frames/s with the host
+               bitstream's share, MB, PSNR, each decoded frame equal to
+               the encoder's reconstruction), get_frames' seeks, the
+               first 12 frames on the card against the CPU (bytes and
+               frames equal), animate_reconstruction of 200 frames, and
+               whether the machine has NVDEC;
  13. files   - the file-level pipeline, the user's path: a run directory
                at full width (make_synthetic_run_dir: 6 cameras x 200
                frames x 20 markers, 2704 x 1520, its DLC .h5 files written
-               by utils.hdf5 and read back bit for bit, and six box-only
-               cam*.mp4 beside them), `cli all` (dlc's six Not written
-               lines, then tri, sba, ekf, fte; each held to
+               by utils.hdf5 and read back bit for bit, and six mp4v
+               cam*.mp4 of footage with the markers drawn beside them),
+               `cli all` (dlc's six labelled videos, read back at their
+               sources' frame count, size and fps, then tri, sba, ekf,
+               fte; each held to
                tests/test_pipeline_e2e.py's bounds, tri to the CPU port,
                fte's six reprojected .h5 files to its positions
                projected; fte.svg, ekf.pdf and reconstructions.png read
                back), `cli eval --hist` against the truth's projections
                (the histogram's counts against np.histogram), `cli view`,
                and `cli sweep --stages fte,ekf` over 8 such runs in two
-               fps groups; s a stage, .h5 MB/s, the runs converged
-               before the rescue and the s the videos, plots and
-               histogram add;
+               fps groups; s a stage, .h5 MB/s, frames/s of the
+               videos written and labelled, the runs converged before
+               the rescue and the s the plots and histogram add;
  14. uncertainty - the main path's solve with compute_cov=True (the
                Laplace posterior), timed in turns with the plain solve,
                its error bars checked for symmetry, calibration against
@@ -122,7 +133,8 @@ Phases, one line each with its seconds:
 The phases run in the sweep's own stage order: the EKF stage (8) before
 the FTE stage with uncertainty (14-16). ekf_after_posterior, which the
 script does not run, times the EKF stage after the posterior in one
-process.
+process; video_profile, which it does not run either, shows where a
+frame's time goes in the codec (torch.profiler).
 
 Any failed check raises. The line before the last is the kernels' JSON
 record; the last line is {"ok": true, "device": {...}}. Imports nothing
@@ -3014,6 +3026,248 @@ def phase_images(device):
         raise AssertionError("images: " + "; ".join(failed))
 
 
+#: the video phase: one camera of the rig, at its size and rate
+VIDEO_RES = (2704, 1520)
+VIDEO_FPS = 90.0
+VIDEO_N = 200
+#: the first frames, encoded and decoded on the CPU too, held byte for byte
+VIDEO_CPU_N = 12
+#: the frames video_profile encodes, then decodes (two GOPs)
+VIDEO_PROFILE_N = 24
+#: the frames get_frames seeks to, scattered, the last one past the end
+VIDEO_SEEKS = (150, 7, 199, 12, 11, 100, 0, 57, VIDEO_N)
+#: the least PSNR (dB) of the decoded frames against their sources: the
+#: writer's quantiser 3 gives ~35 dB on this footage (a gross fault, a
+#: drifting reference or a wrong colour matrix, gives far less)
+VIDEO_PSNR_DB = 30.0
+#: the camera's temporal noise (levels, standard deviation) of the second
+#: and third footage settings, each encoded and decoded at full size: the
+#: first setting's background is frozen, so its P-VOPs code little more
+#: than the moving patch and the markers
+VIDEO_SENSOR_NOISE = (2.0, 4.0)
+#: the most the video work may take, s: phase_video, the files phase's six
+#: cam*.mp4 and cli all's dlc stage
+VIDEO_BUDGET_S = 120.0
+
+
+def _psnr(a, b):
+    mse = float(((a.float() - b.float()) ** 2).mean())
+    return 10 * np.log10(255.0 ** 2 / mse) if mse else float("inf")
+
+
+def _codec_round_trip(frames, path, device):
+    """Encode frames on the card into path, then decode it frame by
+    frame: the seconds and mpeg4.COUNTERS each way, MB, the decoded
+    frames, how many equal the encoder's reconstruction, and each one's
+    PSNR against its source."""
+    from acinoset_tpu_torch.utils import mpeg4
+
+    for k in mpeg4.COUNTERS:
+        mpeg4.COUNTERS[k] = 0
+    recon = []
+    _sync(device)
+    t1 = time.perf_counter()
+    with mpeg4.Writer(path, VIDEO_RES, VIDEO_FPS, device) as writer:
+        for f in frames:
+            writer.write(f)
+            recon.append(tuple(p.clone() for p in writer.planes))
+    _sync(device)
+    s_enc = time.perf_counter() - t1
+    enc = dict(mpeg4.COUNTERS)
+    recon = [mpeg4.yuv420_to_bgr(*p, VIDEO_RES) for p in recon]
+    for k in mpeg4.COUNTERS:
+        mpeg4.COUNTERS[k] = 0
+    t1 = time.perf_counter()
+    with mpeg4.Reader(path, device) as reader:
+        info = (reader.n_frames, reader.size, reader.fps)
+        decoded = [reader.read_tensor(n).clone() for n in range(reader.n_frames)]
+    _sync(device)
+    s_dec = time.perf_counter() - t1
+    return dict(s_enc=s_enc, enc=enc, s_dec=s_dec, dec=dict(mpeg4.COUNTERS), info=info,
+                mb=os.path.getsize(path) / 1e6, decoded=decoded,
+                same=sum(bool(torch.equal(a, b)) for a, b in zip(decoded, recon)),
+                psnr=[_psnr(a, b) for a, b in zip(decoded, frames)])
+
+
+def _round_trip_gates(rt, what, failed):
+    """phase_video's gates on one _codec_round_trip, and its line."""
+    if rt["info"] != (VIDEO_N, VIDEO_RES, VIDEO_FPS):
+        failed.append(f"{what}: the video reads back as {rt['info']}")
+    if rt["same"] != VIDEO_N:
+        failed.append(f"{what}: {VIDEO_N - rt['same']} decoded frames differ from the "
+                      "encoder's reconstruction")
+    psnr, enc, dec, mb = rt["psnr"], rt["enc"], rt["dec"], rt["mb"]
+    if not min(psnr) >= VIDEO_PSNR_DB:
+        failed.append(f"{what}: PSNR {min(psnr)} dB against the source (bound {VIDEO_PSNR_DB})")
+    s_enc, s_dec = rt["s_enc"], rt["s_dec"]
+    return (f"{what}: encode {s_enc:.3f} s, {VIDEO_N / s_enc:.2f} frames/s (host bitstream "
+            f"{enc['host_s']:.3f} s, {100 * enc['host_s'] / s_enc:.1f}%; copied to the card "
+            f"{enc['to_device_bytes'] / 1e6:.1f} MB, back {enc['to_host_bytes'] / 1e6:.1f} MB); "
+            f"decode {s_dec:.3f} s, {VIDEO_N / s_dec:.2f} frames/s (host bitstream "
+            f"{dec['host_s']:.3f} s, {100 * dec['host_s'] / s_dec:.1f}%; copied to the card "
+            f"{dec['to_device_bytes'] / 1e6:.1f} MB); {mb:.3f} MB, {mb / VIDEO_N * 1e3:.1f} kB a "
+            f"frame; decoded equal to the reconstruction {rt['same']}/{VIDEO_N}; PSNR against the "
+            f"source mean {np.mean(psnr):.3f} dB, min {min(psnr):.3f} dB (bound {VIDEO_PSNR_DB})")
+
+
+def phase_video(device):
+    """The port's mp4v codec (utils/mpeg4.py, utils/csrc/mpeg4_vlc.cpp) at
+    the rig's width: one camera's footage (utils.synthetic.scene_frames:
+    a textured static scene, a patch moving 1.5 and 0.5 pixels a frame,
+    the run's projected markers drawn), VIDEO_N frames of 2704 x 1520 at
+    90 fps, encoded on the card, then decoded frame by frame (each frame
+    equal to the encoder's reconstruction, PSNR against its source),
+    seeked (get_frames at VIDEO_SEEKS, each frame equal to the sequential
+    decode's, the index past the end skipped), and animate_reconstruction
+    of the run's 200-frame result (640 x 480 at 15 fps, read back). The
+    first VIDEO_CPU_N frames are encoded on the card and on the CPU (the
+    same bytes) and that file decoded on both (the same frames). Then the
+    same footage with each VIDEO_SENSOR_NOISE, encoded and decoded under
+    the same gates. Readings: frames/s each way with the host's share (the
+    C++ bitstream calls) and the bytes copied, MB a video, a 12.3 MB
+    frame's copy each way, and whether the card's machine has NVDEC
+    (ctypes.util.find_library). Returns the phase's seconds."""
+    import ctypes.util
+    import tempfile
+
+    from acinoset_tpu_torch.models import cheetah
+    from acinoset_tpu_torch.pipeline import data as data_io
+    from acinoset_tpu_torch.pipeline import video
+    from acinoset_tpu_torch.pipeline.plots import CHEETAH_LINKS, animate_reconstruction
+    from acinoset_tpu_torch.utils import mpeg4
+    from acinoset_tpu_torch.utils import synthetic as syn
+
+    t0 = time.perf_counter()
+    failed = []
+    W, H = VIDEO_RES
+    _phase("video", t0, f"NVDEC library (ctypes.util.find_library('nvcuvid')): "
+           f"{ctypes.util.find_library('nvcuvid')}")
+    frame_bytes = W * H * 3
+    host_copy_ms = back_copy_ms = float("nan")
+    if device.type == "cuda":
+        host = torch.empty((H, W, 3), dtype=torch.uint8)
+        host_copy_ms = _cuda_ms(lambda: host.to(device), 5)
+        dev_frame = host.to(device)
+        back_copy_ms = _cuda_ms(lambda: dev_frame.cpu(), 5)
+    cams = syn.ring_cameras(n_cams=1, res=VIDEO_RES)
+    px, _lik, pts3d = syn.render_measurements(syn.cheetah_gallop(N=VIDEO_N, fps=VIDEO_FPS), cams,
+                                              noise_px=0.0, outlier_frac=0.0, bad_lik_frac=0.0)
+    t1 = time.perf_counter()
+    frames = list(syn.scene_frames(VIDEO_RES, VIDEO_N, px[0], device=device))
+    _sync(device)
+    s_scene = time.perf_counter() - t1
+    with tempfile.TemporaryDirectory() as root:
+        path = os.path.join(root, "cam1.mp4")
+        mpeg4.Writer(path, VIDEO_RES, VIDEO_FPS, device).close()  # builds the library
+        rt = _codec_round_trip(frames, path, device)
+        decoded = rt.pop("decoded")
+        _phase("video", t0, f"{VIDEO_N} frames of {W} x {H} at {VIDEO_FPS} fps ({s_scene:.3f} s "
+               f"to draw them on the card), " + _round_trip_gates(rt, "frozen background",
+                                                                  failed)
+               + f"; a {frame_bytes / 1e6:.1f} MB frame's copy to the card {host_copy_ms:.3f} "
+               f"ms, back {back_copy_ms:.3f} ms (pageable)")
+
+        t1 = time.perf_counter()
+        got = video.get_frames(path, VIDEO_SEEKS, device=device)
+        s_seek = time.perf_counter() - t1
+        seek_ok = ([i for i, _f in got] == [i for i in VIDEO_SEEKS if i < VIDEO_N]
+                   and all(np.array_equal(f, decoded[i].cpu().numpy()) for i, f in got))
+        if not seek_ok:
+            failed.append(f"get_frames at {VIDEO_SEEKS} gives {[i for i, _f in got]} or other "
+                          "frames than the sequential decode")
+        del decoded
+
+        cut = [os.path.join(root, f"cut_{d}.mp4") for d in ("card", "cpu")]
+        for p, dev in zip(cut, (device, torch.device("cpu"))):
+            with mpeg4.Writer(p, VIDEO_RES, VIDEO_FPS, dev) as writer:
+                for f in frames[:VIDEO_CPU_N]:
+                    writer.write(f.to(dev))
+        bytes_same = open(cut[0], "rb").read() == open(cut[1], "rb").read()
+        with mpeg4.Reader(cut[0], device) as a, mpeg4.Reader(cut[0], "cpu") as b:
+            frames_same = all(np.array_equal(a.read(n), b.read(n)) for n in range(VIDEO_CPU_N))
+        if not (bytes_same and frames_same):
+            failed.append(f"card against CPU on {VIDEO_CPU_N} frames: bytes equal {bytes_same}, "
+                          f"frames equal {frames_same}")
+
+        result = os.path.join(root, "fte.pickle")
+        data_io.save_pickle(result, dict(positions=pts3d, markers=cheetah.get_markers()))
+        anim = os.path.join(root, "anim.mp4")
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            animate_reconstruction(result, anim, skel_links=CHEETAH_LINKS, max_frames=VIDEO_N,
+                                   device=device)
+        s_anim = time.perf_counter() - t1
+        with mpeg4.Reader(anim, device) as r:
+            anim_info = (r.n_frames, r.size, r.fps, r.read(r.n_frames - 1) is not None)
+        if anim_info != (VIDEO_N, (640, 480), 15.0, True):
+            failed.append(f"animate_reconstruction's video reads back as {anim_info}")
+        _phase("video", t0, f"get_frames at {list(VIDEO_SEEKS)}: {s_seek:.3f} s, frames equal to "
+               f"the sequential decode's {seek_ok}; card against CPU on {VIDEO_CPU_N} frames: "
+               f"bytes equal {bytes_same}, decoded frames equal {frames_same}; "
+               f"animate_reconstruction of a {VIDEO_N}-frame result: {s_anim:.3f} s, "
+               f"{VIDEO_N / s_anim:.2f} frames/s, reads back as {anim_info[0]} frames of "
+               f"{anim_info[1][0]} x {anim_info[1][1]} at {anim_info[2]} fps, "
+               f"{os.path.getsize(anim) / 1e6:.3f} MB")
+
+        for sigma in VIDEO_SENSOR_NOISE:
+            frames = list(syn.scene_frames(VIDEO_RES, VIDEO_N, px[0], device=device,
+                                           sensor_noise=sigma))
+            rt = _codec_round_trip(frames, os.path.join(root, f"noise_{sigma}.mp4"), device)
+            del rt["decoded"]
+            _phase("video", t0, _round_trip_gates(rt, f"temporal noise of {sigma} levels",
+                                                  failed))
+    del frames
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("video: " + "; ".join(failed))
+    return time.perf_counter() - t0
+
+
+def video_profile(device=None, n=VIDEO_PROFILE_N):
+    """Measurement only (phase_video does not run it): where a frame's
+    time goes in the codec at the rig's width, under torch.profiler:
+    the first n frames of phase_video's footage encoded, then decoded;
+    a frame's wall ms, device busy ms and share, device ops, and the
+    C++ bitstream's ms (on the codec's worker thread, its GIL waits
+    included). On the GPU, ~40 s:
+    python3 -c "import chip_smoke as c; c.video_profile()"."""
+    import tempfile
+
+    from acinoset_tpu_torch.utils import mpeg4
+    from acinoset_tpu_torch.utils import synthetic as syn
+
+    device = torch.device(device or "cuda")
+    phase_device()
+    t0 = time.perf_counter()
+    cams = syn.ring_cameras(n_cams=1, res=VIDEO_RES)
+    px = syn.render_measurements(syn.cheetah_gallop(N=n, fps=VIDEO_FPS), cams, noise_px=0.0,
+                                 outlier_frac=0.0, bad_lik_frac=0.0)[0]
+    frames = list(syn.scene_frames(VIDEO_RES, n, px[0], device=device))
+    with tempfile.TemporaryDirectory() as root:
+        path = os.path.join(root, "profiled.mp4")
+        mpeg4.Writer(path, VIDEO_RES, VIDEO_FPS, device).close()  # builds the library
+
+        def encode():
+            with mpeg4.Writer(path, VIDEO_RES, VIDEO_FPS, device) as w:
+                for f in frames:
+                    w.write(f)
+
+        def decode():
+            with mpeg4.Reader(path, device) as r:
+                for i in range(n):
+                    r.read_tensor(i)
+
+        for name, fn in (("encode", encode), ("decode", decode)):
+            fn()  # warm
+            mpeg4.COUNTERS["host_s"] = 0.0
+            n_ops, busy, wall = _profiled(fn, device)
+            _phase("video profile", t0, f"{name} {n} frames of {VIDEO_RES[0]} x {VIDEO_RES[1]}: "
+                   f"{wall / n:.3f} ms a frame, device busy {busy / n:.3f} ms "
+                   f"({100 * busy / wall:.1f}%), {n_ops / n:.0f} device ops a frame, C++ "
+                   f"bitstream {mpeg4.COUNTERS['host_s'] * 1e3 / n:.3f} ms a frame")
+
+
 #: the files phase: one full-width run (the reference's GoPro rig size),
 #: then a dataset root of FILES_SWEEP_RUNS such runs in two fps groups
 FILES_CAMS = 6
@@ -3032,7 +3286,8 @@ FILES_EVAL_RMSE_PX = 5.0
 FILES_EVAL_PCK = 0.95
 #: tri on the card against the CPU port (float64, the same DLT)
 FILES_TRI_CPU_M = 1e-9
-#: the most the files phase's videos, plots and histogram may add, s
+#: the most the files phase's plots and histogram may add, s (the
+#: videos' seconds are under VIDEO_BUDGET_S)
 FILES_SLICE_S = 10.0
 #: the series polylines of fte.svg: the 25 states
 FILES_STATES = 25
@@ -3206,22 +3461,27 @@ def files_sweep_run(root, i):
                                       fps=FILES_FPS[i % 2], cam_res=FILES_RES, seed=i + 1)
 
 
-def phase_files(device):
+def phase_files(device, video_s):
     """The file-level pipeline on the card, the user's path: a run
     directory at full width (make_synthetic_run_dir: 6 cameras, N=200,
     2704 x 1520, the 20 cheetah markers, its DLC .h5 files written by
-    utils.hdf5), each .h5 read back bit for bit, and box-only
-    cam1..6.mp4 of its size, fps and frames beside them (get_vid_info
-    reads the sidecar's values from them); ``cli all`` (the dlc stage's
-    six Not written lines, then tri, sba, ekf, fte in float64) with each
-    stage held to tests/test_pipeline_e2e.py's bounds, tri against the
+    utils.hdf5, renamed to end in cam{c}.h5, the name
+    create_labeled_videos looks for), each .h5 read back bit for bit, and
+    mp4v cam1..6.mp4 of its size, fps and frames beside them, the run's
+    markers drawn on footage (utils.synthetic.write_scene_mp4;
+    get_vid_info reads the sidecar's values from them); ``cli all`` (the
+    dlc stage's six labelled videos, each read back by the port's decoder
+    at its source's frame count, size and fps, then tri, sba, ekf, fte in
+    float64) with each stage held to tests/test_pipeline_e2e.py's bounds,
+    tri against the
     CPU port and fte's six reprojected .h5 files against the projection
     of its positions, and its plots read back (files_plots_check);
     ``cli eval --hist`` against ground-truth label files (the noiseless
     projections of the truth, as tests/test_pipeline_e2e.py evaluates),
     the histogram's counts against np.histogram of the reprojection
-    errors and their sum against the finite errors; what the videos,
-    plots and histogram add, under FILES_SLICE_S; ``cli sweep --stages
+    errors and their sum against the finite errors; what the plots and
+    histogram add, under FILES_SLICE_S; the video work (video_s, phase_video's
+    seconds, the six cam*.mp4 and the dlc stage) under VIDEO_BUDGET_S; ``cli sweep --stages
     fte,ekf`` on a root of FILES_SWEEP_RUNS such runs in two fps groups
     (float32), every run's pickles present and held to the same bounds
     (the EKF of the runs in FILES_EKF_JAX_LOST, which the JAX package's
@@ -3239,6 +3499,7 @@ def phase_files(device):
     from acinoset_tpu_torch.pipeline import app
     from acinoset_tpu_torch.pipeline import data as data_io
     from acinoset_tpu_torch.pipeline import tri as tri_mod
+    from acinoset_tpu_torch.utils import mpeg4
     from acinoset_tpu_torch.utils import synthetic as syn
     from acinoset_tpu_torch.utils.figure import Figure
     from acinoset_tpu_torch.utils.png import read_png_text
@@ -3273,9 +3534,17 @@ def phase_files(device):
                f"back bit for bit {exact}; .h5 read {mb / s_read:.2f} MB/s, write "
                f"{mb / s_write:.2f} MB/s (host)")
 
+        # create_labeled_videos finds camera c's labels as dlc/*cam{c}.h5
+        # (the JAX package's rule); the other stages read every dlc/*.h5
+        for c, f in enumerate(fpaths):
+            fpaths[c] = os.path.join(run, "dlc", f"cam{c + 1}DLC_cam{c + 1}.h5")
+            os.rename(f, fpaths[c])
         t1 = time.perf_counter()
-        vids = [syn.write_box_mp4(os.path.join(run, f"cam{c + 1}.mp4"), FILES_RES, FILES_FPS[0],
-                                  FILES_N) for c in range(FILES_CAMS)]
+        vids = [syn.write_scene_mp4(os.path.join(run, f"cam{c + 1}.mp4"), FILES_RES,
+                                    FILES_FPS[0], FILES_N, px[c], seed=c, device=device)
+                for c in range(FILES_CAMS)]
+        s_videos = time.perf_counter() - t1
+        video_mb = sum(os.path.getsize(v) for v in vids) / 1e6
         with open(os.path.join(run, "video_info.json")) as f:
             sidecar = json.load(f)
         info = app.get_vid_info(run)
@@ -3283,18 +3552,28 @@ def phase_files(device):
                   and info[2] == sidecar["tot_frames"] and info[3] == vids)
         if not vid_ok:
             failed.append(f"get_vid_info reads {info[:3]} from the videos, the sidecar {sidecar}")
-        s_slice = time.perf_counter() - t1
         with _Seconds(Figure, "save") as saves:
             clock, s_all = _cli(["all", "--data_dir", run, "--device", device.type])
         secs = clock.seconds()
+        labelled = []
+        for v in vids:
+            out = v.replace(".mp4", "_labeled.mp4").replace(run, os.path.join(run, "dlc"))
+            if not os.path.exists(out):
+                labelled.append(None)
+                continue
+            with mpeg4.Reader(out, device) as r:
+                labelled.append((r.n_frames, r.size, r.fps, r.read(r.n_frames - 1) is not None))
+        want_video = (FILES_N, FILES_RES, FILES_FPS[0], True)
+        labelled_ok = labelled == [want_video] * FILES_CAMS
+        if not labelled_ok:
+            failed.append(f"cli all's dlc stage wrote labelled videos that read back as "
+                          f"{labelled}, not {FILES_CAMS} of {want_video}")
+        s_video_work = video_s + s_videos + secs["dlc"]
+        if not s_video_work < VIDEO_BUDGET_S:
+            failed.append(f"the video work takes {s_video_work} s (bound {VIDEO_BUDGET_S})")
         t1 = time.perf_counter()
-        not_written = [ln for ln in clock.text.splitlines() if ln.startswith("Not written: ")]
-        want_lines = [f"Not written: {os.path.join(run, 'dlc', f'cam{c + 1}_labeled.mp4')} (the "
-                      "port has no video decoder)" for c in range(FILES_CAMS)]
-        if not_written != want_lines:
-            failed.append(f"cli all's dlc stage printed {not_written}")
         plots_text = files_plots_check(run, failed)
-        s_slice += time.perf_counter() - t1 + saves.s
+        s_slice = time.perf_counter() - t1 + saves.s
         errs = _files_errors(run, truth)
         text = _files_gates("all", errs, failed)
         tri_cpu = tri_mod.tri(run, 1, -1, 0.8, save=False, device="cpu")["positions"]
@@ -3319,9 +3598,15 @@ def phase_files(device):
             f"{n} {v:.3f}" for n, v in secs.items()) + f" s); {text}; tri against the CPU port "
             f"{d_tri:.3e} m (bound {FILES_TRI_CPU_M}); fte's {FILES_CAMS} reprojections equal "
             f"its positions projected {reproj_ok}")
-        _phase("files", t0, f"dlc beside {FILES_CAMS} box-only cam*.mp4: {len(not_written)} "
-               f"Not written lines; get_vid_info reads the sidecar's {info[0][0]} x {info[0][1]}, "
-               f"{info[1]} fps, {info[2]} frames from the videos {vid_ok}; {plots_text}; the "
+        _phase("files", t0, f"{FILES_CAMS} mp4v cam*.mp4 of the run's markers drawn on "
+               f"footage (utils.synthetic.write_scene_mp4 on the card): {s_videos:.3f} s, "
+               f"{FILES_CAMS * FILES_N / s_videos:.2f} frames/s, {video_mb:.3f} MB; cli all's "
+               f"dlc stage {secs['dlc']:.3f} s, {FILES_CAMS * FILES_N / secs['dlc']:.2f} frames/s "
+               f"decoded, labelled and encoded; its {FILES_CAMS} labelled videos read back as "
+               f"{labelled[0]} each {labelled_ok}; get_vid_info reads the "
+               f"sidecar's {info[0][0]} x {info[0][1]}, {info[1]} fps, {info[2]} frames from the "
+               f"videos {vid_ok}; the video work (phase_video {video_s:.3f} s, these videos and "
+               f"the dlc stage) {s_video_work:.3f} s (bound {VIDEO_BUDGET_S}); {plots_text}; the "
                f"{saves.calls} plots written in cli all in {saves.s:.3f} s")
 
         gt_dir = os.path.join(root, "gt")
@@ -3357,8 +3642,7 @@ def phase_files(device):
                           f"{want_counts.tolist()} over {n_finite} finite errors")
         s_slice += time.perf_counter() - t1 + saves.s
         if not s_slice < FILES_SLICE_S:
-            failed.append(f"the videos, plots and histogram add {s_slice} s (bound "
-                          f"{FILES_SLICE_S})")
+            failed.append(f"the plots and histogram add {s_slice} s (bound {FILES_SLICE_S})")
         own = _printed_metrics(_cli(["eval", "--result", result, "--gt_h5", *fpaths, "--cams",
                                      *cams_arg, "--device", device.type])[0].text)["overall"]
         clock, s_view = _cli(["view", "--result", result, "--device", device.type])
@@ -3371,7 +3655,7 @@ def phase_files(device):
                f"{s_eval:.3f} s, rmse {ev['rmse_px']:.4f} px (bound {FILES_EVAL_RMSE_PX}), pck "
                f"{ev['pck']:.4f} (bound {FILES_EVAL_PCK}); histogram of {n_finite} finite errors, "
                f"{FILES_HIST_BINS} counts equal to np.histogram's {hist_ok}, written in "
-               f"{saves.s:.3f} s; the videos, plots and histogram add {s_slice:.3f} s (bound "
+               f"{saves.s:.3f} s; the plots and histogram add {s_slice:.3f} s (bound "
                f"{FILES_SLICE_S}); against the run's own DLC files "
                f"(outliers in): rmse {own['rmse_px']:.4f} px, pck {own['pck']:.4f}; cli view "
                f"{s_view:.3f} s, {os.path.getsize(html) / 1e6:.3f} MB")
@@ -3433,7 +3717,7 @@ def main():
     phase_sba(device)
     phase_calib(device)
     phase_images(device)
-    phase_files(device)
+    phase_files(device, phase_video(device))
     phase_uncertainty(device)
     phase_solvers(device)
     phase_sweep_uncertainty(device, sweep)

@@ -157,22 +157,54 @@ def test_dlc_stage_without_videos_prints_the_jax_skip_line(ran_all, capsys):
 
 
 def test_dlc_stage_with_videos_raises_before_any_work(tmp_path, capsys):
-    """The name is the old one; the stage no longer raises. With box-only
-    cam*.mp4 that declare the run's size, fps and 12 frames (and no
-    video_info.json), ``dlc`` names each labelled video the JAX package
-    would write and does not write, and ``all`` goes on and writes every
-    stage's pickle, its frame count read from the videos."""
+    """The name is the old one; the stage no longer raises. Beside the
+    run's labels (named to end in cam{c}.h5, which create_labeled_videos
+    looks for), cam1 is a box-only video that declares the run's size,
+    fps and 12 frames (and there is no video_info.json), cam2 an mp4v
+    file whose second sample is a B-VOP, cam3 real mp4v footage, cam4 a
+    box-only H.264 (avc1) file. ``dlc`` writes a labelled video for each
+    mp4v file it decodes (no frame for a box-only one, as the JAX
+    package's cv2 writes), names the B-VOP and H.264 ones in
+    ``Not written:`` lines and leaves no file at those paths; ``all``
+    goes on and writes every stage's pickle, its frame count read from
+    the videos."""
+    from acinoset_tpu_torch.utils import mp4, mpeg4
+
     run, _pts = cases.make_run(tmp_path, "port", N=12)
     os.remove(os.path.join(run, "video_info.json"))
+    for c in range(cases.N_CAMS):
+        os.rename(os.path.join(run, "dlc", f"cam{c + 1}DLC.h5"),
+                  os.path.join(run, "dlc", f"cam{c + 1}DLC_cam{c + 1}.h5"))
     vids = [tsyn.write_box_mp4(os.path.join(run, f"cam{c + 1}.mp4"), (2704, 1520), 90.0, 12)
-            for c in range(cases.N_CAMS)]
-    lines = [f"Not written: {os.path.join(run, 'dlc', f'cam{c + 1}_labeled.mp4')} (the port "
-             f"has no video decoder)" for c in range(cases.N_CAMS)]
+            for c in (0, 3)]
+    with open(vids[1], "rb") as f:
+        avc1 = f.read().replace(b"mp4v", b"avc1")
+    with open(vids[1], "wb") as f:
+        f.write(avc1)
+    config = mpeg4.write_config((64, 48), 90)
+    levels = np.zeros((72, 64), np.int16)
+    levels[:, 0] = 100
+    intra = mpeg4.encode_vop(mpeg4.parse_config(config), 0, 4,
+                             np.full((12, 5), (mpeg4.MB_INTRA, 0, 0, 0, 0), np.int16), levels)
+    with mp4.Mp4Writer(os.path.join(run, "cam2.mp4"), (64, 48), 90.0, config) as w:
+        w.add_sample(intra, True)
+        w.add_sample(b"\x00\x00\x01\xb6\x80" + bytes(8), False)  # vop_coding_type 2
+    tsyn.write_scene_mp4(os.path.join(run, "cam3.mp4"), (64, 48), 90.0, 12, seed=3)
+    labelled = [os.path.join(run, "dlc", f"cam{c + 1}_labeled.mp4") for c in range(4)]
+    lines = [f"Not written: {labelled[1]} (B-VOPs: the port decodes MPEG-4 Simple Profile I-, "
+             "P- and N-VOPs only)",
+             f"Not written: {labelled[3]} (H.264: the port decodes mp4v only)"]
     for cmd in ("dlc", "all"):
         assert tcli.main([cmd, "--data_dir", run, "--dlc_thresh", "0.5", "--device", "cpu"]) == 0
         out = capsys.readouterr().out
         assert [ln for ln in out.splitlines() if ln.startswith("Not written")] == lines
-    assert not any(os.path.exists(v.replace(".mp4", "_labeled.mp4")) for v in vids)
+        frames = []
+        for c in (0, 2):
+            assert f"Saved {labelled[c]}" in out
+            with mpeg4.Reader(labelled[c], device="cpu") as r:
+                frames.append((r.n_frames, r.read(r.n_frames - 1) is not None))
+        assert frames == [(0, False), (12, True)]
+        assert not os.path.exists(labelled[1]) and not os.path.exists(labelled[3])
     for s in STAGES:
         assert _load(run, s)["positions"].shape == (12, 20, 3)
     for rel in ("fte/fte.svg", "ekf/ekf.pdf", "reconstructions.png"):

@@ -27,9 +27,11 @@ from acinoset_tpu_torch.pipeline import points2d as tp2d
 from acinoset_tpu_torch.pipeline import sba as tsba
 from acinoset_tpu_torch.pipeline import sweep as tsweep
 from acinoset_tpu_torch.pipeline import tri as ttri
+from acinoset_tpu_torch.pipeline import video as tvideo
 from acinoset_tpu_torch.probes import probe_mosaic as tpm
 from acinoset_tpu_torch.probes import probe_mosaic2 as tpm2
 from acinoset_tpu_torch.solvers import trajopt as ttraj
+from acinoset_tpu_torch.utils import mpeg4 as tmpeg4
 from acinoset_tpu_torch.utils import synthetic as tsyn
 
 torch.set_num_threads(2)
@@ -49,7 +51,8 @@ def test_port_and_chip_smoke_import_no_jax_nor_io_stack():
               "pipeline.app", "pipeline.tri", "pipeline.points2d", "pipeline.viewer",
               "eval.metrics", "parallel.mesh", "entry", "utils.profiling",
               "utils.pan_compensation", "gui.label_session", "gui.skeleton_builder",
-              "pipeline.plots", "pipeline.video", "utils.argus", "utils.figure"):
+              "pipeline.plots", "pipeline.video", "utils.argus", "utils.figure",
+              "utils.mpeg4"):
         assert f"acinoset_tpu_torch.{m}" in modules
     code = (
         "import importlib, sys\n"
@@ -146,6 +149,13 @@ ENTRY_POINTS = {
         ("all", ["all", "--data_dir", "run"]), ("sweep", ["sweep", "--root_dir", "root"]),
         ("build", ["build", "--top_dir", "proj"]), ("view", ["view", "--result", "r.pickle"]),
         ("eval", ["eval", "--result", "r.pickle", "--gt_h5", "a.h5", "--cams", "0"]))},
+    "get_frames": lambda: tvideo.get_frames("cam1.mp4", [0]),
+    "extract_frame_range": lambda: tvideo.extract_frame_range("cam1.mp4", 0, 2, "frames"),
+    "images_to_video": lambda: tvideo.images_to_video(["a.png"], "out.mp4"),
+    "create_labeled_videos": lambda: tvideo.create_labeled_videos(["cam1.mp4"], "dlc"),
+    "animate_reconstruction": lambda: tplots.animate_reconstruction("r.pickle", "a.mp4"),
+    "mpeg4.Reader": lambda: tmpeg4.Reader("cam1.mp4"),
+    "mpeg4.Writer": lambda: tmpeg4.Writer("out.mp4", (16, 16), 30.0),
     **{f"probe_mosaic.{name}": t for name, t in tpm.PROBES},
     **{f"probe_mosaic2.{name}": t for name, t in tpm2.PROBES},
 }

@@ -206,13 +206,57 @@ def test_calibration_plots_match_jax(tmp_path):
     assert text["axes 1 text"] == "cam1; cam2; cam3"
 
 
-def test_animate_reconstruction_raises_before_touching_a_file(result_pickles, tmp_path):
-    blocker = tmp_path / "file"
-    blocker.write_text("")
-    out = str(blocker / "anim.mp4")  # under a file: nothing could be written there
-    with pytest.raises(NotImplementedError, match="video encoder"):
-        tplots.animate_reconstruction(str(tmp_path / "missing.pickle"), out)
-    assert sorted(os.listdir(tmp_path)) == ["file", "fte.pickle", "sba.pickle"]
+def test_animate_reconstruction_matches_jax(tmp_path, capsys):
+    """The JAX function (matplotlib frames, cv2's mp4v) and the port's
+    (utils.figure frames, the port's mp4v) on one result: the same frame
+    count, 640 x 480 and 15 fps, as cv2 reads both, the same printed
+    line; the port's decoded frames against its own rasterisation of
+    each frame: a PSNR no lower than cv2's mp4v encoding of those
+    rasterised frames less 1 dB. Markers outside the links, a NaN point
+    and max_frames cut the result."""
+    import cv2
+
+    from acinoset_tpu_torch.models import cheetah
+    from test_torch_mpeg4 import cv2_frames, psnr
+
+    rng = np.random.default_rng(6)
+    markers = cheetah.get_markers()
+    pos = tsyn.render_measurements(tsyn.cheetah_gallop(N=14), tsyn.ring_cameras(n_cams=2),
+                                   seed=0)[2]
+    pos[3, 5] = np.nan
+    fp = str(tmp_path / "fte.pickle")
+    tdata.save_pickle(fp, dict(positions=pos + rng.normal(scale=0.01, size=pos.shape),
+                               markers=markers))
+    links = tplots.CHEETAH_LINKS[:12] + [("nose", "no_such_marker")]
+    outs = {}
+    for name, mod, extra in (("jax", jplots, {}), ("port", tplots, {"device": "cpu"})):
+        out = str(tmp_path / f"{name}.mp4")
+        assert mod.animate_reconstruction(fp, out, skel_links=links, max_frames=12, elev=25.0,
+                                          azim=-50.0, **extra) == out
+        assert capsys.readouterr().out == f"Saved {out}\n"
+        cap = cv2.VideoCapture(out)
+        outs[name] = (cap.get(cv2.CAP_PROP_FRAME_COUNT), cap.get(cv2.CAP_PROP_FRAME_WIDTH),
+                      cap.get(cv2.CAP_PROP_FRAME_HEIGHT), cap.get(cv2.CAP_PROP_FPS))
+    assert outs["port"] == outs["jax"] == (12, 640, 480, 15.0)
+
+    payload = tdata.load_pickle(fp)
+    positions = payload["positions"][:12]
+    pairs = [(markers.index(a), markers.index(b)) for a, b in links if b in markers]
+    lo = np.nanmin(positions.reshape(-1, 3), axis=0)
+    hi = np.nanmax(positions.reshape(-1, 3), axis=0)
+    pad = 0.1 * np.maximum(hi - lo, 1e-3)
+    raster = [tplots._reconstruction_frame(n, p, pairs, lo - pad, hi + pad, 25.0,
+                                           -50.0).to_png()[0][..., ::-1]
+              for n, p in enumerate(positions)]
+    vw = cv2.VideoWriter(str(tmp_path / "cv2.mp4"), cv2.VideoWriter_fourcc(*"mp4v"), 15.0,
+                         (640, 480))
+    for f in raster:
+        vw.write(np.ascontiguousarray(f))
+    vw.release()
+    p_port = np.mean([psnr(a, b) for a, b in zip(cv2_frames(str(tmp_path / "port.mp4")),
+                                                 raster)])
+    p_cv2 = np.mean([psnr(a, b) for a, b in zip(cv2_frames(str(tmp_path / "cv2.mp4")), raster)])
+    assert p_port >= p_cv2 - 1.0, (p_port, p_cv2)
 
 
 def _demo_figure():

@@ -136,9 +136,9 @@ def _parser() -> ArgumentParser:
 
 def _label_videos(args, device):
     """The dlc stage: create_labeled_videos on the run's cam[1-9].mp4, a
-    video at a time, so that one in a codec the port does not decode
-    (GoPro's H.264) is named in a ``Not written:`` line and the rest are
-    labelled."""
+    video at a time, so that one the port cannot read (GoPro's H.264 on a
+    device without NVDEC, a codec it does not decode) is named in a
+    ``Not written:`` line and the rest are labelled."""
     from .pipeline.video import create_labeled_video, labeled_video_fpath
     from .utils.mpeg4 import UnsupportedVideo
 

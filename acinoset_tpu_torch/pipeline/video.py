@@ -4,12 +4,17 @@ of a video (``get_frames``, ``extract_frame_range``), images into one
 (``create_labeled_videos``), the natural sort and the vertical stack of
 images (src/make_anim.py).
 
-The JAX package does this through cv2; the port through its own codec,
-``utils.mpeg4``: MPEG-4 Part 2 Simple Profile in MP4 (``mp4v``), the
-codec the JAX package writes. Each function runs on the device it is
-given (``cuda`` unless ``device`` names another) and reads and writes
-mp4v only: a video in another codec (GoPro's H.264 or HEVC) raises
-``utils.mpeg4.UnsupportedVideo``, naming it.
+The JAX package does this through cv2; the port reads through
+``open_video``, which picks the reader by the track's codec: its own
+codec ``utils.mpeg4`` for MPEG-4 Part 2 Simple Profile in MP4 (``mp4v``,
+the codec the JAX package writes), and the card's NVDEC
+(``utils.nvdec``) for GoPro's H.264 (``avc1``/``avc3``) and HEVC
+(``hvc1``/``hev1``), frame for frame as cv2 gives them (presentation
+order after the edit list). It writes mp4v, as the JAX package does.
+Each function runs on the device it is given (``cuda`` unless
+``device`` names another); what cannot be read there (H.264 or HEVC on
+the CPU, another codec) raises ``utils.mpeg4.UnsupportedVideo``, naming
+it.
 
 The labels are drawn on the device, pixel for pixel as cv2 draws them:
 skeleton lines as ``cv2.line(..., thickness=1)`` (8-connected, clipped to
@@ -28,7 +33,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..utils import mpeg4
+from ..utils import mp4, mpeg4, nvdec
 from ..utils.device import resolve_device
 from ..utils.png import read_png, write_png
 from . import data as data_io
@@ -49,6 +54,17 @@ def _write(writer, frame):
         writer.write(frame[:H, :W])
 
 
+def open_video(video_fpath: str, device=None):
+    """A reader of the video's frames (``n_frames``, ``size``, ``fps``,
+    ``read``, ``read_tensor``, ``close``; a context manager), picked by
+    its track's codec: ``nvdec.Reader`` for H.264 and HEVC,
+    ``mpeg4.Reader`` for the rest (which refuses all but mp4v)."""
+    device = resolve_device(device)
+    if mp4.read_video_track(video_fpath).codec in nvdec.CODECS:
+        return nvdec.Reader(video_fpath, device)
+    return mpeg4.Reader(video_fpath, device)
+
+
 def get_frames(video_fpath: str, frame_indices: Sequence[int], out_dir: Optional[str] = None,
                device=None):
     """Frames of a video by index, as [(index, BGR uint8 (H, W, 3))]
@@ -56,7 +72,7 @@ def get_frames(video_fpath: str, frame_indices: Sequence[int], out_dir: Optional
     skipped. With out_dir each is also written there as ``{index}.png``."""
     device = resolve_device(device)
     out = []
-    with mpeg4.Reader(video_fpath, device) as reader:
+    with open_video(video_fpath, device) as reader:
         for idx in frame_indices:
             frame = reader.read(int(idx)) if int(idx) >= 0 else None
             if frame is None:
@@ -231,7 +247,7 @@ def create_labeled_video(video_fpath: str, ci: int, out_dir: str, draw_skeleton:
     lookup = {int(f): i for i, f in enumerate(frames_idx)}
     out_fpath = labeled_video_fpath(video_fpath, out_dir)
     # a frame that cannot be decoded (a B-VOP, say) ends the copy with no file
-    with mpeg4.Reader(video_fpath, device) as reader, \
+    with open_video(video_fpath, device) as reader, \
             mpeg4.Writer(out_fpath, _even(reader.size), reader.fps or 30.0, device) as writer:
         n = 0
         while max_frames is None or n < max_frames:

@@ -1,0 +1,685 @@
+"""H.264 and HEVC elementary streams: what the port's NVDEC reader
+(``utils.nvdec``) feeds the card's decoder, and two stream writers of
+known reconstruction for its tests and ``chip_smoke.py``.
+
+- ``nal_units``/``annexb``: an MP4 sample's length-prefixed NAL units
+  (``avcC``/``hvcC``'s length size) in start-code form (Annex B), with
+  the parameter sets put in front at each decode start.
+- ``H264Stream``: Main profile, CAVLC, POC type 0, frame cropping, a VUI
+  with the colour matrix and range and ``bitstream_restriction``
+  (``max_num_reorder_frames`` 2), deblocking off. Its GOP is ``I P B B P
+  B B ...``: IDR frames of ``I_PCM`` macroblocks; P frames of ``P_Skip``
+  runs around an ``I_PCM`` patch that moves; non-reference B frames of
+  ``B_Skip`` macroblocks with spatial direct prediction, whose
+  reconstruction is ``(L0 + L1 + 1) >> 1`` of the two anchors about them,
+  around an ``I_PCM`` patch of their own (so that no two frames are
+  alike, and a frame out of order shows).
+- ``HevcStream``: Main profile, CTB 16 = min CB 16, PCM with its loop
+  filter off, SAO and deblocking off, one merge candidate, no TMVP: an
+  IDR of PCM CUs, then ``TRAIL_R`` P frames of skipped CUs around a
+  moving PCM patch. CABAC codes only the context bins of
+  ``cu_skip_flag``, ``pred_mode_flag`` and ``part_mode``; ``pcm_flag``
+  and ``end_of_slice_segment_flag`` are terminate bins, and the engine
+  starts afresh after the PCM samples.
+
+Both are made from a seed at run time (``planes(k)`` is frame k's
+reconstruction, in presentation order) and are written into MP4 by
+``write_mp4`` (``avc1``/``avc3``, ``hvc1``/``hev1``, with ``ctts`` and
+``elst`` where frames are reordered). They serve tests and measurement;
+no user entry point writes them.
+"""
+from __future__ import annotations
+
+import struct
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from . import mp4
+
+#: VUI matrix_coefficients: BT.709, BT.601 (SMPTE 170M), BT.2020 (NCL)
+BT709, BT601, BT2020 = 1, 6, 9
+#: frames of an anchor's I_PCM patch (macroblocks, width x height)
+PATCH_MBS = (8, 4)
+
+
+# ---- NAL units ----
+
+
+def nal_units(sample: bytes, length_size: int = 4) -> List[bytes]:
+    """The NAL units of a length-prefixed MP4 sample."""
+    out, p, n = [], 0, len(sample)
+    while p + length_size <= n:
+        size = int.from_bytes(sample[p:p + length_size], "big")
+        p += length_size
+        if p + size > n:
+            raise ValueError(f"a NAL unit of {size} bytes overruns its {n}-byte sample")
+        out.append(sample[p:p + size])
+        p += size
+    return out
+
+
+def annexb(nals: Sequence[bytes]) -> bytes:
+    """NAL units in start-code form."""
+    return b"".join(b"\x00\x00\x00\x01" + bytes(n) for n in nals)
+
+
+def escape(rbsp: np.ndarray) -> bytes:
+    """Emulation prevention (H.264 7.4.1, HEVC 7.4.2): 0x03 after every
+    two zero bytes that a byte <= 3 follows. Vectorised over zero runs: in
+    a run of k zeros a 0x03 goes before its zeros 2, 4, ...; before the
+    byte after the run too when k is even and that byte is <= 3."""
+    b = np.asarray(rbsp, np.uint8)
+    if b.size == 0:
+        return b""
+    z = np.concatenate([[0], (b == 0).astype(np.int8), [0]])
+    d = np.diff(z)
+    starts, ends = np.flatnonzero(d == 1), np.flatnonzero(d == -1)
+    k = ends - starts
+    if not np.any(k >= 2):
+        return b.tobytes()
+    inside = [s + np.arange(2, L, 2) for s, L in zip(starts[k >= 3], k[k >= 3])]
+    after = ends[(k >= 2) & (k % 2 == 0)]
+    after = after[(after >= len(b)) | (b[np.minimum(after, len(b) - 1)] <= 3)]
+    pos = np.sort(np.concatenate(inside + [after]).astype(np.int64))
+    return np.insert(b, pos, 3).tobytes()
+
+
+class Bits:
+    """An MSB-first bit writer with Exp-Golomb codes."""
+
+    def __init__(self):
+        self.out = bytearray()
+        self.acc = 0
+        self.n = 0
+
+    def u(self, v: int, n: int) -> "Bits":
+        if n:
+            self.acc = (self.acc << n) | (int(v) & ((1 << n) - 1))
+            self.n += n
+            while self.n >= 8:
+                self.n -= 8
+                self.out.append((self.acc >> self.n) & 0xFF)
+            self.acc &= (1 << self.n) - 1
+        return self
+
+    def ue(self, v: int) -> "Bits":
+        v = int(v) + 1
+        k = v.bit_length()
+        return self.u(0, k - 1).u(v, k)
+
+    def se(self, v: int) -> "Bits":
+        return self.ue(2 * v - 1 if v > 0 else -2 * v)
+
+    def align(self, bit: int = 0) -> "Bits":
+        if self.n:
+            self.u((1 << (8 - self.n)) - 1 if bit else 0, 8 - self.n)
+        return self
+
+    def raw(self, data) -> "Bits":
+        assert self.n == 0, "raw bytes need a byte-aligned writer"
+        self.out += bytes(data)
+        return self
+
+    def trailing(self) -> bytes:
+        """rbsp_trailing_bits, then the bytes."""
+        self.u(1, 1).align(0)
+        return bytes(self.out)
+
+
+def _mb_samples(planes, mbs: Optional[np.ndarray] = None) -> np.ndarray:
+    """(n, 384) PCM samples of 16 x 16 macroblocks (or CUs) in raster
+    order, each its 256 luma, 64 Cb and 64 Cr samples in raster order;
+    mbs (n, 2) picks (mbx, mby), else all of them."""
+    y, u, v = planes
+    mbh, mbw = y.shape[0] // 16, y.shape[1] // 16
+    Y = y.reshape(mbh, 16, mbw, 16).transpose(0, 2, 1, 3).reshape(mbh * mbw, 256)
+    U = u.reshape(mbh, 8, mbw, 8).transpose(0, 2, 1, 3).reshape(mbh * mbw, 64)
+    V = v.reshape(mbh, 8, mbw, 8).transpose(0, 2, 1, 3).reshape(mbh * mbw, 64)
+    out = np.concatenate([Y, U, V], axis=1)
+    if mbs is not None:
+        out = out[mbs[:, 1] * mbw + mbs[:, 0]]
+    return out
+
+
+# ---- the streams' content ----
+
+
+class _Content:
+    """A stream's frames and their reconstruction, from a seed: GOPs of
+    ``gop`` frames, each an IDR whose samples are uniform noise, then
+    anchors (P) every third frame with B frames between them (or every
+    frame when b_frames is off); a GOP's last frames are P frames where no
+    anchor follows them inside it. Each P anchor replaces a PATCH_MBS
+    patch of its reference by noise, and each B frame one of the average
+    of its anchors; the patch moves from frame to frame."""
+
+    def __init__(self, size, n_frames, gop, seed, b_frames):
+        self.size = (int(size[0]), int(size[1]))
+        W, H = self.size
+        if W % 2 or H % 2 or W <= 0 or H <= 0:
+            raise ValueError(f"frame size {W} x {H}: width and height must be even")
+        self.mbw, self.mbh = (W + 15) // 16, (H + 15) // 16
+        self.coded = (16 * self.mbw, 16 * self.mbh)
+        self.n, self.gop, self.seed = int(n_frames), int(gop), int(seed)
+        self.types: List[str] = []
+        self.decode: List[int] = []  # display indices in decode order
+        for g0 in range(0, self.n, self.gop):
+            length = min(self.gop, self.n - g0)
+            kinds = ["I"] + ["P"] * (length - 1)
+            if b_frames:
+                for j in range(1, length):
+                    nxt = (j // 3 + 1) * 3
+                    kinds[j] = "P" if j % 3 == 0 or nxt >= length else "B"
+            self.types += kinds
+            pending = []
+            for j, kind in enumerate(kinds):
+                if kind == "B":
+                    pending.append(g0 + j)
+                else:
+                    self.decode += [g0 + j] + pending
+                    pending = []
+        self.pw, self.ph = min(PATCH_MBS[0], self.mbw), min(PATCH_MBS[1], self.mbh)
+        self._cache: Dict[int, tuple] = {}
+
+    def _rng(self, *key):
+        return np.random.default_rng([self.seed, *key])
+
+    def patch(self, k) -> Tuple[int, int]:
+        """The top-left macroblock (mbx, mby) of anchor k's patch."""
+        return ((5 * k) % (self.mbw - self.pw + 1), (3 * k) % (self.mbh - self.ph + 1))
+
+    def patch_mbs(self, k) -> np.ndarray:
+        """(n, 2) the patch's macroblocks, raster order."""
+        x0, y0 = self.patch(k)
+        yy, xx = np.mgrid[y0:y0 + self.ph, x0:x0 + self.pw]
+        return np.stack([xx.ravel(), yy.ravel()], 1)
+
+    def _noise(self, shape, *key):
+        return self._rng(*key).integers(0, 256, size=shape, dtype=np.uint8)
+
+    def _put_patch(self, k, planes):
+        x0, y0 = self.patch(k)
+        s = self.patch_samples(k).reshape(self.ph, self.pw, 384)
+        planes[0][16 * y0:16 * (y0 + self.ph), 16 * x0:16 * (x0 + self.pw)] = \
+            s[..., :256].reshape(self.ph, self.pw, 16, 16).transpose(0, 2, 1, 3).reshape(
+                16 * self.ph, 16 * self.pw)
+        for c in (0, 1):
+            planes[1 + c][8 * y0:8 * (y0 + self.ph), 8 * x0:8 * (x0 + self.pw)] = \
+                s[..., 256 + 64 * c:320 + 64 * c].reshape(self.ph, self.pw, 8, 8).transpose(
+                    0, 2, 1, 3).reshape(8 * self.ph, 8 * self.pw)
+        return planes
+
+    def anchor_ref(self, k) -> int:
+        """The anchor before frame k (its reference)."""
+        j = k - 1
+        while self.types[j] == "B":
+            j -= 1
+        return j
+
+    def anchor_next(self, k) -> int:
+        j = k + 1
+        while self.types[j] == "B":
+            j += 1
+        return j
+
+    def patch_samples(self, k) -> np.ndarray:
+        """(n, 384) anchor k's patch samples."""
+        return self._noise((self.pw * self.ph, 384), 1, k)
+
+    def planes(self, k) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Frame k's reconstruction at the coded size: uint8 Y, U, V."""
+        k = int(k)
+        if k in self._cache:
+            return self._cache[k]
+        W16, H16 = self.coded
+        kind = self.types[k]
+        if kind == "I":
+            out = (self._noise((H16, W16), 0, k), self._noise((H16 // 2, W16 // 2), 2, k),
+                   self._noise((H16 // 2, W16 // 2), 3, k))
+        elif kind == "P":
+            out = self._put_patch(k, tuple(p.copy() for p in self.planes(self.anchor_ref(k))))
+        else:
+            a, b = self.planes(self.anchor_ref(k)), self.planes(self.anchor_next(k))
+            out = self._put_patch(k, tuple(((p.astype(np.uint16) + q + 1) >> 1).astype(np.uint8)
+                                           for p, q in zip(a, b)))
+        if kind != "B":
+            self._cache = {j: v for j, v in self._cache.items() if j >= k - 2 * self.gop}
+            self._cache[k] = out
+        return out
+
+    def nv12(self, k, pitch_align: int = 1) -> np.ndarray:
+        """Frame k's reconstruction as an NV12 surface (coded height x 1.5
+        rows: Y, then U and V interleaved), each row the coded width
+        zero-padded to a multiple of pitch_align, as a decoder's surface
+        is."""
+        y, u, v = self.planes(k)
+        uv = np.stack([u, v], -1).reshape(u.shape[0], 2 * u.shape[1])
+        W = y.shape[1]
+        surf = np.zeros((y.shape[0] + uv.shape[0], -(-W // pitch_align) * pitch_align), np.uint8)
+        surf[:, :W] = np.concatenate([y, uv], 0)
+        return surf
+
+    @property
+    def presentation_offsets(self) -> List[int]:
+        """Each sample's (decode order) display index less its decode index."""
+        return [k - i for i, k in enumerate(self.decode)]
+
+
+def _vui_colour(bits: Bits, matrix, full_range):
+    """video_signal_type: format 5 (unspecified), the range, and the
+    colour description (primaries and transfer as the matrix for BT.709
+    and BT.601, else unspecified); matrix None writes none."""
+    if matrix is None:
+        bits.u(0, 1)
+        return
+    prim = matrix if matrix in (BT709, BT601) else 2
+    bits.u(1, 1).u(5, 3).u(int(bool(full_range)), 1).u(1, 1).u(prim, 8).u(prim, 8).u(matrix, 8)
+
+
+# ---- H.264 ----
+
+H264_PROFILE, H264_LEVEL = 77, 51  # Main, level 5.1
+_IDR, _SLICE, _SPS, _PPS = 5, 1, 7, 8
+#: mb_type of I_PCM in I, P and B slices
+_I_PCM = {"I": 25, "P": 30, "B": 48}
+LOG2_FRAME_NUM, LOG2_POC_LSB = 4, 8
+
+
+class H264Stream(_Content):
+    """An H.264 stream of known reconstruction (the module's notes): size
+    (width, height), cropped from the coded size where that is not a
+    multiple of 16; ``matrix`` and ``full_range`` go to the VUI."""
+
+    def __init__(self, size, n_frames, gop=12, seed=0, matrix=BT709, full_range=True,
+                 b_frames=True):
+        super().__init__(size, n_frames, gop, seed, b_frames)
+        self.matrix, self.full_range = matrix, bool(full_range)
+        self.sps = self._sps()
+        self.pps = self._pps()
+
+    @property
+    def param_sets(self) -> List[bytes]:
+        return [self.sps, self.pps]
+
+    @staticmethod
+    def _nal(ref_idc, kind, rbsp) -> bytes:
+        return bytes([(ref_idc << 5) | kind]) + escape(np.frombuffer(rbsp, np.uint8))
+
+    def _sps(self) -> bytes:
+        W, H = self.size
+        W16, H16 = self.coded
+        b = Bits().u(H264_PROFILE, 8).u(0x40, 8).u(H264_LEVEL, 8).ue(0)
+        b.ue(LOG2_FRAME_NUM - 4).ue(0).ue(LOG2_POC_LSB - 4)
+        b.ue(2).u(0, 1).ue(self.mbw - 1).ue(self.mbh - 1)
+        b.u(1, 1).u(1, 1)  # frame_mbs_only, direct_8x8_inference
+        crop = (W16 - W) // 2, (H16 - H) // 2
+        if any(crop):
+            b.u(1, 1).ue(0).ue(crop[0]).ue(0).ue(crop[1])
+        else:
+            b.u(0, 1)
+        b.u(1, 1)  # vui_parameters_present_flag
+        b.u(0, 1).u(0, 1)  # aspect_ratio_info, overscan_info
+        _vui_colour(b, self.matrix, self.full_range)
+        b.u(0, 1).u(0, 1).u(0, 1).u(0, 1).u(0, 1)  # chroma_loc, timing, nal/vcl hrd, pic_struct
+        b.u(1, 1).u(1, 1).ue(0).ue(0).ue(16).ue(16).ue(2).ue(3)  # bitstream_restriction
+        return self._nal(3, _SPS, b.trailing())
+
+    def _pps(self) -> bytes:
+        b = Bits().ue(0).ue(0).u(0, 1).u(0, 1).ue(0).ue(0).ue(0).u(0, 1).u(0, 2)
+        b.se(0).se(0).se(0).u(1, 1).u(0, 1).u(0, 1)
+        return self._nal(3, _PPS, b.trailing())
+
+    def _header(self, k, frame_num) -> Bits:
+        """The slice header of display frame k (one slice a picture)."""
+        kind = self.types[k]
+        g0 = k - k % self.gop
+        b = Bits().ue(0).ue({"P": 5, "B": 6, "I": 7}[kind]).ue(0)
+        b.u(frame_num % (1 << LOG2_FRAME_NUM), LOG2_FRAME_NUM)
+        if kind == "I":
+            b.ue((g0 // self.gop) & 0xFFFF)  # idr_pic_id
+        b.u((2 * (k - g0)) % (1 << LOG2_POC_LSB), LOG2_POC_LSB)
+        if kind == "B":
+            b.u(1, 1)  # direct_spatial_mv_pred_flag
+        if kind != "I":
+            b.u(0, 1).u(0, 1)  # num_ref_idx_active_override, ref_pic_list_modification l0
+        if kind == "B":
+            b.u(0, 1)  # ref_pic_list_modification l1
+        if kind == "I":
+            b.u(0, 1).u(0, 1)  # no_output_of_prior_pics, long_term_reference
+        elif kind == "P":
+            b.u(0, 1)  # adaptive_ref_pic_marking_mode_flag
+        return b.se(0).ue(1)  # slice_qp_delta; disable_deblocking_filter_idc 1
+
+    def _idr(self, k, b: Bits) -> bytes:
+        """An IDR slice of I_PCM macroblocks: after the first, each one is
+        ue(25) and its alignment (0x0D 0x00), then its 384 samples."""
+        b.ue(_I_PCM["I"]).align(0)
+        samples = _mb_samples(self.planes(k))
+        rest = np.empty((len(samples) - 1, 386), np.uint8)
+        rest[:, 0], rest[:, 1] = 0x0D, 0x00
+        rest[:, 2:] = samples[1:]
+        rbsp = np.concatenate([np.frombuffer(bytes(b.out), np.uint8), samples[0],
+                               rest.reshape(-1), [0x80]]).astype(np.uint8)
+        return bytes([(3 << 5) | _IDR]) + escape(rbsp)
+
+    def _inter(self, k, b: Bits) -> bytes:
+        """A P or B slice: skip runs around the frame's I_PCM patch."""
+        kind = self.types[k]
+        mbs = self.patch_mbs(k)
+        patch = set(map(tuple, mbs))
+        samples = self.patch_samples(k)
+        run = i = 0
+        for mby in range(self.mbh):
+            for mbx in range(self.mbw):
+                if (mbx, mby) in patch:
+                    b.ue(run).ue(_I_PCM[kind]).align(0).raw(samples[i].tobytes())
+                    run, i = 0, i + 1
+                else:
+                    run += 1
+        if run:
+            b.ue(run)
+        return self._nal(2 if kind == "P" else 0, _SLICE, b.trailing())
+
+    def samples(self) -> Iterator[Tuple[int, bool, List[bytes]]]:
+        """(display index, sync, NAL units) of each picture, in decode
+        order."""
+        refs = 0
+        for k in self.decode:
+            kind = self.types[k]
+            if kind == "I":
+                refs = 0
+            b = self._header(k, refs)
+            nal = self._idr(k, b) if kind == "I" else self._inter(k, b)
+            if kind != "B":
+                refs += 1
+            yield k, kind == "I", [nal]
+
+    def config(self) -> bytes:
+        """The avcC payload."""
+        out = bytes([1, H264_PROFILE, 0x40, H264_LEVEL, 0xFF, 0xE1])
+        out += struct.pack(">H", len(self.sps)) + self.sps
+        return out + bytes([1]) + struct.pack(">H", len(self.pps)) + self.pps
+
+
+# ---- HEVC ----
+
+_VPS, _HSPS, _HPPS = 32, 33, 34
+_IDR_W_RADL, _TRAIL_R = 19, 1
+HEVC_LEVEL = 153  # 5.1
+
+#: CABAC (H.264 9.3.3.2 and HEVC 9.3.4.3): rangeTabLps[pStateIdx][qRangeIdx]
+RANGE_LPS = (
+    (128, 176, 208, 240), (128, 167, 197, 227), (128, 158, 187, 216), (123, 150, 178, 205),
+    (116, 142, 169, 195), (111, 135, 160, 185), (105, 128, 152, 175), (100, 122, 144, 166),
+    (95, 116, 137, 158), (90, 110, 130, 150), (85, 104, 123, 142), (81, 99, 117, 135),
+    (77, 94, 111, 128), (73, 89, 105, 122), (69, 85, 100, 116), (66, 80, 95, 110),
+    (62, 76, 90, 104), (59, 72, 86, 99), (56, 69, 81, 94), (53, 65, 77, 89),
+    (51, 62, 73, 85), (48, 59, 69, 80), (46, 56, 66, 76), (43, 53, 63, 72),
+    (41, 50, 59, 69), (39, 48, 56, 65), (37, 45, 54, 62), (35, 43, 51, 59),
+    (33, 41, 48, 56), (32, 39, 46, 53), (30, 37, 43, 50), (29, 35, 41, 48),
+    (27, 33, 39, 45), (26, 31, 37, 43), (24, 30, 35, 41), (23, 28, 33, 39),
+    (22, 27, 32, 37), (21, 26, 30, 35), (20, 24, 29, 33), (19, 23, 27, 31),
+    (18, 22, 26, 30), (17, 21, 25, 28), (16, 20, 23, 27), (15, 19, 22, 25),
+    (14, 18, 21, 24), (14, 17, 20, 23), (13, 16, 19, 22), (12, 15, 18, 21),
+    (12, 14, 17, 20), (11, 14, 16, 19), (11, 13, 15, 18), (10, 12, 15, 17),
+    (10, 12, 14, 16), (9, 11, 13, 15), (9, 11, 12, 14), (8, 10, 12, 14),
+    (8, 9, 11, 13), (7, 9, 11, 12), (7, 9, 10, 12), (7, 8, 10, 11),
+    (6, 8, 9, 11), (6, 7, 9, 10), (6, 7, 8, 9), (2, 2, 2, 2))
+TRANS_LPS = (0, 0, 1, 2, 2, 4, 4, 5, 6, 7, 8, 9, 9, 11, 11, 12, 13, 13, 15, 15, 16, 16, 18, 18,
+             19, 19, 21, 21, 22, 22, 23, 24, 24, 25, 26, 26, 27, 27, 28, 29, 29, 30, 30, 30, 31,
+             32, 32, 33, 33, 33, 34, 34, 35, 35, 35, 36, 36, 36, 37, 37, 37, 38, 38, 63)
+#: HEVC context initValues at initType 0 (I) and 1 (P): part_mode bin 0,
+#: cu_skip_flag (three, by ctxInc), pred_mode_flag
+_INIT = {"part_mode": (184, 154), "cu_skip_flag": (None, (197, 185, 201)),
+         "pred_mode_flag": (None, 149)}
+
+
+def cabac_context(init_value: int, qp: int) -> List[int]:
+    """[pStateIdx, valMps] of a context (HEVC 9.3.2.2)."""
+    m = (init_value >> 4) * 5 - 45
+    n = ((init_value & 15) << 3) - 16
+    pre = min(max(((m * min(max(qp, 0), 51)) >> 4) + n, 1), 126)
+    return [pre - 64, 1] if pre > 63 else [63 - pre, 0]
+
+
+class Cabac:
+    """The CABAC arithmetic encoder (HEVC 9.3.4.x / H.264 9.3.4.2)."""
+
+    def __init__(self, bits: Bits):
+        self.bits = bits
+        self.start()
+
+    def start(self):
+        self.low, self.range, self.first, self.outstanding = 0, 510, True, 0
+
+    def _put(self, bit):
+        if self.first:
+            self.first = False
+        else:
+            self.bits.u(bit, 1)
+        if self.outstanding:
+            n = self.outstanding
+            self.bits.u(0 if bit else (1 << n) - 1, n)
+            self.outstanding = 0
+
+    def _renorm(self):
+        while self.range < 256:
+            if self.low < 256:
+                self._put(0)
+            elif self.low >= 512:
+                self.low -= 512
+                self._put(1)
+            else:
+                self.low -= 256
+                self.outstanding += 1
+            self.range <<= 1
+            self.low <<= 1
+
+    def decision(self, ctx: List[int], bin_val: int):
+        state, mps = ctx
+        lps = RANGE_LPS[state][(self.range >> 6) & 3]
+        self.range -= lps
+        if bin_val != mps:
+            self.low += self.range
+            self.range = lps
+            if state == 0:
+                ctx[1] = 1 - mps
+            ctx[0] = TRANS_LPS[state]
+        else:
+            ctx[0] = min(state + 1, 62)
+        self._renorm()
+
+    def terminate(self, bin_val: int):
+        self.range -= 2
+        if bin_val:
+            self.low += self.range
+            self.range = 2
+            self._renorm()
+            self._put((self.low >> 9) & 1)
+            self.bits.u(((self.low >> 7) & 3) | 1, 2)
+        else:
+            self._renorm()
+
+
+class HevcStream(_Content):
+    """An HEVC stream of known reconstruction (the module's notes): no B
+    frames; size (width, height) is cropped by the conformance window
+    from the coded size where that is not a multiple of 16."""
+
+    QP = 26
+
+    def __init__(self, size, n_frames, gop=12, seed=0, matrix=BT709, full_range=True):
+        super().__init__(size, n_frames, gop, seed, b_frames=False)
+        self.matrix, self.full_range = matrix, bool(full_range)
+        self.vps, self.sps, self.pps = self._vps(), self._sps(), self._pps()
+        self._idr_memo: Dict[int, bytes] = {}
+
+    @property
+    def param_sets(self) -> List[bytes]:
+        return [self.vps, self.sps, self.pps]
+
+    @staticmethod
+    def _nal(kind, rbsp) -> bytes:
+        return bytes([kind << 1, 1]) + escape(np.frombuffer(rbsp, np.uint8))
+
+    @staticmethod
+    def _ptl(b: Bits) -> Bits:
+        """profile_tier_level(1, 0): Main, tier Main, level 5.1."""
+        b.u(0, 2).u(0, 1).u(1, 5).u(0x60000000, 32)
+        b.u(1, 1).u(0, 1).u(0, 1).u(1, 1).u(0, 32).u(0, 12)  # progressive, frame only; 44 zero bits
+        return b.u(HEVC_LEVEL, 8)
+
+    def _vps(self) -> bytes:
+        b = Bits().u(0, 4).u(1, 1).u(1, 1).u(0, 6).u(0, 3).u(1, 1).u(0xFFFF, 16)
+        self._ptl(b).u(1, 1).ue(1).ue(0).ue(0)
+        b.u(0, 6).ue(0).u(0, 1).u(0, 1)
+        return self._nal(_VPS, b.trailing())
+
+    def _sps(self) -> bytes:
+        W, H = self.size
+        W16, H16 = self.coded
+        b = Bits().u(0, 4).u(0, 3).u(1, 1)
+        self._ptl(b).ue(0).ue(1).ue(W16).ue(H16)
+        crop = (W16 - W) // 2, (H16 - H) // 2
+        if any(crop):
+            b.u(1, 1).ue(0).ue(crop[0]).ue(0).ue(crop[1])
+        else:
+            b.u(0, 1)
+        b.ue(0).ue(0).ue(LOG2_POC_LSB - 4)
+        b.u(1, 1).ue(1).ue(0).ue(0)  # sub-layer ordering: 2 pictures, no reordering
+        b.ue(1).ue(0).ue(0).ue(2).ue(0).ue(0)  # CB 16..16, TB 4..16, depths 0
+        b.u(0, 1).u(0, 1).u(0, 1)  # scaling lists, AMP, SAO
+        b.u(1, 1).u(7, 4).u(7, 4).ue(1).ue(0).u(1, 1)  # PCM 8 bit, 16 x 16, loop filter off
+        b.ue(1).ue(1).ue(0).ue(0).u(1, 1)  # one RPS: the previous picture, used
+        b.u(0, 1).u(0, 1).u(0, 1)  # long-term refs, TMVP, strong intra smoothing
+        b.u(1, 1).u(0, 1).u(0, 1)  # VUI: no aspect ratio, no overscan
+        _vui_colour(b, self.matrix, self.full_range)
+        b.u(0, 1).u(0, 1).u(0, 1).u(0, 1).u(0, 1).u(0, 1).u(0, 1)
+        b.u(0, 1)  # sps_extension_present_flag
+        return self._nal(_HSPS, b.trailing())
+
+    def _pps(self) -> bytes:
+        b = Bits().ue(0).ue(0).u(0, 1).u(0, 1).u(0, 3).u(0, 1).u(0, 1).ue(0).ue(0).se(0)
+        b.u(0, 1).u(0, 1).u(0, 1).se(0).se(0).u(0, 1).u(0, 1).u(0, 1).u(0, 1).u(0, 1).u(0, 1)
+        b.u(0, 1)  # loop filter across slices
+        b.u(1, 1).u(0, 1).u(1, 1)  # deblocking control: no override, disabled
+        b.u(0, 1).u(0, 1).ue(0).u(0, 1).u(0, 1)
+        return self._nal(_HPPS, b.trailing())
+
+    def _header(self, k) -> Bits:
+        kind = self.types[k]
+        b = Bits().u(1, 1)
+        if kind == "I":
+            b.u(0, 1).ue(0).ue(2)  # no_output_of_prior_pics; PPS 0; slice_type I
+        else:
+            j = k - k % self.gop
+            b.ue(0).ue(1).u((k - j) % (1 << LOG2_POC_LSB), LOG2_POC_LSB).u(1, 1)
+            b.u(0, 1).ue(4)  # num_ref_idx_active_override; five_minus_max_num_merge_cand
+        return b.se(0).u(1, 1).align(0)  # slice_qp_delta; byte_alignment
+
+    def _pcm_cu(self, cabac: Cabac, samples: np.ndarray):
+        cabac.terminate(1)  # pcm_flag
+        cabac.bits.align(0).raw(samples.tobytes())
+        cabac.start()
+
+    def _idr_head(self, state) -> bytes:
+        """The bytes between one PCM CU's samples and the next's in an
+        IDR: end_of_slice_segment_flag 0, part_mode 2Nx2N, pcm_flag and
+        the alignment, from a fresh engine (they depend only on
+        part_mode's context state, which the memo is keyed by)."""
+        key = tuple(state)
+        if key not in self._idr_memo:
+            b = Bits()
+            c = Cabac(b)
+            c.terminate(0)
+            ctx = list(state)
+            c.decision(ctx, 1)
+            c.terminate(1)
+            self._idr_memo[key] = (bytes(b.align(0).out), ctx)
+        return self._idr_memo[key]
+
+    def _idr(self, k) -> bytes:
+        b = self._header(k)
+        cabac = Cabac(b)
+        ctx = cabac_context(_INIT["part_mode"][0], self.QP)
+        cabac.decision(ctx, 1)
+        cabac.terminate(1)
+        b.align(0)
+        samples = _mb_samples(self.planes(k))
+        parts = [np.frombuffer(bytes(b.out), np.uint8), samples[0]]
+        for s in samples[1:]:
+            head, ctx = self._idr_head(ctx)
+            parts += [np.frombuffer(head, np.uint8), s]
+        tail = Bits()
+        Cabac(tail).terminate(1)  # end_of_slice_segment_flag and the stop bit
+        parts.append(np.frombuffer(bytes(tail.align(0).out), np.uint8))
+        rbsp = np.concatenate(parts).astype(np.uint8)
+        return bytes([_IDR_W_RADL << 1, 1]) + escape(rbsp)
+
+    def _p(self, k) -> bytes:
+        b = self._header(k)
+        cabac = Cabac(b)
+        skip_ctx = [cabac_context(v, self.QP) for v in _INIT["cu_skip_flag"][1]]
+        pred_ctx = cabac_context(_INIT["pred_mode_flag"][1], self.QP)
+        part_ctx = cabac_context(_INIT["part_mode"][1], self.QP)
+        x0, y0 = self.patch(k)
+        samples = self.patch_samples(k)
+        skip = np.ones((self.mbh, self.mbw), bool)
+        skip[y0:y0 + self.ph, x0:x0 + self.pw] = False
+        i = 0
+        n = self.mbw * self.mbh
+        for a in range(n):
+            y, x = divmod(a, self.mbw)
+            inc = int(x > 0 and skip[y, x - 1]) + int(y > 0 and skip[y - 1, x])
+            if skip[y, x]:
+                cabac.decision(skip_ctx[inc], 1)
+            else:
+                cabac.decision(skip_ctx[inc], 0)
+                cabac.decision(pred_ctx, 1)  # MODE_INTRA
+                cabac.decision(part_ctx, 1)  # PART_2Nx2N
+                self._pcm_cu(cabac, samples[i])
+                i += 1
+            cabac.terminate(int(a == n - 1))  # end_of_slice_segment_flag
+        return self._nal(_TRAIL_R, bytes(b.align(0).out))
+
+    def samples(self) -> Iterator[Tuple[int, bool, List[bytes]]]:
+        for k in self.decode:
+            kind = self.types[k]
+            yield k, kind == "I", [self._idr(k) if kind == "I" else self._p(k)]
+
+    def config(self) -> bytes:
+        """The hvcC payload."""
+        out = bytes([1, 0x01]) + struct.pack(">I", 0x60000000) + bytes([0x90, 0, 0, 0, 0, 0])
+        out += bytes([HEVC_LEVEL, 0xF0, 0x00, 0xFC, 0xFD, 0xF8, 0xF8, 0, 0, 0x0F, 3])
+        for kind, nal in ((_VPS, self.vps), (_HSPS, self.sps), (_HPPS, self.pps)):
+            out += bytes([0x80 | kind]) + struct.pack(">HH", 1, len(nal)) + nal
+        return out
+
+
+def write_mp4(path: str, stream, fps: float, codec: Optional[str] = None,
+              signed_ctts: bool = False, edit: Optional[Tuple[int, int]] = None) -> str:
+    """Write a stream into an MP4 of one video track. ``codec`` is the
+    sample entry (``avc1``/``avc3`` for H264Stream, ``hvc1``/``hev1`` for
+    HevcStream; ``avc3``/``hev1`` put the parameter sets in each IDR
+    sample). Reordered frames get a ``ctts``: unsigned offsets and an
+    ``elst`` whose media time is one frame (what muxers write), or with
+    ``signed_ctts`` version-1 offsets from the decode time and no edit.
+    ``edit`` (media start, frames) in frames writes that ``elst`` instead.
+    Returns path."""
+    hevc = isinstance(stream, HevcStream)
+    codec = codec or ("hvc1" if hevc else "avc1")
+    if codec not in (("hvc1", "hev1") if hevc else ("avc1", "avc3")):
+        raise ValueError(f"{codec} is not a sample entry for this stream")
+    offsets = stream.presentation_offsets
+    shift = 0 if signed_ctts else max(0, -min(offsets))
+    if edit is None and shift:
+        edit = (shift, stream.n)
+    in_band = codec in ("avc3", "hev1")
+    with mp4.Mp4Writer(path, stream.size, fps, stream.config(), codec=codec, edit=edit) as w:
+        for (k, sync, nals), off in zip(stream.samples(), offsets):
+            if sync and in_band:
+                nals = stream.param_sets + nals
+            w.add_sample(b"".join(struct.pack(">I", len(n)) + n for n in nals), sync,
+                         offset=off + shift if any(offsets) else 0)
+    return path

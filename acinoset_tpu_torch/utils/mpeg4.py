@@ -30,8 +30,8 @@ sent as not coded. The writer keeps its reconstruction on the device,
 bit for bit what the decoder rebuilds, and writes each frame's
 bitstream on a worker thread while the device takes the next frame.
 
-Anything else than mp4v raises ``UnsupportedVideo`` (H.264 and HEVC
-included), and so does an mp4v stream that uses a tool outside what is
+Anything else than mp4v raises ``UnsupportedVideo`` (H.264 and HEVC go
+to ``utils.nvdec``), and so does an mp4v stream that uses a tool outside what is
 decoded here (4MV, B-VOPs, resync markers, data partitioning, quarter-pel,
 interlace, sprites, MPEG quantisation, not-8-bit, shape), naming it.
 """
@@ -340,17 +340,32 @@ def bgr_to_yuv420(bgr: torch.Tensor, coded: Tuple[int, int]):
     return y, uv[..., 0].contiguous(), uv[..., 1].contiguous()
 
 
-def yuv420_to_bgr(y, u, v, size: Tuple[int, int]):
+#: the integer constants of the YUV -> BGR arithmetic below, by (VUI
+#: matrix_coefficients family, full range): (ycoef, yoff, Cb->B, Cb->G,
+#: Cr->G, Cr->R), what cv2's swscale uses for each (BT.601 covers streams
+#: that signal no matrix, and matrices 5 and 6)
+BGR_COEFS = {
+    ("BT.601", False): (9539, 128, 16525, -3209, -6660, 13075),
+    ("BT.709", False): (9539, 128, 17305, -1747, -4366, 14686),
+    ("BT.601", True): (8189, -1, 14516, -2819, -5850, 11485),
+    ("BT.709", True): (8189, -1, 15201, -1535, -3835, 12901),
+}
+
+
+def yuv420_to_bgr(y, u, v, size: Tuple[int, int], coefs=BGR_COEFS[("BT.601", False)]):
     """Planes -> uint8 BGR (H, W, 3) of the display size (W, H), each
     chroma sample over its 2x2 block, in the arithmetic of swscale's SIMD
     yuv420p -> bgr24 converter (what cv2 reads through): samples << 3 less
     their offsets, each term (x * c) >> 16 with 13-bit coefficients, the
-    sums saturated to 0..255."""
+    sums saturated to 0..255. ``coefs`` is a BGR_COEFS entry (the mp4v
+    codec's own: BT.601, limited range)."""
     W, H = size
-    yv = (((y[:H, :W] << 3) - 128) * 9539) >> 16
+    ycoef, yoff, cb_b, cb_g, cr_g, cr_r = coefs
+    y, u, v = (p.to(torch.int32) for p in (y, u, v))
+    yv = (((y[:H, :W] << 3) - yoff) * ycoef) >> 16
     d, e = (u << 3) - 1024, (v << 3) - 1024
-    c = torch.stack([(d * 16525) >> 16, ((d * -3209) >> 16) + ((e * -6660) >> 16),
-                     (e * 13075) >> 16], -1)
+    c = torch.stack([(d * cb_b) >> 16, ((d * cb_g) >> 16) + ((e * cr_g) >> 16),
+                     (e * cr_r) >> 16], -1)
     h, w = c.shape[:2]
     c = c[:, None, :, None].expand(h, 2, w, 2, 3).reshape(2 * h, 2 * w, 3)[:H, :W]
     return (yv[..., None] + c).clamp(0, 255).to(torch.uint8)
@@ -540,14 +555,34 @@ class Decoder:
 
 
 def _codec_reason(codec: str) -> str:
-    return f"{CODEC_NAMES.get(codec, repr(codec))}: the port decodes mp4v only"
+    return f"{CODEC_NAMES.get(codec, repr(codec))}: the port decodes mp4v, H.264 and HEVC only"
+
+
+def vop_coded(sample: bytes, time_bits: int) -> bool:
+    """Whether a sample holds a coded VOP: False for an I- or P-VOP with
+    vop_coded 0 (an N-VOP) or a sample without a VOP, which give no frame
+    in cv2. B- and S-VOPs count as coded, so that decoding names them."""
+    p = sample.find(b"\x00\x00\x01\xb6")
+    if p < 0:
+        return False
+    bits = np.unpackbits(np.frombuffer(sample[p + 4:p + 12], np.uint8))
+    if len(bits) < 2 or bits[0]:  # vop_coding_type 2 (B) or 3 (S)
+        return True
+    q = 2
+    while q < len(bits) and bits[q]:  # modulo_time_base
+        q += 1
+    q += 2 + time_bits  # its 0, the marker, vop_time_increment
+    q += 1  # marker
+    return q >= len(bits) or bool(bits[q])
 
 
 class Reader:
     """Frames of an mp4v file by index, as BGR uint8, decoded on the
-    device (``cuda`` unless ``device`` names another). ``n_frames``,
-    ``size`` (width, height) and ``fps`` are the track's; a sample that no
-    chunk holds, or an index past the end, reads as None."""
+    device (``cuda`` unless ``device`` names another). ``size`` (width,
+    height) and ``fps`` are the track's. As in cv2, a not-coded VOP
+    (N-VOP) gives no frame: frame k is the k-th coded VOP, and
+    ``n_frames`` counts them. A sample that no chunk holds, or an index
+    past the end, reads as None."""
 
     def __init__(self, fpath: str, device=None):
         self.fpath = fpath
@@ -556,6 +591,7 @@ class Reader:
         if self.track.codec != "mp4v":
             raise UnsupportedVideo(fpath, _codec_reason(self.track.codec))
         self.n_frames = self.track.n_frames
+        self._order = self.track.order
         self.size, self.fps = self.track.size, self.track.fps
         self._pos = -1
         self._dec = None
@@ -564,8 +600,14 @@ class Reader:
         self._file = open(fpath, "rb")
         try:
             if not vol[0]:  # headers in band: the first sample that holds a VOL
-                data = next((d for d in map(self._sample, range(self.n_frames)) if d), b"")
+                data = next((d for d in map(self._sample, range(self.track.n_samples)) if d),
+                            b"")
                 vol = parse_config(data, fpath)
+            if vol[0]:
+                coded = [not self._held(int(i)) or vop_coded(self._head(int(i)), int(vol[4]))
+                         for i in self._order]
+                self._order = self._order[np.asarray(coded, bool)]
+                self.n_frames = len(self._order)
         except BaseException:
             self._file.close()
             raise
@@ -573,6 +615,16 @@ class Reader:
         if vol[0]:
             self.size = (int(vol[1]), int(vol[2]))
             self._dec = Decoder(vol, self.device, fpath)
+
+    def _held(self, i) -> bool:
+        return int(self.track.offsets[i]) >= 0 and int(self.track.sizes[i]) > 0
+
+    def _head(self, i, n=64) -> bytes:
+        """Sample i's first bytes, up to its VOP header (all of it where
+        headers before the VOP run past n bytes)."""
+        self._file.seek(int(self.track.offsets[i]))
+        head = self._file.read(min(n, int(self.track.sizes[i])))
+        return head if b"\x00\x00\x01\xb6" in head[:-8] else self._sample(i)
 
     def _sample(self, i) -> bytes:
         off, n = int(self.track.offsets[i]), int(self.track.sizes[i])
@@ -590,21 +642,24 @@ class Reader:
     def read_tensor(self, idx: int) -> Optional[torch.Tensor]:
         """Frame idx on the device, or None. Samples are parsed a frame
         ahead on a worker thread while the device rebuilds the frame
-        before, and the one after idx is parsed in case it is read next."""
+        before, and the one after idx's sample is parsed in case it is
+        read next."""
         idx = int(idx)
         if self._dec is None or not 0 <= idx < self.n_frames:
             return None
-        sync = np.flatnonzero(self.track.sync[:idx + 1])
+        target = int(self._order[idx])
+        sync = np.flatnonzero(self.track.sync[:target + 1])
         start = int(sync[-1]) if len(sync) else 0
-        if self._pos < start or self._pos > idx:  # else carry on from the last frame
+        if self._pos < start or self._pos > target:  # else carry on from the last frame
             self._pos = start - 1
-        for i in range(self._pos + 1, idx + 1):
+        n = self.track.n_samples
+        for i in range(self._pos + 1, target + 1):
             ahead, self._ahead = self._ahead, None
             fut = ahead[1] if ahead and ahead[0] == i else self._parse_soon(i)
             if fut is None:
                 self._pos = -1
                 return None
-            if i + 1 < self.n_frames:
+            if i + 1 < n:
                 self._ahead = (i + 1, self._parse_soon(i + 1))
             self._dec.apply(fut.result())
             self._pos = i

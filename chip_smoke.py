@@ -61,8 +61,8 @@ Phases, one line each with its seconds:
                runs of 80-100 frames each: the analytic FK Jacobian
                against the jacfwd fallback on the card,
                solve_batch_generic (float32, chol_unrolled, 30
-               iterations) with its rescue, device ops a GN iteration,
-               solve_batch_ekf_generic; then the 3-link tree (P = 12)
+               iterations) with its rescue, device ops a GN iteration
+               (the tree's), solve_batch_ekf_generic; then the 3-link tree (P = 12)
                through linear_solver='pallas', counting the banded
                kernel's launches, against chol_unrolled;
  10. sba     - the SBA reconstruction at the flagship's scene and width
@@ -100,10 +100,23 @@ Phases, one line each with its seconds:
                first 12 frames on the card against the CPU (bytes and
                frames equal), animate_reconstruction of 200 frames, and
                whether the machine has NVDEC;
+     nvdec   - GoPro-shaped H.264 and HEVC written by utils.h26x (H.264
+               2704 x 1520, 90 fps, 200 frames, GOP 12 with B frames,
+               BT.709 full range; 1920 x 1080 cropped from 1088 in the
+               four (matrix, range) pairs; HEVC 2704 x 1520, 48 frames):
+               the container's order and parameter sets, NVDEC's parser
+               reading each stream's format on the card, the colour
+               kernel (nv12_to_bgr, utils/csrc/nvdec.cu) against its
+               plain version on the reconstructed frames, its device
+               time against its bound; every frame decoded against the
+               reconstruction, one launch a frame, seeks and the
+               labelled video's bytes (skipped only where the
+               environment visibly withholds the video engine, and then
+               the refusal named, no fallback; any other refusal fails);
  13. files   - the file-level pipeline, the user's path: a run directory
                at full width (make_synthetic_run_dir: 6 cameras x 200
                frames x 20 markers, 2704 x 1520, its DLC .h5 files written
-               by utils.hdf5 and read back bit for bit, and six mp4v
+               by utils.hdf5 and read back bit for bit, six mp4v
                cam*.mp4 of footage with the markers drawn beside them),
                `cli all` (dlc's six labelled videos, read back at their
                sources' frame count, size and fps, then tri, sba, ekf,
@@ -111,7 +124,9 @@ Phases, one line each with its seconds:
                tests/test_pipeline_e2e.py's bounds, tri to the CPU port,
                fte's six reprojected .h5 files to its positions
                projected; fte.svg, ekf.pdf and reconstructions.png read
-               back), `cli eval --hist` against the truth's projections
+               back), a seventh camera, H.264, through `cli dlc` in a
+               directory of its own (labelled, or where the environment
+               withholds NVDEC its Not written: line), `cli eval --hist` against the truth's projections
                (the histogram's counts against np.histogram), `cli view`,
                and `cli sweep --stages fte,ekf` over 8 such runs in two
                fps groups; s a stage, .h5 MB/s, frames/s of the
@@ -295,8 +310,9 @@ def _ptxas_summary(log):
 
 
 def phase_build():
-    """Build the three libraries at once (one nvcc each, started together)."""
+    """Build the four libraries at once (one nvcc each, started together)."""
     from acinoset_tpu_torch.kernels import _nvcc, banded_cuda, probes_cuda
+    from acinoset_tpu_torch.utils import nvdec
 
     t0 = time.perf_counter()
 
@@ -304,9 +320,10 @@ def phase_build():
         t1 = time.perf_counter()
         return build(), time.perf_counter() - t1
 
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         futures = [pool.submit(timed, f) for f in (banded_cuda.build, probes_cuda.build,
-                                                   lambda: banded_cuda.build(clocked=True))]
+                                                   lambda: banded_cuda.build(clocked=True),
+                                                   nvdec.build)]
         built = [f.result() for f in futures]
     for path, secs in built:
         log = _nvcc.log_path(path).read_text()
@@ -1894,7 +1911,7 @@ def _profiled_solve(device, model, runs, init_marker, iters):
 
 
 def generic_skeleton(device, label, model, n_cams, init_marker, B=96, iters=GENERIC_ITERS,
-                     seed=0, n_range=(80, 100)):
+                     seed=0, n_range=(80, 100), profile=True):
     """One skeleton through the generic slice on ``device``: the analytic
     FK Jacobian against the jacfwd fallback in float32 (1e-5 of scale);
     one warm-up call of each stage at B=4, N=20; solve_batch_generic
@@ -1903,7 +1920,8 @@ def generic_skeleton(device, label, model, n_cams, init_marker, B=96, iters=GENE
     count set to 0 before and read after (the path reaches none); two
     profiled solves (1 and 2 iterations: their difference is one GN
     iteration's device ops); solve_batch_ekf_generic (float32) timed with
-    its peak memory a run. Fails on a Jacobian mismatch, non-finite or
+    its peak memory a run (the profiled solves only with profile). Fails
+    on a Jacobian mismatch, non-finite or
     misshapen results, a hand-kernel launch, a rescue that changed a
     converged run or lost one, a mean FTE marker error at or over
     GENERIC_MARKER_ERR_BOUND_M, EKF outliers on 20% of a run's pairs or
@@ -1979,11 +1997,12 @@ def generic_skeleton(device, label, model, n_cams, init_marker, B=96, iters=GENE
            f"{GENERIC_MARKER_ERR_BOUND_M}, worst run {errs.max():.5f}); hand-kernel launches "
            f"{hand}")
 
-    ops1, _busy1, _wall1 = _profiled_solve(device, model, runs, init_marker, 1)
-    ops2, busy2, wall2 = _profiled_solve(device, model, runs, init_marker, 2)
-    _phase("generic", t0, f"{label} profiled: {ops2 - ops1} device ops a GN iteration "
-           f"({ops2} in a 2-iteration solve); device busy {busy2:.1f} ms of {wall2:.1f} ms "
-           f"wall ({100 * busy2 / wall2:.1f}%)")
+    if profile:
+        ops1, _busy1, _wall1 = _profiled_solve(device, model, runs, init_marker, 1)
+        ops2, busy2, wall2 = _profiled_solve(device, model, runs, init_marker, 2)
+        _phase("generic", t0, f"{label} profiled: {ops2 - ops1} device ops a GN iteration "
+               f"({ops2} in a 2-iteration solve); device busy {busy2:.1f} ms of {wall2:.1f} ms "
+               f"wall ({100 * busy2 / wall2:.1f}%)")
 
     for f in counted:
         f.launches = 0
@@ -2118,8 +2137,8 @@ def generic_pallas(device, B=96, iters=GENERIC_ITERS, seed=1):
 def phase_generic(device):
     """The generic-skeleton slice: the cheetah exported as a tree
     skeleton at full width (20 markers, n_pose 63, ring_cameras(6)),
-    the human-width DAG (15 markers, n_pose 48, 2 cameras), each through
-    generic_skeleton, then the banded kernel on the generic path
+    the human-width DAG (15 markers, n_pose 48, 2 cameras, not profiled),
+    each through generic_skeleton, then the banded kernel on the generic path
     (generic_pallas, P = 12)."""
     from acinoset_tpu_torch.models import cheetah
     from acinoset_tpu_torch.models.skeleton import build_skeleton_model
@@ -2127,7 +2146,9 @@ def phase_generic(device):
     tree = build_skeleton_model(cheetah.to_skeleton_dict(), allow_fk_mismatch=True)
     human = build_skeleton_model(HUMAN_DAG)
     generic_skeleton(device, "cheetah tree", tree, 6, "nose")
-    generic_skeleton(device, "human DAG", human, 2, "forehead")
+    # the DAG's profiled solves are left out to keep the script in its time
+    # limit: the tree's show where a GN iteration's device time goes
+    generic_skeleton(device, "human DAG", human, 2, "forehead", profile=False)
     return generic_pallas(device)
 
 
@@ -3268,6 +3289,249 @@ def video_profile(device=None, n=VIDEO_PROFILE_N):
                    f"bitstream {mpeg4.COUNTERS['host_s'] * 1e3 / n:.3f} ms a frame")
 
 
+#: the nvdec phase: GoPro-shaped streams of the port's writers (utils.h26x):
+#: H.264 at the rig's size, rate and length with B frames, BT.709 full range
+NVDEC_RES = (2704, 1520)
+NVDEC_FPS = 90.0
+NVDEC_N = 200
+NVDEC_GOP = 12
+#: a cropped H.264 stream (1080 lines of 1088 coded) in each of the four
+#: (matrix, range) pairs the conversion takes
+NVDEC_CROP_RES = (1920, 1080)
+NVDEC_CROP_N = 14
+NVDEC_CROP_CASES = ((1, True), (1, False), (6, True), (6, False))
+#: HEVC at the rig's size
+NVDEC_HEVC_N = 48
+#: frames of each smaller stream held kernel against plain (the rig's
+#: H.264 is held on every frame)
+NVDEC_SUBSET = 6
+#: the surface pitch NVDEC gives a 2704-wide frame (a multiple of 512), so
+#: that the kernel reads the reconstruction as it reads a mapped surface
+NVDEC_PITCH_ALIGN = 512
+#: launches a timing of the kernel
+NVDEC_REPS = 200
+
+
+def _nv12_surface(stream, k, device):
+    """Frame k's reconstruction as a pitched NV12 surface on the device."""
+    return torch.from_numpy(stream.nv12(k, NVDEC_PITCH_ALIGN)).to(device)
+
+
+def _nvdec_streams():
+    """(label, stream, sample entry) of the phase's streams."""
+    from acinoset_tpu_torch.utils import h26x
+
+    out = [(f"H.264 {NVDEC_RES[0]} x {NVDEC_RES[1]} BT.709 full", h26x.H264Stream(
+        NVDEC_RES, NVDEC_N, gop=NVDEC_GOP, seed=1, matrix=h26x.BT709, full_range=True), "avc1")]
+    for i, (matrix, full) in enumerate(NVDEC_CROP_CASES):
+        out.append((f"H.264 {NVDEC_CROP_RES[0]} x {NVDEC_CROP_RES[1]} matrix {matrix} "
+                    f"{'full' if full else 'limited'}", h26x.H264Stream(
+                        NVDEC_CROP_RES, NVDEC_CROP_N, gop=NVDEC_GOP, seed=2 + i, matrix=matrix,
+                        full_range=full), "avc3" if i % 2 else "avc1"))
+    out.append((f"HEVC {NVDEC_RES[0]} x {NVDEC_RES[1]}", h26x.HevcStream(
+        NVDEC_RES, NVDEC_HEVC_N, gop=NVDEC_GOP, seed=7, matrix=h26x.BT709, full_range=True),
+        "hvc1"))
+    return out
+
+
+def phase_nvdec(device):
+    """The reading of GoPro footage (utils/nvdec.py, utils/csrc/nvdec.cu,
+    utils/h26x.py, utils/mp4.py): the streams of _nvdec_streams written
+    into MP4 by the port's writers, each read back by the container
+    (frame count, presentation order through ctts/elst, parameter sets)
+    and by NVDEC's parser on the card (coded size, display area, chroma
+    format, bit depth, progressive, VUI matrix and range, as written); the
+    colour kernel (nv12_to_bgr) against its plain version on each
+    reconstructed frame as a pitched NV12 surface (every frame of the
+    rig's H.264, NVDEC_SUBSET of the others), and its device time against
+    its bound. Then the decode gates: every frame decoded equal to the
+    writer's reconstruction in cv2's colours with one launch a frame,
+    get_frames at VIDEO_SEEKS equal to the sequential decode, frames/s
+    with the host's share, and create_labeled_video's bytes equal to
+    mpeg4.Writer fed draw_labels of the reconstruction. They are skipped
+    only where cuvidGetDecoderCaps fails and the environment visibly
+    withholds the video engine (nvdec.withheld); then every reading
+    function must raise UnsupportedVideo naming NVDEC and that reason (no
+    fallback). A refusal on any other ground fails the phase. Prints the
+    kernel's record on a line of its own."""
+    import tempfile
+
+    from acinoset_tpu_torch.pipeline import video
+    from acinoset_tpu_torch.utils import h26x, mp4, mpeg4, nvdec
+
+    t0 = time.perf_counter()
+    failed = []
+    caps = {c: nvdec.caps(device, c) for c in ("avc1", "hvc1")}
+    usable = all(why is None and cap["supported"] for cap, why in caps.values())
+    env = nvdec.withheld()
+    # the decode gates are skipped only where the machine visibly keeps
+    # the video engine from this process; any other refusal is a fault
+    skip = not usable and env is not None and any(why for _cap, why in caps.values())
+    if not usable and not skip:
+        failed.append(f"NVDEC refused where the environment does not withhold the video engine: "
+                      f"{caps}")
+    _phase("nvdec", t0, f"Video Codec SDK headers at build: {nvdec.sdk_headers()}; NVDEC "
+           f"capabilities: " + "; ".join(f"{c}: {cap if why is None else why}"
+                                          for c, (cap, why) in caps.items())
+           + f"; the environment: {env or 'grants the video engine'}; decoding on the card "
+           + ("runs" if usable else "is refused (no fallback); the decode gates are "
+              + ("skipped" if skip else "failed")))
+    plain_ms = kernel_ms = float("nan")
+    worst = path_launches = 0
+    with tempfile.TemporaryDirectory() as root:
+        for label, stream, entry in _nvdec_streams():
+            W, H = stream.size
+            path = os.path.join(root, f"{entry}_{W}x{H}_{stream.seed}.mp4")
+            t1 = time.perf_counter()
+            h26x.write_mp4(path, stream, NVDEC_FPS, codec=entry)
+            s_write = time.perf_counter() - t1
+            tr = mp4.read_video_track(path)
+            order_ok = (tr.n_frames == stream.n
+                        and [stream.decode[i] for i in tr.order] == list(range(stream.n))
+                        and list(tr.param_sets) == stream.param_sets
+                        and mp4.video_info(path) == ((W, H), NVDEC_FPS, stream.n))
+            if not order_ok:
+                failed.append(f"{label}: the container reads {tr.n_frames} frames in another "
+                              "order, or other parameter sets")
+            fmt = nvdec.stream_format(path, device)
+            want = dict(chroma_format=1, luma_minus8=0, progressive=1, left=0, top=0, right=W,
+                        bottom=H, coded_width=stream.coded[0], coded_height=stream.coded[1],
+                        matrix=stream.matrix, full_range=int(stream.full_range))
+            fmt_ok = bool(fmt["have"]) and all(fmt[k] == v for k, v in want.items())
+            if not fmt_ok:
+                failed.append(f"{label}: NVDEC's parser reads {fmt}, the writer wrote {want}")
+            coefs = nvdec.colour_coefs(stream.matrix, stream.full_range)
+            frames = range(stream.n) if stream.n == NVDEC_N else range(min(NVDEC_SUBSET,
+                                                                             stream.n))
+            same = 0
+            for k in frames:
+                surf = _nv12_surface(stream, k, device)
+                got = nvdec.nv12_to_bgr(surf, stream.coded[1], (W, H), coefs)
+                plain = nvdec.nv12_to_bgr_plain(surf, stream.coded[1], (W, H), coefs)
+                worst = max(worst, int((got.int() - plain.int()).abs().max()))
+                same += bool(torch.equal(got, plain))
+            if same != len(frames):
+                failed.append(f"{label}: the kernel differs from its plain version on "
+                              f"{len(frames) - same} of {len(frames)} frames")
+            text = (f"{label}, {stream.n} frames ({''.join(stream.types[:NVDEC_GOP])}...), "
+                    f"{entry}: written in {s_write:.3f} s, {os.path.getsize(path) / 1e6:.3f} MB; "
+                    f"container order and parameter sets {order_ok}; NVDEC's parser reads coded "
+                    f"{fmt['coded_width']} x {fmt['coded_height']}, display {fmt['right']} x "
+                    f"{fmt['bottom']}, matrix {fmt['matrix']}, full range {fmt['full_range']}, "
+                    f"as written {fmt_ok}; kernel equal to its plain version on {same}/"
+                    f"{len(frames)} frames")
+            if usable:
+                more, n = _nvdec_decode(device, stream, path, coefs, failed, label)
+                text += "; " + more
+                path_launches += n
+            elif skip:
+                why = []
+                for call in (lambda: nvdec.Reader(path, device),
+                             lambda: video.get_frames(path, [0], device=device)):
+                    try:
+                        call()
+                        why.append(None)
+                    except mpeg4.UnsupportedVideo as err:
+                        why.append(err.reason)
+                if not all(w and "NVDEC" in w and env in w for w in why):
+                    failed.append(f"{label}: reading on the card gives {why}, not a refusal "
+                                  f"naming NVDEC and {env!r}")
+                text += f"; reading it on the card raises UnsupportedVideo: {why[0]}"
+            _phase("nvdec", t0, text)
+            if stream.n == NVDEC_N:
+                surf = _nv12_surface(stream, 0, device)
+                kernel_ms = kernel_device_ms(
+                    lambda: nvdec.nv12_to_bgr(surf, stream.coded[1], (W, H), coefs),
+                    "nv12_to_bgr_kernel", reps=NVDEC_REPS)
+                plain_ms = _cuda_ms(lambda: nvdec.nv12_to_bgr_plain(surf, stream.coded[1], (W, H),
+                                                                    coefs), 20)
+                events_ms = _cuda_ms(lambda: nvdec.nv12_to_bgr(surf, stream.coded[1], (W, H),
+                                                                coefs), NVDEC_REPS)
+                in_b, out_b = W * H * 3 // 2, W * H * 3
+                bound_ms = (in_b + out_b) / PEAK_BYTES_PER_S * 1e3
+            del stream
+    launches = path_launches
+    rec = dict(name="nv12_to_bgr", route="cuda", source="acinoset_tpu_torch/utils/csrc/nvdec.cu",
+               replaces=None, launches=launches, max_abs_err=worst, ms=kernel_ms,
+               plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes", library_ms=None)
+    _phase("nvdec", t0, f"nv12_to_bgr at {NVDEC_RES[0]} x {NVDEC_RES[1]}: device {kernel_ms:.5f} ms "
+           f"a frame (profiler; events {events_ms:.5f} ms), bound {bound_ms:.5f} ms ({in_b / 1e6:.2f}"
+           f" MB in, {out_b / 1e6:.2f} MB out at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s, "
+           f"{100 * bound_ms / kernel_ms:.1f}% of it), plain version {plain_ms:.4f} ms; launches "
+           f"on the decode path {launches} (it replaces no TPU kernel: the JAX package converts "
+           f"on the host in cv2)")
+    print("nvdec kernel " + json.dumps(rec), flush=True)
+    if failed:
+        raise AssertionError("nvdec: " + "; ".join(failed))
+
+
+def _nvdec_decode(device, stream, path, coefs, failed, label):
+    """The decode gates of phase_nvdec where the card's NVDEC decodes:
+    every frame against the reconstruction, launches a frame, seeks, and
+    (for the rig's H.264) create_labeled_video's bytes. Returns its text."""
+    import tempfile
+
+    from acinoset_tpu_torch.pipeline import data as data_io
+    from acinoset_tpu_torch.pipeline import video
+    from acinoset_tpu_torch.pipeline.plots import CHEETAH_LINKS
+    from acinoset_tpu_torch.utils import mpeg4, nvdec
+
+    W, H = stream.size
+    for k in nvdec.COUNTERS:
+        nvdec.COUNTERS[k] = 0
+    nvdec.nv12_to_bgr.launches = 0  # the decode path's launches: each frame's conversion
+    _sync(device)
+    t1 = time.perf_counter()
+    with video.open_video(path, device) as reader:
+        decoded = [reader.read_tensor(k) for k in range(reader.n_frames)]
+    _sync(device)
+    s_dec = time.perf_counter() - t1
+    launches = nvdec.nv12_to_bgr.launches
+    recon = [nvdec.nv12_to_bgr_plain(_nv12_surface(stream, k, device), stream.coded[1], (W, H),
+                                     coefs) for k in range(stream.n)]
+    same = sum(f is not None and torch.equal(f, r) for f, r in zip(decoded, recon))
+    if same != stream.n or launches != stream.n:
+        failed.append(f"{label}: {stream.n - same} frames differ from the reconstruction; "
+                      f"{launches} launches for {stream.n} frames")
+    seeks = [i for i in VIDEO_SEEKS if i < stream.n] + [stream.n]
+    got = video.get_frames(path, seeks, device=device)
+    seek_ok = ([i for i, _f in got] == seeks[:-1]
+               and all(np.array_equal(f, decoded[i].cpu().numpy()) for i, f in got))
+    if not seek_ok:
+        failed.append(f"{label}: get_frames at {seeks} differs from the sequential decode")
+    host = nvdec.COUNTERS["host_s"]
+    text = (f"decoded on NVDEC {s_dec:.3f} s, {stream.n / s_dec:.2f} frames/s (host: samples and "
+            f"parser {host:.3f} s, {100 * host / s_dec:.1f}%; waiting in map "
+            f"{nvdec.COUNTERS['map_s']:.3f} s); equal to the reconstruction {same}/{stream.n}; "
+            f"kernel launches {launches} ({launches / stream.n:.2f} a frame); get_frames at "
+            f"{seeks} equal to the sequential decode {seek_ok}")
+    if stream.n == NVDEC_N:
+        with tempfile.TemporaryDirectory() as root:
+            markers = ["nose", "r_eye"]
+            pts = np.stack([np.full(stream.n, 100.0 + 50 * i) for i in range(2)], 1)
+            xy = np.stack([pts, pts], -1)
+            labels = os.path.join(root, "cam1.h5")
+            data_io.save_dlc_points_h5(labels, xy, np.ones((stream.n, 2)), markers)
+            with contextlib.redirect_stdout(io.StringIO()):
+                out = video.create_labeled_video(path, 0, root, label_fpaths=[labels],
+                                                 device=device)
+            ref = os.path.join(root, "ref.mp4")
+            colours = np.array(video.marker_colours(2), np.uint8)
+            links = [(markers.index(a), markers.index(b)) for a, b in CHEETAH_LINKS
+                     if a in markers and b in markers]
+            with mpeg4.Writer(ref, (W, H), NVDEC_FPS, device) as w:
+                for k, f in enumerate(recon):
+                    seg, dots, which = video._frame_labels(
+                        np.concatenate([xy[k], np.ones((2, 1))], 1), links, 0.5, True)
+                    w.write(video.draw_labels(f.clone(), seg, dots, colours[which]))
+            bytes_ok = open(out, "rb").read() == open(ref, "rb").read()
+        if not bytes_ok:
+            failed.append(f"{label}: create_labeled_video's bytes differ from mpeg4.Writer fed "
+                          "draw_labels of the reconstruction")
+        text += f"; create_labeled_video's bytes equal mpeg4.Writer's of the labels drawn {bytes_ok}"
+    return text, launches
+
+
 #: the files phase: one full-width run (the reference's GoPro rig size),
 #: then a dataset root of FILES_SWEEP_RUNS such runs in two fps groups
 FILES_CAMS = 6
@@ -3461,6 +3725,47 @@ def files_sweep_run(root, i):
                                       fps=FILES_FPS[i % 2], cam_res=FILES_RES, seed=i + 1)
 
 
+def files_h264_camera(root, px, lik, markers, device, failed):
+    """A seventh camera, GoPro's H.264 (utils.h26x, the run's size, rate
+    and length), through ``cli dlc`` in a run directory of its own (the
+    stages after dlc take every dlc/*.h5 as a camera of the scene): its
+    labelled video read back at the source's frame count, size and fps,
+    and no Not written: line. Only where cuvidGetDecoderCaps fails and the
+    environment visibly withholds the video engine (nvdec.withheld) is
+    the one Not written: line with nvdec.refusal's reason taken instead.
+    Returns its text."""
+    from acinoset_tpu_torch.pipeline import data as data_io
+    from acinoset_tpu_torch.utils import h26x, mpeg4, nvdec
+
+    seventh = os.path.join(root, "h264")
+    os.makedirs(seventh)
+    t1 = time.perf_counter()
+    src = h26x.write_mp4(os.path.join(seventh, "cam1.mp4"), h26x.H264Stream(
+        FILES_RES, FILES_N, gop=NVDEC_GOP, seed=FILES_CAMS + 1), FILES_FPS[0])
+    s_write = time.perf_counter() - t1
+    data_io.save_dlc_points_h5(os.path.join(seventh, "dlc", "cam7DLC_cam1.h5"), px, lik, markers)
+    clock, s_dlc = _cli(["dlc", "--data_dir", seventh, "--device", device.type])
+    out = os.path.join(seventh, "dlc", "cam1_labeled.mp4")
+    got = None
+    if os.path.exists(out):
+        with mpeg4.Reader(out, device) as r:
+            got = (r.n_frames, r.size, r.fps, r.read(r.n_frames - 1) is not None)
+    why = nvdec.refusal(device, "avc1", FILES_RES)
+    skip = why is not None and nvdec.withheld() is not None
+    not_written = [ln for ln in clock.text.splitlines() if ln.startswith("Not written")]
+    want = None if skip else (FILES_N, FILES_RES, FILES_FPS[0], True)
+    want_lines = [f"Not written: {out} ({why})"] if skip else []
+    ok = got == want and not_written == want_lines
+    if not ok:
+        failed.append(f"cli dlc on the H.264 camera wrote a labelled video that reads back as "
+                      f"{got} and printed {not_written}, not {want} and {want_lines}")
+    return (f"a seventh camera, H.264 ({os.path.getsize(src) / 1e6:.3f} MB, written in "
+            f"{s_write:.3f} s), through cli dlc in {s_dlc:.3f} s: "
+            + (f"labelled, read back as {got}" if not skip else
+               f"named in the one Not written: line (the environment withholds NVDEC: {why})")
+            + f" {ok}")
+
+
 def phase_files(device, video_s):
     """The file-level pipeline on the card, the user's path: a run
     directory at full width (make_synthetic_run_dir: 6 cameras, N=200,
@@ -3473,8 +3778,8 @@ def phase_files(device, video_s):
     dlc stage's six labelled videos, each read back by the port's decoder
     at its source's frame count, size and fps, then tri, sba, ekf, fte in
     float64) with each stage held to tests/test_pipeline_e2e.py's bounds,
-    tri against the
-    CPU port and fte's six reprojected .h5 files against the projection
+    and a seventh camera, H.264, through ``cli dlc``
+    (files_h264_camera); tri against the CPU port and fte's six reprojected .h5 files against the projection
     of its positions, and its plots read back (files_plots_check);
     ``cli eval --hist`` against ground-truth label files (the noiseless
     projections of the truth, as tests/test_pipeline_e2e.py evaluates),
@@ -3564,13 +3869,16 @@ def phase_files(device, video_s):
             with mpeg4.Reader(out, device) as r:
                 labelled.append((r.n_frames, r.size, r.fps, r.read(r.n_frames - 1) is not None))
         want_video = (FILES_N, FILES_RES, FILES_FPS[0], True)
-        labelled_ok = labelled == [want_video] * FILES_CAMS
+        not_written = [ln for ln in clock.text.splitlines() if ln.startswith("Not written")]
+        labelled_ok = labelled == [want_video] * FILES_CAMS and not not_written
         if not labelled_ok:
             failed.append(f"cli all's dlc stage wrote labelled videos that read back as "
-                          f"{labelled}, not {FILES_CAMS} of {want_video}")
+                          f"{labelled} and printed {not_written}, not {FILES_CAMS} of "
+                          f"{want_video}")
         s_video_work = video_s + s_videos + secs["dlc"]
         if not s_video_work < VIDEO_BUDGET_S:
             failed.append(f"the video work takes {s_video_work} s (bound {VIDEO_BUDGET_S})")
+        h264_text = files_h264_camera(root, px[0], lik[0], markers, device, failed)
         t1 = time.perf_counter()
         plots_text = files_plots_check(run, failed)
         s_slice = time.perf_counter() - t1 + saves.s
@@ -3606,8 +3914,8 @@ def phase_files(device, video_s):
                f"{labelled[0]} each {labelled_ok}; get_vid_info reads the "
                f"sidecar's {info[0][0]} x {info[0][1]}, {info[1]} fps, {info[2]} frames from the "
                f"videos {vid_ok}; the video work (phase_video {video_s:.3f} s, these videos and "
-               f"the dlc stage) {s_video_work:.3f} s (bound {VIDEO_BUDGET_S}); {plots_text}; the "
-               f"{saves.calls} plots written in cli all in {saves.s:.3f} s")
+               f"the dlc stage) {s_video_work:.3f} s (bound {VIDEO_BUDGET_S}); {h264_text}; "
+               f"{plots_text}; the {saves.calls} plots written in cli all in {saves.s:.3f} s")
 
         gt_dir = os.path.join(root, "gt")
         gt, gt_px = [], []
@@ -3717,7 +4025,9 @@ def main():
     phase_sba(device)
     phase_calib(device)
     phase_images(device)
-    phase_files(device, phase_video(device))
+    video_s = phase_video(device)
+    phase_nvdec(device)
+    phase_files(device, video_s)
     phase_uncertainty(device)
     phase_solvers(device)
     phase_sweep_uncertainty(device, sweep)

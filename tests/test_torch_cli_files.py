@@ -165,7 +165,8 @@ def test_dlc_stage_with_videos_raises_before_any_work(tmp_path, capsys):
     box-only H.264 (avc1) file. ``dlc`` writes a labelled video for each
     mp4v file it decodes (no frame for a box-only one, as the JAX
     package's cv2 writes), names the B-VOP and H.264 ones in
-    ``Not written:`` lines and leaves no file at those paths; ``all``
+    ``Not written:`` lines (H.264 is decoded on the card's NVDEC only)
+    and leaves no file at those paths; ``all``
     goes on and writes every stage's pickle, its frame count read from
     the videos."""
     from acinoset_tpu_torch.utils import mp4, mpeg4
@@ -193,7 +194,8 @@ def test_dlc_stage_with_videos_raises_before_any_work(tmp_path, capsys):
     labelled = [os.path.join(run, "dlc", f"cam{c + 1}_labeled.mp4") for c in range(4)]
     lines = [f"Not written: {labelled[1]} (B-VOPs: the port decodes MPEG-4 Simple Profile I-, "
              "P- and N-VOPs only)",
-             f"Not written: {labelled[3]} (H.264: the port decodes mp4v only)"]
+             f"Not written: {labelled[3]} (H.264: the port decodes it on the card's NVDEC only, "
+             "not on cpu (it has no software H.264 decoder))"]
     for cmd in ("dlc", "all"):
         assert tcli.main([cmd, "--data_dir", run, "--dlc_thresh", "0.5", "--device", "cpu"]) == 0
         out = capsys.readouterr().out

@@ -32,6 +32,7 @@ from acinoset_tpu_torch.probes import probe_mosaic as tpm
 from acinoset_tpu_torch.probes import probe_mosaic2 as tpm2
 from acinoset_tpu_torch.solvers import trajopt as ttraj
 from acinoset_tpu_torch.utils import mpeg4 as tmpeg4
+from acinoset_tpu_torch.utils import nvdec as tnvdec
 from acinoset_tpu_torch.utils import synthetic as tsyn
 
 torch.set_num_threads(2)
@@ -52,7 +53,7 @@ def test_port_and_chip_smoke_import_no_jax_nor_io_stack():
               "eval.metrics", "parallel.mesh", "entry", "utils.profiling",
               "utils.pan_compensation", "gui.label_session", "gui.skeleton_builder",
               "pipeline.plots", "pipeline.video", "utils.argus", "utils.figure",
-              "utils.mpeg4"):
+              "utils.mpeg4", "utils.h26x", "utils.nvdec"):
         assert f"acinoset_tpu_torch.{m}" in modules
     code = (
         "import importlib, sys\n"
@@ -156,6 +157,8 @@ ENTRY_POINTS = {
     "animate_reconstruction": lambda: tplots.animate_reconstruction("r.pickle", "a.mp4"),
     "mpeg4.Reader": lambda: tmpeg4.Reader("cam1.mp4"),
     "mpeg4.Writer": lambda: tmpeg4.Writer("out.mp4", (16, 16), 30.0),
+    "open_video": lambda: tvideo.open_video("cam1.mp4"),
+    "nvdec.Reader": lambda: tnvdec.Reader("cam1.mp4"),
     **{f"probe_mosaic.{name}": t for name, t in tpm.PROBES},
     **{f"probe_mosaic2.{name}": t for name, t in tpm2.PROBES},
 }

@@ -125,3 +125,50 @@ def test_files_without_a_video_track_raise_naming_the_file(tmp_path, data, match
     with pytest.raises(mp4.MP4FormatError, match=match) as err:
         mp4.video_info(str(fp))
     assert str(fp) in str(err.value)
+
+
+def test_only_the_moov_box_is_read(tmp_path, monkeypatch):
+    """A GoPro-like file whose 64 MiB mdat comes before its moov (and a
+    second, 32-bit mdat after it): video_info and read_video_track walk
+    the top-level boxes with seeks and read the moov and the box headers
+    only, whatever the mdat holds."""
+    moov = _box(b"moov", _full(b"mvhd", bytes(96))
+                + _track(b"vide", 120000, [(4, 1001), (116, 1000)], 120, (2704, 1520),
+                         entry=b"avc1", version=1))
+    fp = tmp_path / "GX010001.MP4"
+    big = 64 << 20
+    with open(fp, "wb") as f:
+        f.write(_box(b"ftyp", b"mp41" + bytes(4)))
+        f.write(struct.pack(">I4sQ", 1, b"mdat", 16 + big))
+        f.seek(big, 1)
+        f.write(moov + _box(b"mdat", bytes(4096)))
+    size = fp.stat().st_size
+    reads = []
+    real_open = open
+
+    class Counting:
+        def __init__(self, f):
+            self.f = f
+
+        def read(self, n=-1):
+            data = self.f.read(n)
+            reads.append(len(data))
+            return data
+
+        def __getattr__(self, name):
+            return getattr(self.f, name)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            self.f.close()
+
+    monkeypatch.setattr(mp4, "open", lambda *a, **k: Counting(real_open(*a, **k)),
+                        raising=False)
+    assert mp4.video_info(str(fp)) == ((2704, 1520), 120 * 120000 / (4 * 1001 + 116 * 1000), 120)
+    assert sum(reads) <= len(moov) + 4 * 16 < size // 1000
+    reads.clear()
+    track = mp4.read_video_track(str(fp))
+    assert (track.codec, track.n_samples, track.size) == ("avc1", 120, (2704, 1520))
+    assert sum(reads) <= len(moov) + 4 * 16

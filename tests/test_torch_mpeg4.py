@@ -405,9 +405,10 @@ def test_vlc_table_decodes_what_it_encodes_as_cv2_does(tmp_path, table):
 
 
 def test_n_vop_repeats_the_previous_frame(tmp_path):
-    """I, P, N (vop_coded 0), P: the port's third frame is its second
-    again; ffmpeg gives no frame for the N-VOP, and the other three equal
-    cv2's."""
+    """I, P, N (vop_coded 0), P, P, N, P: as in cv2, an N-VOP gives no
+    frame, both read in order and at the index get_frames seeks to
+    (cv2's CAP_PROP_POS_FRAMES): the port's five frames are cv2's five,
+    and an index past them reads as None."""
     config = mpeg4.write_config((32, 32), 30)
     vol = mpeg4.parse_config(config)
     intra = np.full((4, 5), (MB_INTRA, 0, 0, 0, 0), np.int16)
@@ -416,22 +417,32 @@ def test_n_vop_repeats_the_previous_frame(tmp_path):
     inter = np.full((4, 5), (MB_INTER, 0, 0, 0, 0), np.int16)
     res = np.zeros((24, 64), np.int16)
     res[::2, 0] = 4
-    vops = [mpeg4.encode_vop(vol, 0, 3, intra, lv),
-            mpeg4.encode_vop(vol, 1, 3, inter, res, time_inc=1),
-            mpeg4.encode_vop(vol, 1, 3, inter, res[:0], coded=False, time_inc=2),
-            mpeg4.encode_vop(vol, 1, 3, inter, res, time_inc=3)]
+    coded = [True, True, False, True, True, False, True]
+    vops = [mpeg4.encode_vop(vol, 0, 3, intra, lv)]
+    vops += [mpeg4.encode_vop(vol, 1, 3, inter, res if c else res[:0], coded=c, time_inc=t)
+             for t, c in enumerate(coded[1:], 1)]
     path = str(tmp_path / "nvop.mp4")
     with mp4.Mp4Writer(path, (32, 32), 30.0, config) as w:
         for i, v in enumerate(vops):
             w.add_sample(v, i == 0)
-    with mpeg4.Reader(path, device="cpu") as r:
-        got = [r.read(i) for i in range(4)]
-    np.testing.assert_array_equal(got[2], got[1])
-    assert not np.array_equal(got[3], got[2])
     theirs = cv2_frames(path)
-    assert len(theirs) == 3
-    for g, t in zip([got[0], got[1], got[3]], theirs):
+    assert len(theirs) == sum(coded) == 5
+    with mpeg4.Reader(path, device="cpu") as r:
+        assert r.n_frames == 5
+        got = [r.read(i) for i in range(5)]
+        assert r.read(5) is None
+    for g, t in zip(got, theirs):
         np.testing.assert_array_equal(g, t)
+    assert len({g.tobytes() for g in got}) == 5
+    seeks = [3, 1, 4, 0, 2, 5]
+    cap = cv2.VideoCapture(path)
+    for (i, f) in tvideo.get_frames(path, seeks, device="cpu"):
+        cap.set(cv2.CAP_PROP_POS_FRAMES, i)
+        ok, want = cap.read()
+        assert ok
+        np.testing.assert_array_equal(f, want)
+    assert [i for i, _f in tvideo.get_frames(path, seeks, device="cpu")] == \
+        [i for i, _f in jvideo.get_frames(path, seeks)] == seeks[:-1]
 
 
 # ---- (g) what the port does not decode ----
@@ -556,7 +567,9 @@ def test_a_vol_that_changes_the_frame_size_raises(tmp_path, in_band):
                                         (b"av01", "AV1")])
 def test_other_codecs_raise_naming_the_codec(tmp_path, entry, name):
     """A GoPro-like sample entry (write_box_mp4's boxes with another
-    type): every reading function refuses it before it writes."""
+    type): every reading function refuses it before it writes; H.264 and
+    HEVC because they are decoded on the card's NVDEC only, and so not on
+    the CPU, AV1 because the port does not decode it."""
     path = str(tmp_path / "cam1.mp4")
     tsyn.write_box_mp4(path, (64, 48), 119.88, 4)
     data = open(path, "rb").read()
@@ -564,8 +577,10 @@ def test_other_codecs_raise_naming_the_codec(tmp_path, entry, name):
     markers = tsyn.cheetah.get_markers()
     tdata.save_dlc_points_h5(str(tmp_path / "labels_cam1.h5"), np.zeros((4, 20, 2)),
                              np.ones((4, 20)), markers)
-    reason = f"{name}: the port decodes mp4v only"
-    for call in (lambda: mpeg4.Reader(path, device="cpu"),
+    reason = (f"{name}: the port decodes it on the card's NVDEC only, not on cpu (it has no "
+              f"software {name} decoder)" if entry != b"av01"
+              else f"{name}: the port decodes mp4v, H.264 and HEVC only")
+    for call in (lambda: tvideo.open_video(path, device="cpu"),
                  lambda: tvideo.create_labeled_videos([path], str(tmp_path), device="cpu"),
                  lambda: tvideo.get_frames(path, [0], out_dir=str(tmp_path / "frames"),
                                            device="cpu")):

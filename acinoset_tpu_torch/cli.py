@@ -24,8 +24,9 @@ do by default). Without a CUDA device every subcommand raises unless given
 
 The ``dlc`` stage writes dlc/camN_labeled.mp4 for each cam[1-9].mp4, its
 labels burnt in (``pipeline.video.create_labeled_videos``, the port's own
-mp4v codec); a video in another codec (GoPro's H.264) gets a
-``Not written:`` line naming it, and ``all`` goes on to tri. ``all``
+mp4v codec), reading mp4v, GoPro's H.264 (the port's software decoder)
+or HEVC (the card's NVDEC); a video the port cannot read gets a
+``Not written:`` line naming why, and ``all`` goes on to tri. ``all``
 ends with ``reconstructions.png``, the sba, ekf and fte results
 overlaid; the fte and ekf stages write their state plots.
 """
@@ -136,8 +137,8 @@ def _parser() -> ArgumentParser:
 
 def _label_videos(args, device):
     """The dlc stage: create_labeled_videos on the run's cam[1-9].mp4, a
-    video at a time, so that one the port cannot read (GoPro's H.264 on a
-    device without NVDEC, a codec it does not decode) is named in a
+    video at a time, so that one the port cannot read (HEVC on a device
+    without NVDEC, a feature or codec it does not decode) is named in a
     ``Not written:`` line and the rest are labelled."""
     from .pipeline.video import create_labeled_video, labeled_video_fpath
     from .utils.mpeg4 import UnsupportedVideo

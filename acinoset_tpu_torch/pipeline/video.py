@@ -5,16 +5,17 @@ of a video (``get_frames``, ``extract_frame_range``), images into one
 images (src/make_anim.py).
 
 The JAX package does this through cv2; the port reads through
-``open_video``, which picks the reader by the track's codec: its own
-codec ``utils.mpeg4`` for MPEG-4 Part 2 Simple Profile in MP4 (``mp4v``,
-the codec the JAX package writes), and the card's NVDEC
-(``utils.nvdec``) for GoPro's H.264 (``avc1``/``avc3``) and HEVC
-(``hvc1``/``hev1``), frame for frame as cv2 gives them (presentation
-order after the edit list). It writes mp4v, as the JAX package does.
-Each function runs on the device it is given (``cuda`` unless
-``device`` names another); what cannot be read there (H.264 or HEVC on
-the CPU, another codec) raises ``utils.mpeg4.UnsupportedVideo``, naming
-it.
+``open_video``, which picks the reader by a fixed table of the track's
+codec (``DECODERS``): its own codec ``utils.mpeg4`` for MPEG-4 Part 2
+Simple Profile in MP4 (``mp4v``, the codec the JAX package writes), its
+software decoder ``utils.h264`` for GoPro's H.264 (``avc1``/``avc3``)
+and the card's NVDEC (``utils.nvdec``) for HEVC (``hvc1``/``hev1``),
+frame for frame as cv2 gives them (presentation order after the edit
+list). It writes mp4v, as the JAX package does. Each function runs on
+the device it is given (``cuda`` unless ``device`` names another); what
+cannot be read there (HEVC on the CPU, a feature a decoder does not take,
+another codec) raises ``utils.mpeg4.UnsupportedVideo``, naming it, and
+nothing falls back to another decoder.
 
 The labels are drawn on the device, pixel for pixel as cv2 draws them:
 skeleton lines as ``cv2.line(..., thickness=1)`` (8-connected, clipped to
@@ -33,7 +34,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..utils import mp4, mpeg4, nvdec
+from ..utils import h264, mp4, mpeg4, nvdec
 from ..utils.device import resolve_device
 from ..utils.png import read_png, write_png
 from . import data as data_io
@@ -54,25 +55,46 @@ def _write(writer, frame):
         writer.write(frame[:H, :W])
 
 
-def open_video(video_fpath: str, device=None):
+#: the reader of each sample entry when none is asked for; the rest go to
+#: mpeg4.Reader (which refuses all but mp4v)
+DECODERS = {"avc1": "software", "avc3": "software", "hvc1": "nvdec", "hev1": "nvdec"}
+
+
+def open_video(video_fpath: str, device=None, decoder: Optional[str] = None):
     """A reader of the video's frames (``n_frames``, ``size``, ``fps``,
-    ``read``, ``read_tensor``, ``close``; a context manager), picked by
-    its track's codec: ``nvdec.Reader`` for H.264 and HEVC,
-    ``mpeg4.Reader`` for the rest (which refuses all but mp4v)."""
+    ``read``, ``read_tensor``, ``close``; a context manager), picked by a
+    fixed table from its track's codec (``DECODERS``): ``h264.Reader``
+    (the port's software decoder) for H.264, ``nvdec.Reader`` (the card's
+    NVDEC) for HEVC, ``mpeg4.Reader`` for the rest. ``decoder='nvdec'`` or
+    ``'software'`` asks for one of the two for H.264 or HEVC. Nothing falls
+    back: a refusal raises ``UnsupportedVideo`` naming its reason."""
     device = resolve_device(device)
-    if mp4.read_video_track(video_fpath).codec in nvdec.CODECS:
+    codec = mp4.read_video_track(video_fpath).codec
+    if decoder not in (None, "nvdec", "software"):
+        raise ValueError(f"decoder must be None, 'nvdec' or 'software', not {decoder!r}")
+    if codec not in DECODERS:
+        if decoder is not None:
+            raise mpeg4.UnsupportedVideo(video_fpath, f"{mpeg4.CODEC_NAMES.get(codec, repr(codec))}:"
+                                                      f" decoder={decoder!r} reads H.264 and HEVC only")
+        return mpeg4.Reader(video_fpath, device)
+    choice = decoder or DECODERS[codec]
+    if choice == "nvdec":
         return nvdec.Reader(video_fpath, device)
-    return mpeg4.Reader(video_fpath, device)
+    if codec not in h264.CODECS:
+        raise mpeg4.UnsupportedVideo(video_fpath, f"{mpeg4.CODEC_NAMES[codec]}: the port has no "
+                                                  "software decoder for it")
+    return h264.Reader(video_fpath, device)
 
 
 def get_frames(video_fpath: str, frame_indices: Sequence[int], out_dir: Optional[str] = None,
-               device=None):
+               device=None, decoder: Optional[str] = None):
     """Frames of a video by index, as [(index, BGR uint8 (H, W, 3))]
     (src/calib/extract.py:21-44); an index that cannot be read is
-    skipped. With out_dir each is also written there as ``{index}.png``."""
+    skipped. With out_dir each is also written there as ``{index}.png``.
+    ``decoder`` as in ``open_video``."""
     device = resolve_device(device)
     out = []
-    with open_video(video_fpath, device) as reader:
+    with open_video(video_fpath, device, decoder) as reader:
         for idx in frame_indices:
             frame = reader.read(int(idx)) if int(idx) >= 0 else None
             if frame is None:
@@ -231,7 +253,8 @@ def _labels_for(out_dir, ci, label_fpaths):
 
 
 def create_labeled_video(video_fpath: str, ci: int, out_dir: str, draw_skeleton: bool = True,
-                         pcutoff: float = 0.5, label_fpaths=None, max_frames=None, device=None):
+                         pcutoff: float = 0.5, label_fpaths=None, max_frames=None, device=None,
+                         decoder: Optional[str] = None):
     """The ci-th video of ``create_labeled_videos``: its labelled copy's
     path, or None (and a printed line) when it has no labels."""
     device = resolve_device(device)
@@ -247,7 +270,7 @@ def create_labeled_video(video_fpath: str, ci: int, out_dir: str, draw_skeleton:
     lookup = {int(f): i for i, f in enumerate(frames_idx)}
     out_fpath = labeled_video_fpath(video_fpath, out_dir)
     # a frame that cannot be decoded (a B-VOP, say) ends the copy with no file
-    with open_video(video_fpath, device) as reader, \
+    with open_video(video_fpath, device, decoder) as reader, \
             mpeg4.Writer(out_fpath, _even(reader.size), reader.fps or 30.0, device) as writer:
         n = 0
         while max_frames is None or n < max_frames:
@@ -273,6 +296,7 @@ def create_labeled_videos(
     label_fpaths: Optional[Sequence[str]] = None,
     max_frames: Optional[int] = None,
     device=None,
+    decoder: Optional[str] = None,
 ):
     """Burn 2D keypoints (and the skeleton) into videos
     (lib.app.create_labeled_videos). The ci-th video's labels are
@@ -281,13 +305,13 @@ def create_labeled_videos(
     Frames are read from 0 up to max_frames; the labels of frame n are
     the label file's row whose frame index is n. The copy goes to
     ``labeled_video_fpath`` at the video's frame rate (30 where it has
-    none). Returns the paths written."""
+    none); ``decoder`` as in ``open_video``. Returns the paths written."""
     device = resolve_device(device)
     os.makedirs(out_dir, exist_ok=True)
     outputs = []
     for ci, vid in enumerate(video_fpaths):
         out = create_labeled_video(vid, ci, out_dir, draw_skeleton, pcutoff, label_fpaths,
-                                   max_frames, device)
+                                   max_frames, device, decoder)
         if out is not None:
             outputs.append(out)
     return outputs
@@ -304,10 +328,12 @@ def natural_sort(items: Sequence[str]) -> List[str]:
     return sorted(items, key=key)
 
 
-def extract_frame_range(video_fpath: str, start: int, end: int, out_dir: str, device=None):
+def extract_frame_range(video_fpath: str, start: int, end: int, out_dir: str, device=None,
+                        decoder: Optional[str] = None):
     """Frames [start, end) of a video as PNGs in out_dir
     (src/make_anim.py:8-39); returns get_frames' list."""
-    return get_frames(video_fpath, range(start, end), out_dir=out_dir, device=device)
+    return get_frames(video_fpath, range(start, end), out_dir=out_dir, device=device,
+                      decoder=decoder)
 
 
 def images_to_video(image_fpaths: Sequence[str], out_fpath: str, fps: float = 30.0, device=None):

@@ -30,6 +30,7 @@ no user entry point writes them.
 """
 from __future__ import annotations
 
+import ctypes
 import struct
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
@@ -260,6 +261,13 @@ class _Content:
         surf[:, :W] = np.concatenate([y, uv], 0)
         return surf
 
+    def surface(self, k, device, pitch_align: int = 1):
+        """Frame k's reconstruction as an NV12 surface (``nv12``) in a
+        tensor on device."""
+        import torch
+
+        return torch.from_numpy(self.nv12(k, pitch_align)).to(device)
+
     @property
     def presentation_offsets(self) -> List[int]:
         """Each sample's (decode order) display index less its decode index."""
@@ -397,9 +405,177 @@ class H264Stream(_Content):
 
     def config(self) -> bytes:
         """The avcC payload."""
-        out = bytes([1, H264_PROFILE, 0x40, H264_LEVEL, 0xFF, 0xE1])
-        out += struct.pack(">H", len(self.sps)) + self.sps
-        return out + bytes([1]) + struct.pack(">H", len(self.pps)) + self.pps
+        return _avcc(self.sps, self.pps)
+
+
+def _avcc(sps: bytes, pps: bytes) -> bytes:
+    """An avcC payload: one SPS, one PPS, 4-byte NAL lengths."""
+    out = bytes([1, sps[1], sps[2], sps[3], 0xFF, 0xE1]) + struct.pack(">H", len(sps)) + sps
+    return out + bytes([1]) + struct.pack(">H", len(pps)) + pps
+
+
+#: RandomH264's options, in the order of the C++ writer's WOpts
+_WOPTS = ("width", "height", "cabac", "poc_type", "log2_max_frame_num", "log2_max_poc_lsb",
+          "max_refs", "reorder", "transform8x8", "scaling", "weighted_pred", "weighted_bipred",
+          "direct", "max_slices", "deblock_mask", "deblock_offsets", "mmco", "long_term",
+          "constrained_intra", "qp_min", "qp_max", "matrix", "full_range", "cqp_offset",
+          "cqp_offset2", "intra_percent", "gaps", "profile", "direct_8x8", "colour", "vui_extra")
+
+
+class RandomH264:
+    """An H.264 stream of random syntax, written by the decoder's own
+    syntax code (``csrc/h264.cpp``'s writer) with every element picked
+    from a seeded generator within its legal range; the frames it decodes
+    to are whatever that syntax makes of them, so only an independent
+    decoder (cv2) can judge them. size (width, height), cropped from the
+    coded size where that is not a multiple of 16; GOPs of ``gop`` frames,
+    each an IDR, then P anchors with ``b_frames`` B frames between
+    (presentation order; B frames are references where ``b_refs``);
+    ``intra_only`` makes every frame an I picture. ``mmco5`` puts
+    memory_management_control_operation 5 on one P anchor a GOP (one that
+    follows another anchor directly, so that presentation order survives
+    the POC reset). The rest are the writer's options: ``cabac``,
+    ``poc_type`` (2 takes no reordering), ``refs`` (max_num_ref_frames),
+    ``slices`` (at most, a picture), ``transform8x8``, ``scaling``
+    (scaling lists in the SPS and PPS), ``weighted`` (None, 'explicit',
+    'implicit'), ``direct`` ('spatial', 'temporal', 'both'), ``deblock``
+    (the disable_deblocking_filter_idc values to pick from),
+    ``deblock_offsets``, ``mmco`` (adaptive marking), ``long_term``,
+    ``constrained_intra``, ``qp`` (min, max), ``matrix`` and
+    ``full_range`` (VUI; matrix None writes no colour description),
+    ``chroma_qp_offsets``, ``intra_percent`` (intra macroblocks in P
+    and B slices), ``direct_8x8`` (direct_8x8_inference_flag),
+    ``log2_max_frame_num`` and
+    ``log2_max_poc_lsb`` (small ones wrap within a GOP), ``gaps``
+    (frame_num gaps in P-only streams) and ``vui_extra`` (the VUI's
+    aspect ratio, overscan, chroma location, timing and HRD). The profile
+    is the least of Constrained Baseline, Main and High that takes them."""
+
+    def __init__(self, size, n_frames, seed=0, *, cabac=False, gop=8, b_frames=2, b_refs=False,
+                 intra_only=False, poc_type=0, refs=3, slices=1, transform8x8=False,
+                 scaling=False, weighted=None, direct="spatial", deblock=(0,),
+                 deblock_offsets=False, mmco=False, long_term=False, mmco5=False,
+                 constrained_intra=False, qp=(20, 34), matrix=BT709, full_range=True,
+                 chroma_qp_offsets=(0, 0), intra_percent=15, direct_8x8=True,
+                 log2_max_frame_num=5, log2_max_poc_lsb=8, gaps=False, vui_extra=False):
+        from . import h264
+
+        self.size = (int(size[0]), int(size[1]))
+        W, H = self.size
+        if W % 2 or H % 2 or W <= 0 or H <= 0:
+            raise ValueError(f"frame size {W} x {H}: width and height must be even")
+        self.mbw, self.mbh = (W + 15) // 16, (H + 15) // 16
+        self.coded = (16 * self.mbw, 16 * self.mbh)
+        self.n, self.gop, self.seed = int(n_frames), int(gop), int(seed)
+        self.matrix, self.full_range = matrix, bool(full_range)
+        high = transform8x8 or scaling or chroma_qp_offsets[1] != chroma_qp_offsets[0]
+        bpred = b_frames and not intra_only
+        profile = 100 if high else 77 if (cabac or bpred or weighted) else 66
+        self.types, self.decode, plan = self._plan(b_frames, b_refs, intra_only, poc_type, mmco5)
+        shown = {k: i for i, k in enumerate(self.decode)}
+        reorder = max((sum(1 for j in self.decode[:shown[k]] if j > k) for k in self.decode),
+                      default=0)
+        if gaps and b_frames and not intra_only:
+            raise ValueError("frame_num gaps are written in streams without B frames only")
+        opts = dict(width=W, height=H, cabac=int(cabac), poc_type=poc_type,
+                    log2_max_frame_num=log2_max_frame_num, log2_max_poc_lsb=log2_max_poc_lsb,
+                    max_refs=refs, reorder=reorder,
+                    transform8x8=int(transform8x8), scaling=int(scaling),
+                    weighted_pred=int(weighted == "explicit"),
+                    weighted_bipred={None: 0, "explicit": 1, "implicit": 2}[weighted],
+                    direct={"spatial": 0, "temporal": 1, "both": 2}[direct], max_slices=slices,
+                    deblock_mask=sum(1 << i for i in deblock), deblock_offsets=int(deblock_offsets),
+                    mmco=int(mmco), long_term=int(long_term),
+                    constrained_intra=int(constrained_intra), qp_min=qp[0], qp_max=qp[1],
+                    matrix=matrix or 2, full_range=int(bool(full_range)),
+                    cqp_offset=chroma_qp_offsets[0], cqp_offset2=chroma_qp_offsets[1],
+                    intra_percent=intra_percent, gaps=int(gaps), profile=profile,
+                    direct_8x8=int(direct_8x8), colour=int(matrix is not None),
+                    vui_extra=int(vui_extra))
+        arr = np.array([opts[k] for k in _WOPTS], np.int32)
+        lib = h264._library()
+        err = ctypes.create_string_buffer(512)
+        h = lib.h264w_open(arr.ctypes.data, len(arr), ctypes.c_uint64(self.seed), err, 512)
+        if not h:
+            raise ValueError(f"RandomH264: {err.value.decode()}")
+        try:
+            n = lib.h264w_param_sets(h, None, 0)
+            buf = np.zeros(n, np.uint8)
+            lib.h264w_param_sets(h, buf.ctypes.data, n)
+            self.sps, self.pps = nal_units(buf.tobytes())
+            #: each picture's NAL units, in decode order
+            self.pictures: List[List[bytes]] = []
+            cap = 4 * self.coded[0] * self.coded[1] + (1 << 16)
+            out = np.zeros(cap, np.uint8)
+            nb = ctypes.c_int64(0)
+            for p in plan:
+                pl = np.array(p, np.int32)
+                rc = lib.h264w_picture(h, pl.ctypes.data, out.ctypes.data, cap, ctypes.byref(nb),
+                                       err, 512)
+                if rc:
+                    why = err.value.decode() if rc != -3 else f"a picture of more than {cap} bytes"
+                    raise ValueError(f"RandomH264: {why}")
+                self.pictures.append(nal_units(out[:nb.value].tobytes()))
+        finally:
+            lib.h264w_close(h)
+
+    def _plan(self, b_frames, b_refs, intra_only, poc_type, mmco5):
+        """(types by display index, display indices in decode order, the
+        writer's plan of each picture in decode order: slice type, idr,
+        nal_ref_idc, POC, mmco5)."""
+        types, decode, marks = [], [], set()
+        for g0 in range(0, self.n, self.gop):
+            length = min(self.gop, self.n - g0)
+            kinds = ["I"] + ["P"] * (length - 1)
+            if intra_only:
+                kinds = ["I"] * length
+            elif b_frames:
+                step = b_frames + 1
+                for j in range(1, length):
+                    nxt = (j // step + 1) * step
+                    kinds[j] = "P" if j % step == 0 or nxt >= length else "B"
+            if mmco5:
+                for j in range(2, length):
+                    if kinds[j] == "P" and kinds[j - 1] != "B":
+                        marks.add(g0 + j)
+                        break
+            types += kinds
+            pending = []
+            for j, kind in enumerate(kinds):
+                if kind == "B" and poc_type != 2:
+                    pending.append(g0 + j)
+                else:
+                    decode += [g0 + j] + pending
+                    pending = []
+        plan, base = [], 0
+        for k in decode:
+            kind = types[k]
+            idr = kind == "I" and k % self.gop == 0
+            if idr:
+                base = k
+            ref = 0 if kind == "B" and not b_refs else 1 + (7 * k + self.seed) % 3
+            plan.append([{"P": 0, "B": 1, "I": 2}[kind], int(idr), ref, 2 * (k - base),
+                         int(k in marks)])
+            if k in marks:
+                base = k
+        return types, decode, plan
+
+    @property
+    def param_sets(self) -> List[bytes]:
+        return [self.sps, self.pps]
+
+    def samples(self) -> Iterator[Tuple[int, bool, List[bytes]]]:
+        """(display index, sync, NAL units) of each picture, in decode
+        order; sync pictures are the IDRs."""
+        for k, nals in zip(self.decode, self.pictures):
+            yield k, k % self.gop == 0 and self.types[k] == "I", nals
+
+    def config(self) -> bytes:
+        return _avcc(self.sps, self.pps)
+
+    @property
+    def presentation_offsets(self) -> List[int]:
+        return [k - i for i, k in enumerate(self.decode)]
 
 
 # ---- HEVC ----

@@ -15,13 +15,12 @@ cv2's colour arithmetic (the constants of ``mpeg4.BGR_COEFS``, picked by
 the stream's VUI matrix and range), one launch a frame.
 
 What this path does not take raises ``mpeg4.UnsupportedVideo`` naming it,
-and nothing falls back to another path: a CPU device (the port has no
-software H.264 or HEVC decoder), a CUDA device whose driver has no
-``libnvcuvid`` or whose ``cuvidGetDecoderCaps`` fails (the reason gives
-the driver's error; ``withheld`` says whether the environment visibly
-keeps the video engine from this process), 10-bit (P016), 4:2:2, 4:4:4
-or interlaced streams, and colour matrices other than BT.601 and BT.709
-(BT.2020 is one).
+and nothing falls back to another path: a CPU device, a CUDA device
+whose driver has no ``libnvcuvid`` or whose ``cuvidGetDecoderCaps`` fails
+(the reason gives the driver's error; ``withheld`` says whether the
+environment visibly keeps the video engine from this process), 10-bit
+(P016), 4:2:2, 4:4:4 or interlaced streams, and colour matrices other
+than BT.601 and BT.709 (BT.2020 is one).
 
 The decoder half (``Reader``, and ``csrc/nvdec.cu``'s decoder creation,
 decode, map and unmap) is untested: it has run only on an H100 in a
@@ -215,6 +214,16 @@ def colour_coefs(matrix: int, full_range: bool) -> Tuple[int, ...]:
     return BGR_COEFS[(MATRICES[int(matrix)], bool(full_range))]
 
 
+def nv12_offsets(pitch: int, surface_height: int, left: int, top: int) -> Tuple[int, int]:
+    """Where an NV12 surface's display rectangle starts: the offsets in
+    bytes of its first luma sample and of its first interleaved chroma
+    pair, for rows of pitch bytes whose chroma rows (one for every two
+    luma rows) start at row surface_height, and the rectangle at (left,
+    top). The one account of the layout, which the kernel's launches and
+    the plain version share."""
+    return top * pitch + left, (surface_height + top // 2) * pitch + left
+
+
 def nv12_to_bgr_plain(surface: torch.Tensor, surface_height: int, size: Tuple[int, int],
                       coefs, origin: Tuple[int, int] = (0, 0)) -> torch.Tensor:
     """The plain version of the kernel: ``mpeg4.yuv420_to_bgr`` with the
@@ -222,25 +231,24 @@ def nv12_to_bgr_plain(surface: torch.Tensor, surface_height: int, size: Tuple[in
     surface_height, then the interleaved chroma rows); size (W, H) and
     origin (left, top) the display rectangle."""
     W, H = size
-    left, top = origin
-    y = surface[top:top + H, left:left + W]
-    uv = surface[surface_height + top // 2:surface_height + (top + H + 1) // 2, left:left + W]
+    surface = surface.contiguous()
+    pitch = surface.shape[1]
+    luma, chroma = nv12_offsets(pitch, surface_height, *origin)
+    base = surface.storage_offset()
+    y = torch.as_strided(surface, (H, W), (pitch, 1), base + luma)
+    uv = torch.as_strided(surface, ((H + 1) // 2, W), (pitch, 1), base + chroma)
     return yuv420_to_bgr(y, uv[:, 0::2], uv[:, 1::2], size, coefs)
 
 
 def _launch(ptr: int, pitch: int, surface_height: int, origin: Tuple[int, int],
             out: torch.Tensor, coefs, stream: int):
     """One launch of the kernel into out (H, W, 3) uint8 on the card, from
-    the NV12 surface at device address ptr: luma rows at pitch, chroma
-    rows from row surface_height, one for every two luma rows; the
-    display rectangle at origin (left, top)."""
+    the NV12 surface at device address ptr (``nv12_offsets``' layout)."""
     H, W = out.shape[:2]
-    left, top = origin
-    luma = ptr + top * pitch + left
-    chroma = ptr + (surface_height + top // 2) * pitch + left
+    luma, chroma = nv12_offsets(pitch, surface_height, *origin)
     k = (ctypes.c_int32 * 6)(*coefs)
-    err = _library().nv12_to_bgr(_P(luma), _P(chroma), int(pitch), _P(out.data_ptr()), W, H, k,
-                                 _P(stream))
+    err = _library().nv12_to_bgr(_P(ptr + luma), _P(ptr + chroma), int(pitch), _P(out.data_ptr()),
+                                 W, H, k, _P(stream))
     if err != 0:
         raise RuntimeError(f"nv12_to_bgr failed to launch: CUDA error {err}")
     with _lock:
@@ -302,6 +310,9 @@ def format_reason(fmt: Dict[str, int]) -> Optional[str]:
 def codec_reason(codec: str, device) -> str:
     """Why an H.264 or HEVC file is refused on a device other than CUDA."""
     name = CODEC_NAMES[codec]
+    if codec in ("avc1", "avc3"):
+        return (f"{name}: NVDEC decodes it on the card only, not on {device} "
+                "(decoder='software' reads it on the host)")
     return (f"{name}: the port decodes it on the card's NVDEC only, not on {device} (it has no "
             f"software {name} decoder)")
 

@@ -108,11 +108,21 @@ Phases, one line each with its seconds:
                reading each stream's format on the card, the colour
                kernel (nv12_to_bgr, utils/csrc/nvdec.cu) against its
                plain version on the reconstructed frames, its device
-               time against its bound; every frame decoded against the
-               reconstruction, one launch a frame, seeks and the
+               time against its bound; the H.264 streams decoded by the
+               port's software decoder (every frame against the
+               reconstruction, one launch a frame, seeks, frames/s and
+               the host's share); every frame decoded on NVDEC against
+               the reconstruction, one launch a frame, seeks and the
                labelled video's bytes (skipped only where the
                environment visibly withholds the video engine, and then
                the refusal named, no fallback; any other refusal fails);
+     h264    - the software H.264 decoder (utils/csrc/h264.cpp) on the
+               random-syntax writer's streams (utils.h26x.RandomH264,
+               CAVLC and CABAC with B frames, 2704 x 1520 and 1920 x 1080
+               from 1088): MP4 and frame SHA-256 equal to cv2's on the
+               CPU, one launch a frame, NVDEC's frames against the
+               software decoder's where NVDEC decodes, and frames/s at
+               2704 x 1520 with the host's share;
  13. files   - the file-level pipeline, the user's path: a run directory
                at full width (make_synthetic_run_dir: 6 cameras x 200
                frames x 20 markers, 2704 x 1520, its DLC .h5 files written
@@ -125,8 +135,9 @@ Phases, one line each with its seconds:
                fte's six reprojected .h5 files to its positions
                projected; fte.svg, ekf.pdf and reconstructions.png read
                back), a seventh camera, H.264, through `cli dlc` in a
-               directory of its own (labelled, or where the environment
-               withholds NVDEC its Not written: line), `cli eval --hist` against the truth's projections
+               directory of its own (labelled through the software
+               decoder, its bytes against mpeg4.Writer fed the labels
+               drawn on the reconstruction), `cli eval --hist` against the truth's projections
                (the histogram's counts against np.histogram), `cli view`,
                and `cli sweep --stages fte,ekf` over 8 such runs in two
                fps groups; s a stage, .h5 MB/s, frames/s of the
@@ -310,9 +321,10 @@ def _ptxas_summary(log):
 
 
 def phase_build():
-    """Build the four libraries at once (one nvcc each, started together)."""
+    """Build the five libraries at once (one nvcc each and the software
+    H.264 decoder's g++, started together)."""
     from acinoset_tpu_torch.kernels import _nvcc, banded_cuda, probes_cuda
-    from acinoset_tpu_torch.utils import nvdec
+    from acinoset_tpu_torch.utils import h264, nvdec
 
     t0 = time.perf_counter()
 
@@ -320,11 +332,14 @@ def phase_build():
         t1 = time.perf_counter()
         return build(), time.perf_counter() - t1
 
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(5) as pool:
         futures = [pool.submit(timed, f) for f in (banded_cuda.build, probes_cuda.build,
                                                    lambda: banded_cuda.build(clocked=True),
                                                    nvdec.build)]
+        software = pool.submit(timed, h264.build)  # g++: the software H.264 decoder
         built = [f.result() for f in futures]
+        path, secs = software.result()
+    print(f"[build] {os.path.relpath(path, ROOT)} (g++) built in {secs:.2f} s", flush=True)
     for path, secs in built:
         log = _nvcc.log_path(path).read_text()
         spills = re.findall(r"(\d+) bytes spill stores", log)
@@ -3310,11 +3325,68 @@ NVDEC_SUBSET = 6
 NVDEC_PITCH_ALIGN = 512
 #: launches a timing of the kernel
 NVDEC_REPS = 200
-
-
-def _nv12_surface(stream, k, device):
-    """Frame k's reconstruction as a pitched NV12 surface on the device."""
-    return torch.from_numpy(stream.nv12(k, NVDEC_PITCH_ALIGN)).to(device)
+#: the h264 phase: streams of the random-syntax writer (utils.h26x.RandomH264)
+#: at the rig's widths, CAVLC and CABAC with B frames: (label, size, frames,
+#: the writer's options)
+H264_STREAMS = (
+    ("cavlc 2704x1520", (2704, 1520), 8, dict(
+        seed=41, b_frames=2, refs=3, transform8x8=True, weighted="explicit", direct="both",
+        slices=3, deblock=(0, 1, 2), deblock_offsets=True, qp=(22, 36))),
+    ("cabac 2704x1520", (2704, 1520), 8, dict(
+        seed=42, cabac=True, b_frames=2, refs=4, transform8x8=True, scaling=True,
+        weighted="implicit", direct="temporal", slices=2, deblock=(0, 2), mmco=True,
+        long_term=True, qp=(20, 34))),
+    ("cavlc 1920x1080", (1920, 1080), 8, dict(
+        seed=43, b_frames=1, poc_type=1, matrix=6, full_range=False, qp=(24, 38))),
+    ("cabac 1920x1080", (1920, 1080), 8, dict(
+        seed=44, cabac=True, b_frames=2, b_refs=True, mmco5=True, constrained_intra=True,
+        transform8x8=True, matrix=1, full_range=False, qp=(18, 32))),
+)
+#: each stream's MP4 SHA-256 and its frames' SHA-256 (BGR, H x W x 3) as
+#: cv2 reads them on the CPU (tests/test_torch_h264_decode.py holds cv2 to
+#: these digests)
+H264_DIGESTS = {
+    "cavlc 2704x1520": ("5c3d461ce3b3e617c2d9146e180fbd5d09a8a6bc9371d598a0ba9baee24295b8", (
+        "521670c437bbfdc0c680110334b81e2008c97b3b5f7aaea545ac8d36c31416ab",
+        "b21facc6a08efe8899e8e0cc97ee8252b54ccf123256ae53bebdd70810bbacd4",
+        "aceea46f4b18d1ce569f1343df37d5f1c44047ecf684e331d8d0a4417c829857",
+        "acd5c8364762089d45d5244f78dc602aaaa68db2d3cc4f6ef39adb3f847cc9bc",
+        "d6ffc5900a811f830cdec0f2a03caf369f048a19535ce038dc2f744c78d4276d",
+        "484194ef42a0e3580a427686ad1d5327b5f67829b5af202e12672b62ad1d7575",
+        "c5031c5933da6883c01c53706a71507199b2d231ce450b9aa1fef70507e8a434",
+        "5e848f0ac9b0e2bb899de172587293983a436f4b578d165ad1edec644ca0b0b8",
+    )),
+    "cabac 2704x1520": ("3330f7db1475ee9bd04c818223537ea4399a0c4c9a8d1300f445622369f67b1f", (
+        "36204005de66d72142e1f446a9cacc0e551168c73236f28144f1bc61c289b40e",
+        "562930f0986f7ca2a389801dfdfd57175450422869bc10dfb3f437f890ac4b30",
+        "7da415fb3e49eb844436922dcca5c5c62ece21d2d2f3eb060ac3830d06c5e5db",
+        "0ebc02fa9a33a441793710420765d682eb564e6677e6dd8ce6ad76be2e6c99e4",
+        "78316dca37da094b3d2039202168ac0a1dc465331ff5f08a062f166433fbcf29",
+        "fdf901dd37fe04798aff6f877254dd74f99fee22f4d4939fc15928257ed4625a",
+        "aeb705519acf49da96767258cbc855603da9bba8a607b5c20df20d863bdcc812",
+        "8c281b24201bf71aabe5888157b8e523cd006b9f8cf444e583e67a3d1912c758",
+    )),
+    "cavlc 1920x1080": ("bbe0baa24deef272a1a1f68f34b7f177edb362191c7eb5ee7cb7911f87c86ab3", (
+        "180388048f7ab265b9a56517394541c9ac23a1f3b1d98ee6f65f831df0e19502",
+        "1fcc7a26b3094e01e2f839e322c14bb294353ac74b98092a4b26c192357519b4",
+        "68a45c5b3997a45c131b43a16acea5dd77187be85f59eb1544924047977263b8",
+        "98c25c98ba35b4592bf2f19ca75a36f7742888b008efc6a5bb8372459fefb35e",
+        "81f100e9a1ab049400c7194ac64cc823d15b3e6669a47cf514c066e86d762491",
+        "cab473c3d8ff63c3994dea252de621dbc97e89d29fde467a5e57cadf6131aff3",
+        "c486364311faeb486ef33e1b5d36d118a49ab91a787f66309aa44bd8b4c52c56",
+        "4fa1f2b3465b505f7eec206b5aa3d07c27de2559bc3b6eb705ab5748c9cc3724",
+    )),
+    "cabac 1920x1080": ("e9b7fcfabd11dc3ece457d7bb0e9fe4f901b179441d0d56b1863c7f29beaa756", (
+        "4a0f3a128c5b218142f0bb55bc923a1413713333bcfcee0ab77d40a26aacc906",
+        "bef6a45c2eb6aeefe66f714dc983672d41742d0fbc91b23ac43a73c67129a278",
+        "5653d7b54a7ec97bc88a599e980c4a261db9dbd5ff43636629ddf19cefdd17b5",
+        "43b6d3840b5c485cc8775a895f10949abbd50428521146ad838915ff3c1fe51e",
+        "bcd001ced5098c9440564c8551c3354f74eef3cf674878ab3d1197d5a9f8715d",
+        "9053adb6c326762e2653e788fbc2938c50a24a85c038eb6e9e2fc329366b1f30",
+        "93204dfef7d3d9a7520a3d27a5e216260a6d0de2877b8095b1faee0f8b4ec4fa",
+        "f79478ec6bd65708cfeac16102d4d3276757b972146b2f873e1e2c2438a8ca04",
+    )),
+}
 
 
 def _nvdec_streams():
@@ -3344,7 +3416,10 @@ def phase_nvdec(device):
     colour kernel (nv12_to_bgr) against its plain version on each
     reconstructed frame as a pitched NV12 surface (every frame of the
     rig's H.264, NVDEC_SUBSET of the others), and its device time against
-    its bound. Then the decode gates: every frame decoded equal to the
+    its bound. The H.264 streams are decoded by the port's software decoder
+    (_h264_decode: every frame equal to the reconstruction with one launch
+    a frame; for the rig's stream seeks and the decode rate). Then NVDEC's
+    decode gates: every frame decoded equal to the
     writer's reconstruction in cv2's colours with one launch a frame,
     get_frames at VIDEO_SEEKS equal to the sequential decode, frames/s
     with the host's share, and create_labeled_video's bytes equal to
@@ -3405,7 +3480,7 @@ def phase_nvdec(device):
                                                                              stream.n))
             same = 0
             for k in frames:
-                surf = _nv12_surface(stream, k, device)
+                surf = stream.surface(k, device, NVDEC_PITCH_ALIGN)
                 got = nvdec.nv12_to_bgr(surf, stream.coded[1], (W, H), coefs)
                 plain = nvdec.nv12_to_bgr_plain(surf, stream.coded[1], (W, H), coefs)
                 worst = max(worst, int((got.int() - plain.int()).abs().max()))
@@ -3420,6 +3495,10 @@ def phase_nvdec(device):
                     f"{fmt['bottom']}, matrix {fmt['matrix']}, full range {fmt['full_range']}, "
                     f"as written {fmt_ok}; kernel equal to its plain version on {same}/"
                     f"{len(frames)} frames")
+            if entry in ("avc1", "avc3"):
+                more, n = _h264_decode(device, stream, path, coefs, failed, label)
+                text += "; " + more
+                path_launches += n
             if usable:
                 more, n = _nvdec_decode(device, stream, path, coefs, failed, label)
                 text += "; " + more
@@ -3427,7 +3506,7 @@ def phase_nvdec(device):
             elif skip:
                 why = []
                 for call in (lambda: nvdec.Reader(path, device),
-                             lambda: video.get_frames(path, [0], device=device)):
+                             lambda: video.get_frames(path, [0], device=device, decoder="nvdec")):
                     try:
                         call()
                         why.append(None)
@@ -3439,7 +3518,7 @@ def phase_nvdec(device):
                 text += f"; reading it on the card raises UnsupportedVideo: {why[0]}"
             _phase("nvdec", t0, text)
             if stream.n == NVDEC_N:
-                surf = _nv12_surface(stream, 0, device)
+                surf = stream.surface(0, device, NVDEC_PITCH_ALIGN)
                 kernel_ms = kernel_device_ms(
                     lambda: nvdec.nv12_to_bgr(surf, stream.coded[1], (W, H), coefs),
                     "nv12_to_bgr_kernel", reps=NVDEC_REPS)
@@ -3465,6 +3544,136 @@ def phase_nvdec(device):
         raise AssertionError("nvdec: " + "; ".join(failed))
 
 
+def h264_streams():
+    """(label, RandomH264) of H264_STREAMS, written on the host."""
+    from acinoset_tpu_torch.utils import h26x
+
+    for label, size, n, opts in H264_STREAMS:
+        yield label, h26x.RandomH264(size, n, **opts)
+
+
+def phase_h264(device):
+    """The port's software H.264 decoder (utils/h264.py,
+    utils/csrc/h264.cpp) on the random-syntax writer's streams at the rig's
+    widths (H264_STREAMS): each written on the host, its MP4's SHA-256
+    equal to H264_DIGESTS' (the stream cv2 read on the CPU), decoded on the
+    card through open_video with one nv12_to_bgr launch a frame, and each
+    frame's SHA-256 equal to cv2's (H264_DIGESTS). Where NVDEC decodes on
+    this card (nvdec.refusal is None), its frames equal the software
+    decoder's; where it is refused, only the environment's visible
+    withholding of the video engine (nvdec.withheld) skips that gate. Prints
+    the decode rate at 2704 x 1520 and the host's share."""
+    import hashlib
+    import tempfile
+
+    from acinoset_tpu_torch.pipeline import video
+    from acinoset_tpu_torch.utils import h26x, h264, nvdec
+
+    t0 = time.perf_counter()
+    failed = []
+    rig = [0, 0.0, 0.0]  # frames, seconds, host seconds at 2704 x 1520
+    with tempfile.TemporaryDirectory() as root:
+        for label, stream in h264_streams():
+            W, H = stream.size
+            path = os.path.join(root, label.replace(" ", "_") + ".mp4")
+            t1 = time.perf_counter()
+            h26x.write_mp4(path, stream, NVDEC_FPS)
+            s_write = time.perf_counter() - t1
+            with open(path, "rb") as f:
+                file_sha = hashlib.sha256(f.read()).hexdigest()
+            for k in h264.COUNTERS:
+                h264.COUNTERS[k] = 0.0
+            nvdec.nv12_to_bgr.launches = 0
+            _sync(device)
+            t1 = time.perf_counter()
+            with video.open_video(path, device) as reader:
+                frames = [reader.read_tensor(k) for k in range(reader.n_frames)]
+            _sync(device)
+            s_dec = time.perf_counter() - t1
+            launches = nvdec.nv12_to_bgr.launches
+            host = h264.COUNTERS["host_s"]
+            shas = [hashlib.sha256(f.cpu().numpy().tobytes()).hexdigest() for f in frames]
+            want_file, want_frames = H264_DIGESTS.get(label, (None, []))
+            same = sum(a == b for a, b in zip(shas, want_frames))
+            ok = file_sha == want_file and same == stream.n == len(shas) and launches == stream.n
+            if not ok:
+                failed.append(f"{label}: MP4 SHA-256 {file_sha} (want {want_file}); {same}/"
+                              f"{stream.n} frames with cv2's SHA-256; {launches} launches")
+            if (W, H) == NVDEC_RES:
+                rig[0] += stream.n
+                rig[1] += s_dec
+                rig[2] += host
+            why = nvdec.refusal(device, "avc1", stream.size)
+            if why is None:
+                with video.open_video(path, device, "nvdec") as reader:
+                    hw = [reader.read_tensor(k) for k in range(reader.n_frames)]
+                hw_same = sum(torch.equal(a, b) for a, b in zip(hw, frames))
+                nv_text = f"NVDEC's frames equal the software decoder's on {hw_same}/{stream.n}"
+                if hw_same != stream.n:
+                    failed.append(f"{label}: {nv_text}")
+            elif nvdec.withheld():
+                nv_text = f"NVDEC not compared (the environment withholds it: {why})"
+            else:
+                nv_text = f"NVDEC refused where the environment does not withhold it: {why}"
+                failed.append(f"{label}: {nv_text}")
+            _phase("h264", t0, f"{label}, {stream.n} frames ({''.join(stream.types)}), "
+                   f"{os.path.getsize(path) / 1e6:.3f} MB written in {s_write:.3f} s; decoded on "
+                   f"the card in {s_dec:.3f} s, {stream.n / s_dec:.2f} frames/s (host decoder "
+                   f"{host:.3f} s, {100 * host / s_dec:.1f}%); MP4 and frames equal cv2's "
+                   f"digests {ok} ({same}/{stream.n}); kernel launches {launches}; {nv_text}")
+    _phase("h264", t0, f"software decode at {NVDEC_RES[0]} x {NVDEC_RES[1]} of the random-syntax "
+           f"streams: {rig[0] / rig[1]:.2f} frames/s, the host decoder's share "
+           f"{100 * rig[2] / rig[1]:.1f}%")
+    if failed:
+        raise AssertionError("h264: " + "; ".join(failed))
+
+
+def _h264_decode(device, stream, path, coefs, failed, label):
+    """The software decoder's gates on an H.264 stream of known
+    reconstruction (utils/h264.py through open_video's default for
+    ``avc1``): every frame equal to the reconstruction in cv2's colours
+    with one nv12_to_bgr launch a frame; for the rig's stream, get_frames
+    at VIDEO_SEEKS equal to the sequential decode, and the decode rate with
+    the host's share. Returns (its text, the launches)."""
+    from acinoset_tpu_torch.pipeline import video
+    from acinoset_tpu_torch.utils import h264, nvdec
+
+    W, H = stream.size
+    for k in h264.COUNTERS:
+        h264.COUNTERS[k] = 0.0
+    nvdec.nv12_to_bgr.launches = 0  # the decode path's launches: each frame's conversion
+    _sync(device)
+    t1 = time.perf_counter()
+    with video.open_video(path, device) as reader:
+        kind = type(reader).__module__
+        decoded = [reader.read_tensor(k) for k in range(reader.n_frames)]
+    _sync(device)
+    s_dec = time.perf_counter() - t1
+    launches = nvdec.nv12_to_bgr.launches
+    same = sum(f is not None and torch.equal(f, nvdec.nv12_to_bgr_plain(
+        stream.surface(k, device, NVDEC_PITCH_ALIGN), stream.coded[1], (W, H), coefs))
+        for k, f in enumerate(decoded))
+    if kind != h264.__name__ or same != stream.n or launches != stream.n:
+        failed.append(f"{label}: open_video read it with {kind}; {stream.n - same} frames differ "
+                      f"from the reconstruction; {launches} launches for {stream.n} frames")
+    host = h264.COUNTERS["host_s"]
+    text = (f"software decode ({kind}) {s_dec:.3f} s, {stream.n / s_dec:.2f} frames/s (host "
+            f"decoder {host:.3f} s, {100 * host / s_dec:.1f}%; copy and kernel "
+            f"{h264.COUNTERS['device_s']:.3f} s); equal to the reconstruction {same}/{stream.n}; "
+            f"kernel launches {launches}")
+    if stream.n == NVDEC_N:
+        seeks = [i for i in VIDEO_SEEKS if i < stream.n] + [stream.n]
+        t1 = time.perf_counter()
+        got = video.get_frames(path, seeks, device=device)
+        s_seek = time.perf_counter() - t1
+        seek_ok = ([i for i, _f in got] == seeks[:-1]
+                   and all(np.array_equal(f, decoded[i].cpu().numpy()) for i, f in got))
+        if not seek_ok:
+            failed.append(f"{label}: get_frames at {seeks} differs from the sequential decode")
+        text += f"; get_frames at {seeks} equal to the sequential decode {seek_ok} ({s_seek:.3f} s)"
+    return text, launches
+
+
 def _nvdec_decode(device, stream, path, coefs, failed, label):
     """The decode gates of phase_nvdec where the card's NVDEC decodes:
     every frame against the reconstruction, launches a frame, seeks, and
@@ -3487,7 +3696,7 @@ def _nvdec_decode(device, stream, path, coefs, failed, label):
     _sync(device)
     s_dec = time.perf_counter() - t1
     launches = nvdec.nv12_to_bgr.launches
-    recon = [nvdec.nv12_to_bgr_plain(_nv12_surface(stream, k, device), stream.coded[1], (W, H),
+    recon = [nvdec.nv12_to_bgr_plain(stream.surface(k, device, NVDEC_PITCH_ALIGN), stream.coded[1], (W, H),
                                      coefs) for k in range(stream.n)]
     same = sum(f is not None and torch.equal(f, r) for f, r in zip(decoded, recon))
     if same != stream.n or launches != stream.n:
@@ -3726,44 +3935,65 @@ def files_sweep_run(root, i):
 
 
 def files_h264_camera(root, px, lik, markers, device, failed):
-    """A seventh camera, GoPro's H.264 (utils.h26x, the run's size, rate
-    and length), through ``cli dlc`` in a run directory of its own (the
-    stages after dlc take every dlc/*.h5 as a camera of the scene): its
-    labelled video read back at the source's frame count, size and fps,
-    and no Not written: line. Only where cuvidGetDecoderCaps fails and the
-    environment visibly withholds the video engine (nvdec.withheld) is
-    the one Not written: line with nvdec.refusal's reason taken instead.
+    """A seventh camera, GoPro's H.264 (utils.h26x.H264Stream at the run's
+    size, rate and length), through ``cli dlc`` in a run directory of its
+    own (the stages after dlc take every dlc/*.h5 as a camera of the
+    scene): labelled through the port's software decoder on every card,
+    with no Not written: line, the labelled video read back at the source's
+    frame count, size and fps, and its bytes equal to mpeg4.Writer fed
+    draw_labels of the stream's reconstruction (the frames it decodes to).
     Returns its text."""
     from acinoset_tpu_torch.pipeline import data as data_io
-    from acinoset_tpu_torch.utils import h26x, mpeg4, nvdec
+    from acinoset_tpu_torch.pipeline import video
+    from acinoset_tpu_torch.utils import h26x, mp4, mpeg4, nvdec
 
     seventh = os.path.join(root, "h264")
     os.makedirs(seventh)
     t1 = time.perf_counter()
-    src = h26x.write_mp4(os.path.join(seventh, "cam1.mp4"), h26x.H264Stream(
-        FILES_RES, FILES_N, gop=NVDEC_GOP, seed=FILES_CAMS + 1), FILES_FPS[0])
+    stream = h26x.H264Stream(FILES_RES, FILES_N, gop=NVDEC_GOP, seed=FILES_CAMS + 1)
+    src = h26x.write_mp4(os.path.join(seventh, "cam1.mp4"), stream, FILES_FPS[0])
     s_write = time.perf_counter() - t1
-    data_io.save_dlc_points_h5(os.path.join(seventh, "dlc", "cam7DLC_cam1.h5"), px, lik, markers)
+    labels = os.path.join(seventh, "dlc", "cam7DLC_cam1.h5")
+    data_io.save_dlc_points_h5(labels, px, lik, markers)
     clock, s_dlc = _cli(["dlc", "--data_dir", seventh, "--device", device.type])
     out = os.path.join(seventh, "dlc", "cam1_labeled.mp4")
     got = None
     if os.path.exists(out):
         with mpeg4.Reader(out, device) as r:
             got = (r.n_frames, r.size, r.fps, r.read(r.n_frames - 1) is not None)
-    why = nvdec.refusal(device, "avc1", FILES_RES)
-    skip = why is not None and nvdec.withheld() is not None
     not_written = [ln for ln in clock.text.splitlines() if ln.startswith("Not written")]
-    want = None if skip else (FILES_N, FILES_RES, FILES_FPS[0], True)
-    want_lines = [f"Not written: {out} ({why})"] if skip else []
-    ok = got == want and not_written == want_lines
+    want = (FILES_N, FILES_RES, FILES_FPS[0], True)
+    # what the labelled video must hold: the cli's own drawing (pcutoff the
+    # dlc stage's default 0.8) on the frames the stream decodes to
+    t1 = time.perf_counter()
+    frames_idx, names, vals = video._load_2d_labels(labels)
+    names = list(names)
+    links = [(names.index(a), names.index(b)) for a, b in video.CHEETAH_LINKS
+             if a in names and b in names]
+    colours = np.array(video.marker_colours(len(names)), np.uint8).reshape(-1, 3)
+    rows = {int(f): i for i, f in enumerate(frames_idx)}
+    coefs = nvdec.colour_coefs(stream.matrix, stream.full_range)
+    ref = os.path.join(seventh, "ref.mp4")
+    with mpeg4.Writer(ref, FILES_RES, mp4.read_video_track(src).fps, device) as w:
+        for k in range(FILES_N):
+            frame = nvdec.nv12_to_bgr_plain(stream.surface(k, device), stream.coded[1],
+                                            stream.size, coefs)
+            if k in rows:
+                seg, dots, which = video._frame_labels(vals[rows[k]], links, 0.8, True)
+                video.draw_labels(frame, seg, dots, colours[which])
+            w.write(frame)
+    s_ref = time.perf_counter() - t1
+    bytes_ok = got is not None and open(out, "rb").read() == open(ref, "rb").read()
+    ok = got == want and not not_written and bytes_ok
     if not ok:
         failed.append(f"cli dlc on the H.264 camera wrote a labelled video that reads back as "
-                      f"{got} and printed {not_written}, not {want} and {want_lines}")
+                      f"{got} (want {want}), printed {not_written}, bytes equal to mpeg4.Writer "
+                      f"fed the labels drawn on the reconstruction {bytes_ok}")
     return (f"a seventh camera, H.264 ({os.path.getsize(src) / 1e6:.3f} MB, written in "
-            f"{s_write:.3f} s), through cli dlc in {s_dlc:.3f} s: "
-            + (f"labelled, read back as {got}" if not skip else
-               f"named in the one Not written: line (the environment withholds NVDEC: {why})")
-            + f" {ok}")
+            f"{s_write:.3f} s), through cli dlc in {s_dlc:.3f} s (software decoder): labelled, "
+            f"read back as {got}, no Not written: line {not not_written}, bytes equal to "
+            f"mpeg4.Writer fed draw_labels of the reconstruction {bytes_ok} (reference written "
+            f"in {s_ref:.3f} s) {ok}")
 
 
 def phase_files(device, video_s):
@@ -4027,6 +4257,7 @@ def main():
     phase_images(device)
     video_s = phase_video(device)
     phase_nvdec(device)
+    phase_h264(device)
     phase_files(device, video_s)
     phase_uncertainty(device)
     phase_solvers(device)

@@ -16,6 +16,7 @@ import ast
 import os
 import shutil
 
+import cv2
 import numpy as np
 import pytest
 import torch
@@ -38,7 +39,8 @@ from acinoset_tpu_torch.pipeline import generic as tgen
 from acinoset_tpu_torch.pipeline import sba as tsba
 from acinoset_tpu_torch.pipeline import sweep as tsweep
 from acinoset_tpu_torch.pipeline import tri as ttri
-from acinoset_tpu_torch.utils import png
+from acinoset_tpu_torch.pipeline import video as tvideo
+from acinoset_tpu_torch.utils import h26x, png
 from acinoset_tpu_torch.utils import synthetic as tsyn
 
 torch.set_num_threads(2)
@@ -161,14 +163,14 @@ def test_dlc_stage_with_videos_raises_before_any_work(tmp_path, capsys):
     run's labels (named to end in cam{c}.h5, which create_labeled_videos
     looks for), cam1 is a box-only video that declares the run's size,
     fps and 12 frames (and there is no video_info.json), cam2 an mp4v
-    file whose second sample is a B-VOP, cam3 real mp4v footage, cam4 a
-    box-only H.264 (avc1) file. ``dlc`` writes a labelled video for each
-    mp4v file it decodes (no frame for a box-only one, as the JAX
-    package's cv2 writes), names the B-VOP and H.264 ones in
-    ``Not written:`` lines (H.264 is decoded on the card's NVDEC only)
-    and leaves no file at those paths; ``all``
-    goes on and writes every stage's pickle, its frame count read from
-    the videos."""
+    file whose second sample is a B-VOP, cam3 real mp4v footage, cam4
+    real H.264 (avc1, utils.h26x's random-syntax writer, CABAC with B
+    frames). ``dlc`` writes a labelled video for each file it decodes (no
+    frame for a box-only one, as the JAX package's cv2 writes; cam4's
+    bytes equal mpeg4.Writer fed the port's draw_labels of cv2's frames),
+    names the B-VOP one in a ``Not written:`` line and leaves no file at
+    that path; ``all`` goes on and writes every stage's pickle, its frame
+    count read from the videos."""
     from acinoset_tpu_torch.utils import mp4, mpeg4
 
     run, _pts = cases.make_run(tmp_path, "port", N=12)
@@ -176,12 +178,9 @@ def test_dlc_stage_with_videos_raises_before_any_work(tmp_path, capsys):
     for c in range(cases.N_CAMS):
         os.rename(os.path.join(run, "dlc", f"cam{c + 1}DLC.h5"),
                   os.path.join(run, "dlc", f"cam{c + 1}DLC_cam{c + 1}.h5"))
-    vids = [tsyn.write_box_mp4(os.path.join(run, f"cam{c + 1}.mp4"), (2704, 1520), 90.0, 12)
-            for c in (0, 3)]
-    with open(vids[1], "rb") as f:
-        avc1 = f.read().replace(b"mp4v", b"avc1")
-    with open(vids[1], "wb") as f:
-        f.write(avc1)
+    tsyn.write_box_mp4(os.path.join(run, "cam1.mp4"), (2704, 1520), 90.0, 12)
+    cam4 = h26x.write_mp4(os.path.join(run, "cam4.mp4"),
+                          h26x.RandomH264((176, 144), 12, seed=4, cabac=True), 90.0)
     config = mpeg4.write_config((64, 48), 90)
     levels = np.zeros((72, 64), np.int16)
     levels[:, 0] = 100
@@ -193,20 +192,38 @@ def test_dlc_stage_with_videos_raises_before_any_work(tmp_path, capsys):
     tsyn.write_scene_mp4(os.path.join(run, "cam3.mp4"), (64, 48), 90.0, 12, seed=3)
     labelled = [os.path.join(run, "dlc", f"cam{c + 1}_labeled.mp4") for c in range(4)]
     lines = [f"Not written: {labelled[1]} (B-VOPs: the port decodes MPEG-4 Simple Profile I-, "
-             "P- and N-VOPs only)",
-             f"Not written: {labelled[3]} (H.264: the port decodes it on the card's NVDEC only, "
-             "not on cpu (it has no software H.264 decoder))"]
+             "P- and N-VOPs only)"]
+    ref = str(tmp_path / "cam4_ref.mp4")
+    cap = cv2.VideoCapture(cam4)
+    frames_idx, markers, vals = tvideo._load_2d_labels(
+        os.path.join(run, "dlc", "cam4DLC_cam4.h5"))
+    markers = list(markers)
+    links = [(markers.index(a), markers.index(b)) for a, b in tvideo.CHEETAH_LINKS
+             if a in markers and b in markers]
+    colours = np.array(tvideo.marker_colours(len(markers)), np.uint8).reshape(-1, 3)
+    rows = {int(f): i for i, f in enumerate(frames_idx)}
+    with mpeg4.Writer(ref, (176, 144), 90.0, "cpu") as w:
+        for n in range(12):
+            ok, f = cap.read()
+            assert ok
+            frame = torch.from_numpy(f)
+            if n in rows:
+                seg, dots, which = tvideo._frame_labels(vals[rows[n]], links, 0.5, True)
+                tvideo.draw_labels(frame, seg, dots, colours[which])
+            w.write(frame)
     for cmd in ("dlc", "all"):
         assert tcli.main([cmd, "--data_dir", run, "--dlc_thresh", "0.5", "--device", "cpu"]) == 0
         out = capsys.readouterr().out
         assert [ln for ln in out.splitlines() if ln.startswith("Not written")] == lines
         frames = []
-        for c in (0, 2):
+        for c in (0, 2, 3):
             assert f"Saved {labelled[c]}" in out
             with mpeg4.Reader(labelled[c], device="cpu") as r:
                 frames.append((r.n_frames, r.read(r.n_frames - 1) is not None))
-        assert frames == [(0, False), (12, True)]
-        assert not os.path.exists(labelled[1]) and not os.path.exists(labelled[3])
+        assert frames == [(0, False), (12, True), (12, True)]
+        assert not os.path.exists(labelled[1])
+        with open(labelled[3], "rb") as a, open(ref, "rb") as b:
+            assert a.read() == b.read()
     for s in STAGES:
         assert _load(run, s)["positions"].shape == (12, 20, 3)
     for rel in ("fte/fte.svg", "ekf/ekf.pdf", "reconstructions.png"):

@@ -12,7 +12,8 @@ conversion and its refusals) against cv2 (ffmpeg) and the JAX package:
   the reconstruction and the port's get_vid_info;
 - the plain NV12 -> BGR conversion equals cv2 over every (U, V) pair and
   every Y in all four cases;
-- device='cpu' raises UnsupportedVideo naming NVDEC, before any output.
+- device='cpu' with decoder='nvdec' raises UnsupportedVideo naming NVDEC,
+  before any output.
 
 The card's half is tests/test_torch_nvdec_cuda.py. Every stream is made
 in the test from a seed.
@@ -167,21 +168,23 @@ def test_plain_conversion_reads_a_pitched_surface_at_its_origin():
 
 
 def test_cpu_device_raises_naming_nvdec(tmp_path):
-    """Every reading function refuses an H.264 file on the CPU before it
-    writes anything; the dlc stage's Not written: line carries the same
-    reason (tests/test_torch_cli_files.py)."""
+    """Asked for NVDEC, every reading function refuses an H.264 file on
+    the CPU before it writes anything (nothing falls back to the software
+    decoder)."""
     stream = h26x.H264Stream((64, 48), 4, seed=1)
     path = h26x.write_mp4(str(tmp_path / "cam1.mp4"), stream, 30.0)
     tdata.save_dlc_points_h5(str(tmp_path / "labels_cam1.h5"), np.zeros((4, 20, 2)),
                              np.ones((4, 20)), tsyn.cheetah.get_markers())
-    reason = ("H.264: the port decodes it on the card's NVDEC only, not on cpu (it has no "
-              "software H.264 decoder)")
+    reason = ("H.264: NVDEC decodes it on the card only, not on cpu (decoder='software' reads "
+              "it on the host)")
     for call in (lambda: nvdec.Reader(path, device="cpu"),
-                 lambda: tvideo.open_video(path, device="cpu"),
-                 lambda: tvideo.get_frames(path, [0], out_dir=str(tmp_path / "f"), device="cpu"),
+                 lambda: tvideo.open_video(path, device="cpu", decoder="nvdec"),
+                 lambda: tvideo.get_frames(path, [0], out_dir=str(tmp_path / "f"), device="cpu",
+                                           decoder="nvdec"),
                  lambda: tvideo.extract_frame_range(path, 0, 2, str(tmp_path / "g"),
-                                                    device="cpu"),
-                 lambda: tvideo.create_labeled_videos([path], str(tmp_path), device="cpu")):
+                                                    device="cpu", decoder="nvdec"),
+                 lambda: tvideo.create_labeled_videos([path], str(tmp_path), device="cpu",
+                                                      decoder="nvdec")):
         with pytest.raises(mpeg4.UnsupportedVideo) as err:
             call()
         assert err.value.reason == reason and "NVDEC" in str(err.value)

@@ -567,9 +567,10 @@ def test_a_vol_that_changes_the_frame_size_raises(tmp_path, in_band):
                                         (b"av01", "AV1")])
 def test_other_codecs_raise_naming_the_codec(tmp_path, entry, name):
     """A GoPro-like sample entry (write_box_mp4's boxes with another
-    type): every reading function refuses it before it writes; H.264 and
-    HEVC because they are decoded on the card's NVDEC only, and so not on
-    the CPU, AV1 because the port does not decode it."""
+    type): every reading function refuses it before it writes; HEVC, and
+    H.264 where NVDEC is asked for (the software decoder reads H.264 by
+    default), because NVDEC decodes on the card only, and so not on the
+    CPU; AV1 because the port does not decode it."""
     path = str(tmp_path / "cam1.mp4")
     tsyn.write_box_mp4(path, (64, 48), 119.88, 4)
     data = open(path, "rb").read()
@@ -578,12 +579,15 @@ def test_other_codecs_raise_naming_the_codec(tmp_path, entry, name):
     tdata.save_dlc_points_h5(str(tmp_path / "labels_cam1.h5"), np.zeros((4, 20, 2)),
                              np.ones((4, 20)), markers)
     reason = (f"{name}: the port decodes it on the card's NVDEC only, not on cpu (it has no "
-              f"software {name} decoder)" if entry != b"av01"
+              f"software {name} decoder)" if entry == b"hvc1"
+              else f"{name}: NVDEC decodes it on the card only, not on cpu (decoder='software' "
+              "reads it on the host)" if entry == b"avc1"
               else f"{name}: the port decodes mp4v, H.264 and HEVC only")
-    for call in (lambda: tvideo.open_video(path, device="cpu"),
-                 lambda: tvideo.create_labeled_videos([path], str(tmp_path), device="cpu"),
+    kw = dict(decoder="nvdec") if entry == b"avc1" else {}
+    for call in (lambda: tvideo.open_video(path, device="cpu", **kw),
+                 lambda: tvideo.create_labeled_videos([path], str(tmp_path), device="cpu", **kw),
                  lambda: tvideo.get_frames(path, [0], out_dir=str(tmp_path / "frames"),
-                                           device="cpu")):
+                                           device="cpu", **kw)):
         with pytest.raises(mpeg4.UnsupportedVideo) as err:
             call()
         assert err.value.reason == reason and path in str(err.value)

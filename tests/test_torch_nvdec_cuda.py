@@ -24,10 +24,6 @@ def cuda():
     return torch.device("cuda")
 
 
-def _surface(stream, k, device):
-    return torch.from_numpy(stream.nv12(k, pitch_align=512)).to(device)
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("family,full", sorted(mpeg4.BGR_COEFS))
 @pytest.mark.parametrize("size", [(2704, 1520), (1920, 1080), (174, 136)])
@@ -74,7 +70,7 @@ def test_decode_equals_reconstruction(cuda, tmp_path, make):
     if why and nvdec.withheld():
         pytest.skip(why)
     coefs = nvdec.colour_coefs(stream.matrix, stream.full_range)
-    want = [nvdec.nv12_to_bgr_plain(_surface(stream, k, cuda), stream.coded[1], stream.size,
+    want = [nvdec.nv12_to_bgr_plain(stream.surface(k, cuda, 512), stream.coded[1], stream.size,
                                     coefs) for k in range(stream.n)]
     nvdec.nv12_to_bgr.launches = 0
     with nvdec.Reader(path, cuda) as r:

@@ -7,15 +7,17 @@ images (src/make_anim.py).
 The JAX package does this through cv2; the port reads through
 ``open_video``, which picks the reader by a fixed table of the track's
 codec (``DECODERS``): its own codec ``utils.mpeg4`` for MPEG-4 Part 2
-Simple Profile in MP4 (``mp4v``, the codec the JAX package writes), its
-software decoder ``utils.h264`` for GoPro's H.264 (``avc1``/``avc3``)
-and the card's NVDEC (``utils.nvdec``) for HEVC (``hvc1``/``hev1``),
-frame for frame as cv2 gives them (presentation order after the edit
-list). It writes mp4v, as the JAX package does. Each function runs on
-the device it is given (``cuda`` unless ``device`` names another); what
-cannot be read there (HEVC on the CPU, a feature a decoder does not take,
-another codec) raises ``utils.mpeg4.UnsupportedVideo``, naming it, and
-nothing falls back to another decoder.
+Simple Profile in MP4 (``mp4v``, the codec the JAX package writes), and
+its software decoders ``utils.h264`` for GoPro's H.264 (``avc1``/``avc3``)
+and ``utils.hevc`` for GoPro's HEVC (``hvc1``/``hev1``), frame for frame
+as cv2 gives them (presentation order after the edit list); the card's
+NVDEC (``utils.nvdec``) reads H.264 and HEVC where ``decoder='nvdec'``
+asks for it. It writes mp4v, as the JAX package does. Each function runs
+on the device it is given (``cuda`` unless ``device`` names another); what
+cannot be read there (NVDEC on the CPU or where the card's machine
+withholds it, a feature a decoder does not take, another codec) raises
+``utils.mpeg4.UnsupportedVideo``, naming it, and nothing falls back to
+another decoder.
 
 The labels are drawn on the device, pixel for pixel as cv2 draws them:
 skeleton lines as ``cv2.line(..., thickness=1)`` (8-connected, clipped to
@@ -34,7 +36,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..utils import h264, mp4, mpeg4, nvdec
+from ..utils import h264, hevc, mp4, mpeg4, nvdec
 from ..utils.device import resolve_device
 from ..utils.png import read_png, write_png
 from . import data as data_io
@@ -57,17 +59,18 @@ def _write(writer, frame):
 
 #: the reader of each sample entry when none is asked for; the rest go to
 #: mpeg4.Reader (which refuses all but mp4v)
-DECODERS = {"avc1": "software", "avc3": "software", "hvc1": "nvdec", "hev1": "nvdec"}
+DECODERS = {"avc1": "software", "avc3": "software", "hvc1": "software", "hev1": "software"}
 
 
 def open_video(video_fpath: str, device=None, decoder: Optional[str] = None):
     """A reader of the video's frames (``n_frames``, ``size``, ``fps``,
     ``read``, ``read_tensor``, ``close``; a context manager), picked by a
-    fixed table from its track's codec (``DECODERS``): ``h264.Reader``
-    (the port's software decoder) for H.264, ``nvdec.Reader`` (the card's
-    NVDEC) for HEVC, ``mpeg4.Reader`` for the rest. ``decoder='nvdec'`` or
-    ``'software'`` asks for one of the two for H.264 or HEVC. Nothing falls
-    back: a refusal raises ``UnsupportedVideo`` naming its reason."""
+    fixed table from its track's codec (``DECODERS``): ``h264.Reader`` and
+    ``hevc.Reader`` (the port's software decoders) for H.264 and HEVC,
+    ``mpeg4.Reader`` for the rest. ``decoder='nvdec'`` (the card's NVDEC,
+    ``nvdec.Reader``) or ``'software'`` asks for one of the two for H.264
+    or HEVC. Nothing falls back: a refusal raises ``UnsupportedVideo``
+    naming its reason."""
     device = resolve_device(device)
     codec = mp4.read_video_track(video_fpath).codec
     if decoder not in (None, "nvdec", "software"):
@@ -80,9 +83,8 @@ def open_video(video_fpath: str, device=None, decoder: Optional[str] = None):
     choice = decoder or DECODERS[codec]
     if choice == "nvdec":
         return nvdec.Reader(video_fpath, device)
-    if codec not in h264.CODECS:
-        raise mpeg4.UnsupportedVideo(video_fpath, f"{mpeg4.CODEC_NAMES[codec]}: the port has no "
-                                                  "software decoder for it")
+    if codec in hevc.CODECS:
+        return hevc.Reader(video_fpath, device)
     return h264.Reader(video_fpath, device)
 
 

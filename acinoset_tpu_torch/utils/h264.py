@@ -156,51 +156,73 @@ class Reader:
     past the end reads as None. Reading on is sequential; any other index
     restarts at the last IDR at or before it."""
 
+    #: what a codec's reader names: the module's counters this reader adds
+    #: its seconds to, its decoder, its sample entries and the codec's name
+    COUNTERS = COUNTERS
+    DECODER = Decoder
+    CODECS = CODECS
+    NAME = "H.264"
+
     def __init__(self, fpath: str, device=None):
         self.fpath = fpath
         self.device = resolve_device(device)
         self.track = mp4.read_video_track(fpath)
         tr = self.track
-        if tr.codec not in CODECS:
+        if tr.codec not in self.CODECS:
             raise UnsupportedVideo(fpath, f"{CODEC_NAMES.get(tr.codec, repr(tr.codec))}: not "
-                                          "H.264")
+                                          f"{self.NAME}")
         self._ready: Dict[int, torch.Tensor] = {}
         self._file = open(fpath, "rb")
-        self._dec = Decoder(fpath)
+        self._dec = self.DECODER(fpath)
         try:
-            sets = list(tr.param_sets)
-            if not any(s and s[0] & 31 == 7 for s in sets):  # avc3: parameter sets in band
-                first = int(np.flatnonzero(tr.sync)[0]) if tr.sync.any() else 0
-                sets = [n for n in self._nals(first) if n and n[0] & 31 in (7, 8)]
-            for s in sets:
+            for s in self._param_sets():
                 self._dec.decode(s, 0, None)
+            order, start = self._frames()
             info = self._dec.info()
             held = bool(np.any((tr.offsets >= 0) & (tr.sizes > 0)))
             if info is None and held:
-                raise ValueError(f"{fpath}: an H.264 track without a sequence parameter set")
+                raise ValueError(f"{fpath}: an {self.NAME} track without a sequence parameter "
+                                 "set")
             if info is not None:
                 self._coefs, why = colour_coefs(info)
                 if why:
-                    raise UnsupportedVideo(fpath, f"H.264: {why}")
+                    raise UnsupportedVideo(fpath, f"{self.NAME}: {why}")
         except BaseException:
             self.close()
             raise
         self.info = info  # None where no chunk holds a sample: every frame reads as None
         self.size = tr.size if info is None else (info["width"], info["height"])
-        self.n_frames, self.fps = tr.n_frames, tr.fps
+        self.fps = tr.fps
+        # where no chunk holds a sample, the track's count of frames, each None
+        self.n_frames = len(order) if info is not None else tr.n_frames
+        self._order, self._start = order, start  # each frame's sample and decode start
         self._frame_of = np.full(tr.n_samples, -1, np.int64)
-        self._frame_of[tr.order] = np.arange(tr.n_frames)
-        # each frame's decode start: the last sync sample at or before its own
-        syncs = np.flatnonzero(tr.sync)
-        if len(syncs) == 0:
-            syncs = np.zeros(1, np.int64)
-        at = np.searchsorted(syncs, tr.order, side="right") - 1
-        self._start = syncs[np.clip(at, 0, len(syncs) - 1)]
+        self._frame_of[order] = np.arange(len(order))
         W, H = (info["coded_width"], info["coded_height"]) if info else (0, 0)
         self._nv12 = torch.empty((H * 3 // 2, W), dtype=torch.uint8,
                                  pin_memory=self.device.type == "cuda" and info is not None)
         self._run_start = -1
         self._feed = 0
+
+    def _param_sets(self):
+        """The parameter sets fed before the samples: the sample entry's,
+        or for avc3 those in the first sync sample."""
+        sets = list(self.track.param_sets)
+        if not any(s and s[0] & 31 == 7 for s in sets):  # avc3: parameter sets in band
+            tr = self.track
+            first = int(np.flatnonzero(tr.sync)[0]) if tr.sync.any() else 0
+            sets = [n for n in self._nals(first) if n and n[0] & 31 in (7, 8)]
+        return sets
+
+    def _frames(self):
+        """Each frame's sample (``mp4.VideoTrack.order``) and the sample its
+        decode starts at: the last sync sample at or before its own."""
+        tr = self.track
+        syncs = np.flatnonzero(tr.sync)
+        if len(syncs) == 0:
+            syncs = np.zeros(1, np.int64)
+        at = np.searchsorted(syncs, tr.order, side="right") - 1
+        return tr.order, syncs[np.clip(at, 0, len(syncs) - 1)]
 
     def _nals(self, i: int):
         off, n = int(self.track.offsets[i]), int(self.track.sizes[i])
@@ -222,7 +244,7 @@ class Reader:
         surface = self._nv12.to(self.device, non_blocking=False)
         out = nvdec.nv12_to_bgr(surface, info["coded_height"], self.size, self._coefs,
                                 (info["left"], info["top"]))
-        COUNTERS["device_s"] += time.perf_counter() - t0
+        self.COUNTERS["device_s"] += time.perf_counter() - t0
         return out
 
     def read_tensor(self, idx: int) -> Optional[torch.Tensor]:
@@ -232,7 +254,7 @@ class Reader:
             return None
         if idx in self._ready:
             return self._take(idx)
-        start, sample = int(self._start[idx]), int(self.track.order[idx])
+        start, sample = int(self._start[idx]), int(self._order[idx])
         if not (0 <= self._run_start <= start <= self._feed and sample >= self._feed):
             self._dec.reset()
             self._ready.clear()
@@ -250,7 +272,7 @@ class Reader:
             data = self._file.read(n)
             t0 = time.perf_counter()
             got = self._dec.decode(data, self.track.length_size, buf)
-            COUNTERS["host_s"] += time.perf_counter() - t0
+            self.COUNTERS["host_s"] += time.perf_counter() - t0
             k = int(self._frame_of[i])
             if got and k >= idx:
                 self._ready[k] = self._convert()

@@ -1,6 +1,7 @@
 """H.264 and HEVC elementary streams: what the port's NVDEC reader
-(``utils.nvdec``) feeds the card's decoder, and two stream writers of
-known reconstruction for its tests and ``chip_smoke.py``.
+(``utils.nvdec``) feeds the card's decoder, two stream writers of known
+reconstruction and two of random syntax for its tests and
+``chip_smoke.py``.
 
 - ``nal_units``/``annexb``: an MP4 sample's length-prefixed NAL units
   (``avcC``/``hvcC``'s length size) in start-code form (Annex B), with
@@ -23,10 +24,12 @@ known reconstruction for its tests and ``chip_smoke.py``.
   starts afresh after the PCM samples.
 
 Both are made from a seed at run time (``planes(k)`` is frame k's
-reconstruction, in presentation order) and are written into MP4 by
-``write_mp4`` (``avc1``/``avc3``, ``hvc1``/``hev1``, with ``ctts`` and
-``elst`` where frames are reordered). They serve tests and measurement;
-no user entry point writes them.
+reconstruction, in presentation order). ``RandomH264`` and ``RandomHEVC``
+are streams of random syntax, written by the software decoders' own
+syntax code (``csrc/h264.cpp``, ``csrc/hevc.cpp``) from a seed. All are
+written into MP4 by ``write_mp4`` (``avc1``/``avc3``, ``hvc1``/``hev1``,
+with ``ctts`` and ``elst`` where frames are reordered). They serve tests
+and measurement; no user entry point writes them.
 """
 from __future__ import annotations
 
@@ -833,6 +836,257 @@ class HevcStream(_Content):
         return out
 
 
+def _hvcc(vps: bytes, sps: bytes, pps: bytes, profile: int = 1) -> bytes:
+    """An hvcC payload: one VPS, SPS and PPS, 4-byte NAL lengths."""
+    out = bytes([1, profile]) + struct.pack(">I", 0x60000000 if profile == 1 else 0x10000000)
+    out += bytes([0x90, 0, 0, 0, 0, 0])
+    out += bytes([HEVC_LEVEL, 0xF0, 0x00, 0xFC, 0xFD, 0xF8, 0xF8, 0, 0, 0x0F, 3])
+    for kind, nal in ((_VPS, vps), (_HSPS, sps), (_HPPS, pps)):
+        out += bytes([0x80 | kind]) + struct.pack(">HH", 1, len(nal)) + nal
+    return out
+
+
+#: RandomHEVC's options, in the order of the C++ writer's WOpts
+_HEVC_WOPTS = ("width", "height", "log2_ctb", "log2_min_cb", "depth_inter",
+               "depth_intra", "amp", "tskip", "sign_hiding", "scaling", "sao", "deblock",
+               "deblock_override", "deblock_offsets", "cu_qp_delta", "qp_depth", "cb_qp_offset",
+               "cr_qp_offset", "slice_chroma_offsets", "bypass", "pcm", "pcm_loop_filter_disabled",
+               "constrained_intra", "max_slices", "dependent_slices", "tile_cols", "tile_rows",
+               "uniform", "wpp", "tmvp", "max_merge", "par_mrg", "weighted", "long_term",
+               "list_mod", "log2_max_poc_lsb", "matrix", "full_range", "colour", "qp_min",
+               "qp_max", "intra_percent", "max_refs", "reorder", "lf_across_tiles",
+               "lf_across_slices", "cabac_init", "extra_bits", "header_ext", "vui_extra",
+               "output_flag", "lt_sps", "profile")
+#: HEVC nal_unit_type of the writer's pictures
+TRAIL_N, TRAIL_R, RADL_N, RASL_N, BLA_W_LP, IDR_W_RADL, IDR_N_LP, CRA_NUT = 0, 1, 6, 8, 16, 19, 20, 21
+_EOS = 36
+#: a prefix SEI (user_data_unregistered: a UUID and four bytes) and a
+#: suffix SEI (decoded_picture_hash's absence: a user_data one again), as
+#: cameras put about their pictures
+_SEI_PAYLOAD = bytes([5, 20]) + bytes(range(16)) + b"GoPr" + bytes([0x80])
+
+
+class RandomHEVC:
+    """An HEVC stream of random syntax, written by the decoder's own
+    syntax code (``csrc/hevc.cpp``'s writer) with every element picked
+    from a seeded generator within its legal range; the frames it decodes
+    to are whatever that syntax makes of them, so only an independent
+    decoder (cv2) can judge them. size (width, height), cropped by the
+    conformance window from the coded size where that is not a multiple
+    of the smallest CB. GOPs of ``gop`` frames, each starting with an IDR (or, after the
+    first, a CRA where ``open_gop``: the B frames before it in display
+    order become its leading pictures, RASL then RADL), then P anchors
+    with ``b_frames`` hierarchical B frames between them (the middle one a
+    reference); ``intra_only`` makes every frame an I picture;
+    ``cra_start`` starts the stream at a CRA whose ``b_frames`` RASL
+    pictures refer to a picture the stream does not hold (a decoder drops
+    them, so the stream has that many frames fewer); ``bla`` makes the
+    CRAs after the first BLA pictures (a spliced stream: their RASL
+    pictures are dropped too, and POC restarts from their lsb); ``eos``
+    ends the sequence before each of them instead (an end of sequence NAL
+    unit: the CRA after it acts as a BLA does), where ffmpeg derives the
+    CRA's POC as the standard does (csrc/hevc.cpp's notes); an IRAP picture after the
+    first may drop the pictures still waiting for output
+    (no_output_of_prior_pics_flag, as a CRA after an end of sequence
+    does);
+    ``hidden`` writes pic_output_flag 0 on the last trailing picture of a
+    GOP (not shown); ``sei`` puts a prefix and a suffix SEI NAL unit
+    about each picture. ``shown`` lists the display indices a decoder
+    shows, by the writer's own decoded picture buffer.
+    The rest are the writer's options: ``ctb`` (16, 32, 64), ``min_cb``
+    (8, 16), ``depths`` (inter, intra),
+    ``amp``, ``transform_skip``, ``sign_hiding``, ``scaling`` (None,
+    'default', 'sps', 'pps'), ``sao``, ``deblock`` ('on', 'off',
+    'override'), ``deblock_offsets``, ``cu_qp_delta`` with ``qp_depth``,
+    ``chroma_qp_offsets`` (cb, cr) and ``slice_chroma_offsets``,
+    ``bypass`` (transquant bypass), ``pcm`` with ``pcm_loop_filter``
+    (False: pcm_loop_filter_disabled_flag), ``constrained_intra``,
+    ``slices`` (at most, a picture) and ``dependent_slices``, ``tiles``
+    (columns, rows) with ``uniform_tiles``, ``wpp``, ``tmvp``,
+    ``max_merge`` (0: random a slice), ``parallel_merge`` (its log2),
+    ``weighted``, ``long_term`` (a GOP's IRAP kept as a long-term picture;
+    ``lt_sps`` lists them in the SPS), ``list_mod``, ``log2_max_poc_lsb``
+    (small ones wrap), ``qp`` (min, max), ``refs``, ``intra_percent``,
+    ``cabac_init``, ``extra_bits``, ``header_ext``, ``vui_extra``,
+    ``lf_across`` (tiles, slices), ``matrix`` and
+    ``full_range`` (VUI; matrix None writes no colour description).
+    ``pictures`` holds each picture's NAL units in decode order."""
+
+    def __init__(self, size, n_frames, seed=0, *, gop=8, b_frames=3, intra_only=False,
+                 open_gop=False, cra_start=False, bla=False, eos=False, hidden=False, sei=False,
+                 ctb=32, min_cb=8, depths=(1, 1), amp=False, transform_skip=False, sign_hiding=False, scaling=None,
+                 sao=False, deblock="on", deblock_offsets=False, cu_qp_delta=False, qp_depth=1,
+                 chroma_qp_offsets=(0, 0), slice_chroma_offsets=False, bypass=False, pcm=False,
+                 pcm_loop_filter=True, constrained_intra=False, slices=1, dependent_slices=False,
+                 tiles=(1, 1), uniform_tiles=True, wpp=False, tmvp=True, max_merge=5,
+                 parallel_merge=2, weighted=False, long_term=False, lt_sps=False,
+                 list_mod=False, log2_max_poc_lsb=8, qp=(22, 36), refs=4, intra_percent=15,
+                 cabac_init=False, extra_bits=0, header_ext=False, vui_extra=False,
+                 lf_across=(True, True), matrix=BT709, full_range=True):
+        from . import hevc
+
+        self.size = (int(size[0]), int(size[1]))
+        W, H = self.size
+        if W % 2 or H % 2 or W <= 0 or H <= 0:
+            raise ValueError(f"frame size {W} x {H}: width and height must be even")
+        if tiles[0] * tiles[1] > 1 and wpp:
+            raise ValueError("tiles and wpp in one stream: the writer keeps clear of it "
+                             "(csrc/hevc.cpp's notes)")
+        if constrained_intra and min_cb > 8:
+            raise ValueError("constrained_intra with CBs of 16 or more: the writer keeps clear of "
+                             "it (csrc/hevc.cpp's notes)")
+        self.coded = (-(-W // min_cb) * min_cb, -(-H // min_cb) * min_cb)
+        self.n, self.gop, self.seed = int(n_frames), int(gop), int(seed)
+        self.matrix, self.full_range = matrix, bool(full_range)
+        self.still = self.n == 1 and intra_only
+        self.kinds, self.decode, plan = self._plan(b_frames, intra_only, open_gop, cra_start, bla,
+                                                   eos, hidden, 1 << log2_max_poc_lsb)
+        #: each frame's picture type by display index: I, P or B
+        self.types = ["I"] * self.n
+        for (_kind, stype, *_rest), k in zip(plan, self.decode):
+            self.types[k] = "BPI"[stype]
+        shown = {k: i for i, k in enumerate(self.decode)}
+        reorder = max((sum(1 for j in self.decode[:shown[k]] if j > k) for k in self.decode),
+                      default=0)
+        opts = dict(width=W, height=H, log2_ctb={16: 4, 32: 5, 64: 6}[ctb],
+                    log2_min_cb={8: 3, 16: 4, 32: 5}[min_cb],
+                    depth_inter=depths[0], depth_intra=depths[1], amp=int(amp),
+                    tskip=int(transform_skip), sign_hiding=int(sign_hiding),
+                    scaling={None: 0, "default": 1, "sps": 2, "pps": 3}[scaling], sao=int(sao),
+                    deblock={"off": 0, "on": 1, "override": 2}[deblock],
+                    deblock_override=int(deblock == "override"), deblock_offsets=int(deblock_offsets),
+                    cu_qp_delta=int(cu_qp_delta), qp_depth=qp_depth,
+                    cb_qp_offset=chroma_qp_offsets[0], cr_qp_offset=chroma_qp_offsets[1],
+                    slice_chroma_offsets=int(slice_chroma_offsets), bypass=int(bypass), pcm=int(pcm),
+                    pcm_loop_filter_disabled=int(not pcm_loop_filter),
+                    constrained_intra=int(constrained_intra), max_slices=slices,
+                    dependent_slices=int(dependent_slices), tile_cols=tiles[0], tile_rows=tiles[1],
+                    uniform=int(uniform_tiles), wpp=int(wpp), tmvp=int(tmvp), max_merge=max_merge,
+                    par_mrg=parallel_merge, weighted=int(weighted), long_term=int(long_term),
+                    list_mod=int(list_mod), log2_max_poc_lsb=log2_max_poc_lsb, matrix=matrix or 2,
+                    full_range=int(bool(full_range)), colour=int(matrix is not None),
+                    qp_min=qp[0], qp_max=qp[1], intra_percent=intra_percent, max_refs=refs,
+                    reorder=reorder,
+                    lf_across_tiles=int(lf_across[0]), lf_across_slices=int(lf_across[1]),
+                    cabac_init=int(cabac_init), extra_bits=extra_bits, header_ext=int(header_ext),
+                    vui_extra=int(vui_extra), output_flag=int(hidden),
+                    lt_sps=int(lt_sps), profile=3 if self.still else 1)
+        arr = np.array([opts[k] for k in _HEVC_WOPTS], np.int32)
+        pl = np.array(plan, np.int32).reshape(-1)
+        lib = hevc._library()
+        err = ctypes.create_string_buffer(512)
+        h = lib.hevcw_open(arr.ctypes.data, len(arr), pl.ctypes.data, len(plan),
+                           ctypes.c_uint64(self.seed), err, 512)
+        if not h:
+            raise ValueError(f"RandomHEVC: {err.value.decode()}")
+        try:
+            n = lib.hevcw_param_sets(h, None, 0)
+            buf = np.zeros(n, np.uint8)
+            lib.hevcw_param_sets(h, buf.ctypes.data, n)
+            self.vps, self.sps, self.pps = nal_units(buf.tobytes())
+            #: each picture's NAL units, in decode order
+            self.pictures: List[List[bytes]] = []
+            cap = 6 * self.coded[0] * self.coded[1] + (1 << 16)
+            out = np.zeros(cap, np.uint8)
+            nb = ctypes.c_int64(0)
+            for k in range(len(plan)):
+                rc = lib.hevcw_picture(h, k, out.ctypes.data, cap, ctypes.byref(nb), err, 512)
+                if rc:
+                    why = err.value.decode() if rc != -3 else f"a picture of more than {cap} bytes"
+                    raise ValueError(f"RandomHEVC: {why}")
+                nals = nal_units(out[:nb.value].tobytes())
+                if sei:  # the suffix SEI before an end of sequence
+                    end = len(nals) - (nals[-1][0] >> 1 == _EOS)
+                    nals = ([bytes([39 << 1, 1]) + _SEI_PAYLOAD] + nals[:end]
+                            + [bytes([40 << 1, 1]) + _SEI_PAYLOAD] + nals[end:])
+                self.pictures.append(nals)
+            out_tags = np.zeros(len(plan), np.int64)
+            n_out = lib.hevc_scan_end(h, 1, out_tags.ctypes.data, len(plan))
+            #: display indices of the frames a decoder shows: all but the RASL
+            #: pictures of a CRA that starts the stream or of a BLA (or a CRA
+            #: after an end of sequence), pictures with pic_output_flag 0 and
+            #: those an IRAP's NoOutputOfPriorPicsFlag drops
+            self.shown = sorted(self.decode[t] for t in out_tags[:n_out])
+        finally:
+            lib.hevcw_close(h)
+
+    def _plan(self, b_frames, intra_only, open_gop, cra_start, bla, eos, hidden, max_lsb):
+        """(nal_unit_type by display index, display indices in decode order,
+        the writer's plan of each picture in decode order: nal_unit_type,
+        slice_type (0 B, 1 P, 2 I), POC, pic_output_flag)."""
+        n, step = self.n, (1 if intra_only else b_frames + 1)
+        lead = min(b_frames, n - 1) if cra_start and not intra_only else 0
+        iraps = list(range(lead, n, self.gop))
+        kinds, stype, out = [TRAIL_N] * n, [2] * n, [1] * n
+        decode, pending = [], list(range(lead))
+        for gi, g0 in enumerate(iraps):
+            g1 = iraps[gi + 1] if gi + 1 < len(iraps) else n
+            cra = (gi == 0 and cra_start) or (gi > 0 and open_gop)
+            kinds[g0] = CRA_NUT if cra else (IDR_N_LP if gi % 2 else IDR_W_RADL)
+            if cra and gi > 0 and bla:
+                kinds[g0] = BLA_W_LP
+            n_rasl = len(pending) if gi == 0 else (len(pending) + 1) // 2
+            for i, k in enumerate(pending):  # RASL before RADL in output order
+                kinds[k], stype[k] = (RASL_N if i < n_rasl else RADL_N), 0
+            decode += [g0] + pending
+            anchors = list(range(g0, g1, step))
+            tail = list(range(anchors[-1] + 1, g1))
+            if tail and not (gi + 1 < len(iraps) and open_gop):
+                anchors.append(g1 - 1)  # a closed GOP ends with an anchor
+                tail = []
+            pending = tail
+            for prev, anc in zip(anchors, anchors[1:]):
+                kinds[anc], stype[anc] = TRAIL_R, 2 if intra_only else 1
+                between = list(range(prev + 1, anc))
+                order = [between[len(between) // 2]] if between else []
+                order += [k for k in between if k not in order]
+                for i, k in enumerate(order):  # the middle one a reference where others follow
+                    kinds[k], stype[k] = (TRAIL_R if i == 0 and len(order) > 1 else TRAIL_N), 0
+                decode += [anc] + order
+            if hidden:
+                trailing = [k for k in decode if g0 < k < g1 and kinds[k] in (TRAIL_N, TRAIL_R)]
+                if trailing:
+                    out[trailing[-1]] = 0
+        # POC: the display index less a base that an IDR resets and a BLA
+        # (or a CRA after an end of sequence) moves to its lsb (its POC's
+        # msb is 0); in decode order, so that its leading pictures count
+        # from it. An end of sequence goes only before a CRA whose POC
+        # ffmpeg derives from the previous TemporalId 0 picture's as 0 plus
+        # its lsb, the standard's value
+        poc, base, eos_before, prev = [0] * n, 0, [0] * n, 0
+        for k in decode:
+            if kinds[k] in (IDR_W_RADL, IDR_N_LP):
+                base = k
+            elif kinds[k] == BLA_W_LP:
+                base = k - (k - base) % max_lsb
+            elif eos and kinds[k] == CRA_NUT and k != decode[0]:
+                lsb, plsb = (k - base) % max_lsb, prev % max_lsb
+                if abs(lsb - plsb) < max_lsb // 2 and prev - plsb == 0:
+                    base, eos_before[k] = k - lsb, 1
+            poc[k] = k - base
+            if kinds[k] in (TRAIL_R, IDR_W_RADL, IDR_N_LP, CRA_NUT, BLA_W_LP):
+                prev = poc[k]  # the previous TemporalId 0 picture (8.3.1)
+        plan = [[kinds[k], stype[k], poc[k], out[k], eos_before[k]] for k in decode]
+        return kinds, decode, plan
+
+    @property
+    def param_sets(self) -> List[bytes]:
+        return [self.vps, self.sps, self.pps]
+
+    def samples(self) -> Iterator[Tuple[int, bool, List[bytes]]]:
+        """(display index, sync, NAL units) of each picture, in decode
+        order; sync pictures are the IRAP pictures."""
+        for k, nals in zip(self.decode, self.pictures):
+            yield k, self.kinds[k] in (IDR_W_RADL, IDR_N_LP, CRA_NUT, BLA_W_LP), nals
+
+    def config(self) -> bytes:
+        return _hvcc(self.vps, self.sps, self.pps, 3 if self.still else 1)
+
+    @property
+    def presentation_offsets(self) -> List[int]:
+        return [k - i for i, k in enumerate(self.decode)]
+
+
 def write_mp4(path: str, stream, fps: float, codec: Optional[str] = None,
               signed_ctts: bool = False, edit: Optional[Tuple[int, int]] = None) -> str:
     """Write a stream into an MP4 of one video track. ``codec`` is the
@@ -843,7 +1097,7 @@ def write_mp4(path: str, stream, fps: float, codec: Optional[str] = None,
     ``signed_ctts`` version-1 offsets from the decode time and no edit.
     ``edit`` (media start, frames) in frames writes that ``elst`` instead.
     Returns path."""
-    hevc = isinstance(stream, HevcStream)
+    hevc = isinstance(stream, (HevcStream, RandomHEVC))
     codec = codec or ("hvc1" if hevc else "avc1")
     if codec not in (("hvc1", "hev1") if hevc else ("avc1", "avc3")):
         raise ValueError(f"{codec} is not a sample entry for this stream")

@@ -310,11 +310,8 @@ def format_reason(fmt: Dict[str, int]) -> Optional[str]:
 def codec_reason(codec: str, device) -> str:
     """Why an H.264 or HEVC file is refused on a device other than CUDA."""
     name = CODEC_NAMES[codec]
-    if codec in ("avc1", "avc3"):
-        return (f"{name}: NVDEC decodes it on the card only, not on {device} "
-                "(decoder='software' reads it on the host)")
-    return (f"{name}: the port decodes it on the card's NVDEC only, not on {device} (it has no "
-            f"software {name} decoder)")
+    return (f"{name}: NVDEC decodes it on the card only, not on {device} "
+            "(decoder='software' reads it on the host)")
 
 
 class Reader:

@@ -108,10 +108,10 @@ Phases, one line each with its seconds:
                reading each stream's format on the card, the colour
                kernel (nv12_to_bgr, utils/csrc/nvdec.cu) against its
                plain version on the reconstructed frames, its device
-               time against its bound; the H.264 streams decoded by the
-               port's software decoder (every frame against the
-               reconstruction, one launch a frame, seeks, frames/s and
-               the host's share); every frame decoded on NVDEC against
+               time against its bound; every stream decoded by the
+               port's software decoders, H.264's or HEVC's (every frame
+               against the reconstruction, one launch a frame, seeks,
+               frames/s and the host's share); every frame decoded on NVDEC against
                the reconstruction, one launch a frame, seeks and the
                labelled video's bytes (skipped only where the
                environment visibly withholds the video engine, and then
@@ -123,6 +123,10 @@ Phases, one line each with its seconds:
                CPU, one launch a frame, NVDEC's frames against the
                software decoder's where NVDEC decodes, and frames/s at
                2704 x 1520 with the host's share;
+     hevc    - the software HEVC decoder (utils/csrc/hevc.cpp) on the
+               random-syntax writer's streams (utils.h26x.RandomHEVC, B
+               pictures, SAO, deblocking, tiles or wavefronts, 2704 x 1520
+               and 1920 x 1080): the same gates as h264;
  13. files   - the file-level pipeline, the user's path: a run directory
                at full width (make_synthetic_run_dir: 6 cameras x 200
                frames x 20 markers, 2704 x 1520, its DLC .h5 files written
@@ -134,10 +138,10 @@ Phases, one line each with its seconds:
                tests/test_pipeline_e2e.py's bounds, tri to the CPU port,
                fte's six reprojected .h5 files to its positions
                projected; fte.svg, ekf.pdf and reconstructions.png read
-               back), a seventh camera, H.264, through `cli dlc` in a
-               directory of its own (labelled through the software
-               decoder, its bytes against mpeg4.Writer fed the labels
-               drawn on the reconstruction), `cli eval --hist` against the truth's projections
+               back), a seventh camera, H.264, and an eighth, HEVC, each
+               through `cli dlc` in a directory of its own (labelled
+               through the software decoders, their bytes against
+               mpeg4.Writer fed the labels drawn on the reconstruction), `cli eval --hist` against the truth's projections
                (the histogram's counts against np.histogram), `cli view`,
                and `cli sweep --stages fte,ekf` over 8 such runs in two
                fps groups; s a stage, .h5 MB/s, frames/s of the
@@ -321,10 +325,10 @@ def _ptxas_summary(log):
 
 
 def phase_build():
-    """Build the five libraries at once (one nvcc each and the software
-    H.264 decoder's g++, started together)."""
+    """Build the six libraries at once (one nvcc each and the software
+    H.264 and HEVC decoders' g++, started together)."""
     from acinoset_tpu_torch.kernels import _nvcc, banded_cuda, probes_cuda
-    from acinoset_tpu_torch.utils import h264, nvdec
+    from acinoset_tpu_torch.utils import h264, hevc, nvdec
 
     t0 = time.perf_counter()
 
@@ -332,14 +336,15 @@ def phase_build():
         t1 = time.perf_counter()
         return build(), time.perf_counter() - t1
 
-    with ThreadPoolExecutor(5) as pool:
+    with ThreadPoolExecutor(6) as pool:
         futures = [pool.submit(timed, f) for f in (banded_cuda.build, probes_cuda.build,
                                                    lambda: banded_cuda.build(clocked=True),
                                                    nvdec.build)]
-        software = pool.submit(timed, h264.build)  # g++: the software H.264 decoder
+        # g++: the software H.264 and HEVC decoders
+        software = [pool.submit(timed, f) for f in (h264.build, hevc.build)]
         built = [f.result() for f in futures]
-        path, secs = software.result()
-    print(f"[build] {os.path.relpath(path, ROOT)} (g++) built in {secs:.2f} s", flush=True)
+        for path, secs in (f.result() for f in software):
+            print(f"[build] {os.path.relpath(path, ROOT)} (g++) built in {secs:.2f} s", flush=True)
     for path, secs in built:
         log = _nvcc.log_path(path).read_text()
         spills = re.findall(r"(\d+) bytes spill stores", log)
@@ -3346,15 +3351,15 @@ H264_STREAMS = (
 #: cv2 reads them on the CPU (tests/test_torch_h264_decode.py holds cv2 to
 #: these digests)
 H264_DIGESTS = {
-    "cavlc 2704x1520": ("5c3d461ce3b3e617c2d9146e180fbd5d09a8a6bc9371d598a0ba9baee24295b8", (
+    "cavlc 2704x1520": ("2eb9ebec29725ed3d2044f8d37220ba589416cb6415c7ab2ef3ad5df43f07b9f", (
         "521670c437bbfdc0c680110334b81e2008c97b3b5f7aaea545ac8d36c31416ab",
         "b21facc6a08efe8899e8e0cc97ee8252b54ccf123256ae53bebdd70810bbacd4",
-        "aceea46f4b18d1ce569f1343df37d5f1c44047ecf684e331d8d0a4417c829857",
+        "8bbb9d85769ab2accbec69cc2d3bf00e3e7769d1926ea2273fc174d05914a0d7",
         "acd5c8364762089d45d5244f78dc602aaaa68db2d3cc4f6ef39adb3f847cc9bc",
         "d6ffc5900a811f830cdec0f2a03caf369f048a19535ce038dc2f744c78d4276d",
-        "484194ef42a0e3580a427686ad1d5327b5f67829b5af202e12672b62ad1d7575",
-        "c5031c5933da6883c01c53706a71507199b2d231ce450b9aa1fef70507e8a434",
-        "5e848f0ac9b0e2bb899de172587293983a436f4b578d165ad1edec644ca0b0b8",
+        "464c608598d4549f1b969e5308f0cbd0c0ce6d512a4d6eac692a485a14784d6e",
+        "69ee112ed7a3c4d9b8509733efbb3377951f3ee757f21a08ba22b634196c2fe1",
+        "a9ecaf468982c9e77fc44fdefc339d5ad0bcdb7a37953f057c85930976848ce9",
     )),
     "cabac 2704x1520": ("3330f7db1475ee9bd04c818223537ea4399a0c4c9a8d1300f445622369f67b1f", (
         "36204005de66d72142e1f446a9cacc0e551168c73236f28144f1bc61c289b40e",
@@ -3388,6 +3393,69 @@ H264_DIGESTS = {
     )),
 }
 
+#: the hevc phase: streams of the random-syntax writer (utils.h26x.RandomHEVC)
+#: at the rig's widths, with B pictures, SAO, deblocking, and tiles or
+#: wavefronts (WPP): (label, size, frames, the writer's options)
+HEVC_STREAMS = (
+    ("tiles 2704x1520", (2704, 1520), 8, dict(
+        seed=51, ctb=64, b_frames=3, sao=True, tiles=(4, 3), slices=4, deblock="override",
+        deblock_offsets=True, cu_qp_delta=True, amp=True, transform_skip=True, sign_hiding=True,
+        qp=(24, 38))),
+    ("wpp 2704x1520", (2704, 1520), 8, dict(
+        seed=52, ctb=32, wpp=True, slices=3, dependent_slices=True, b_frames=2, sao=True,
+        weighted=True, long_term=True, scaling="sps", qp=(22, 36))),
+    ("tiles 1920x1080", (1920, 1080), 8, dict(
+        seed=53, ctb=32, tiles=(3, 2), uniform_tiles=False, open_gop=True, gop=4, b_frames=3,
+        sao=True, pcm=True, bypass=True, matrix=6, full_range=False, qp=(24, 40))),
+    ("wpp 1920x1080", (1920, 1080), 8, dict(
+        seed=54, ctb=16, wpp=True, b_frames=1, sao=True, constrained_intra=True, scaling="pps",
+        list_mod=True, parallel_merge=3, matrix=1, full_range=False, qp=(20, 34))),
+)
+#: each stream's MP4 SHA-256 and its frames' SHA-256 (BGR, H x W x 3) as
+#: cv2 reads them on the CPU (tests/test_torch_hevc_decode.py holds cv2 to
+#: these digests)
+HEVC_DIGESTS = {
+    "tiles 2704x1520": ("05716ccf7122a4553c1c1043d1f49ff15d6478966083604ddeb7944f80076ade", (
+        "b2f7c81925e323f6d6a17ba73ce5f7f3441a119c6de65c0619d2e4ac17a750cd",
+        "9cbfddca69c1d72d277a9e817365155fc42e49c99195ce8ea4a4f9523707da07",
+        "3b4f335afdbae5a9193fc42bdc5d03f5b3c8bd83f7a0f9f1222468cc5907ba5c",
+        "ce9474a1401776a12be9356fe006cf69cbec8d495bd6290db84252a2da9be537",
+        "501d89fde0c99f427b2db58c63d95258c9546898821ded68093fdef5a00a8d99",
+        "e708088248a9c25689b6a6227f62897a1ecac1bf2d091816dbd2994251f5187c",
+        "fda4851bad12762f4e33f26c796c9a63f46423778ade91843e67dc7fcad6e0bb",
+        "f5336a520e205d412287561ec1fb40c2f7d983bb43aa052c4b3ba91eae88887a",
+    )),
+    "wpp 2704x1520": ("12408ed60c634de523bec30c1e15d32ce084861f1f520de092c1d7ca6e9822b5", (
+        "21f1d5ed4d3001aa1542aa69ca5c0f38fc16302036c1f99121a4fa9cd923411a",
+        "4452b43b3701b9e6b7d98cfde9aa4bc1f04afe3683851a35e92fbeb2937967df",
+        "51f3e79f2ba1bebbff39b8cc0e7837c265d6e93f5505e2fcdc48575711b304b6",
+        "4acff7307a29abcd28a3cab7e97a1c96994e959377321d6e4ce620ba71e7ff1d",
+        "1e73cd3bb2cbf0cbb6ce355841fd296bee0d52c9d955a14486653bcc43e7d489",
+        "b599b985dd74ef6a6db54379fa00b83cd0268497e213a2d300deab6b4439e518",
+        "62d312047aa3b67c797809b3b902dc0831e66ed0d57e4e91970ee7efb230d2c0",
+        "b1939ecc9261543ac7253711ae3a464bf79b3e5207248b4fa4f04a48c74eea66",
+    )),
+    "tiles 1920x1080": ("3245a4125bf0c063ac65e70dab8ab78d8723b682ad17983e587f7c6f732e28b7", (
+        "86f2b4902ffe7defd80f9075ba34707f535b4849ef7f03598cd01e3cfb6438b5",
+        "947baa4410649bf8709395138b159e29846ed1d0fce493e79212786eef08b070",
+        "a2647263b8aa29ec6d3ec8dcffdc10b65144629e1037f0860b51a9aaebab8238",
+        "e1a79124fc2286fc452ff3632350b22582e3965968e147451e22bc7b828c7edd",
+        "12ea554ccc84fef2c64d7e9d4ff4d89b62d42530edb4008b59028d8402a52b09",
+        "80de97fcc7af8a3ea2765f15986ca9a55c39e2feffe08f799f937cce7c7c5504",
+        "d6854e018718b5956e6959a928ba54e4f8140f4d15e919d1a8e32b146f24b752",
+        "2801fe6768920ead2157edb6478599395240a8887f340011562b0b0292a2f164",
+    )),
+    "wpp 1920x1080": ("abaece8043f5621de5a8ad6e50552cf25bd2c9eb66ebd8a12d1d65f9f2586a29", (
+        "a1e9f940de09f39a1c832f6c36dee7fd5ba0e370c8209d025245c9adf81d19ef",
+        "5584939c145ddb4ca23caf91e0754132654074d3f0c819817fbd5e53b76351c1",
+        "b69c777cb55012984b16769d0e86c3b751cb5499f82b85350218cd92429495b8",
+        "c6ca8d93baffd39408dc8ac024611d89f937fb6db3db1a12ce94f65d95688951",
+        "8743606f5921d9d575ce3454b467fd4c4d01ac6ccedd4f9a05f1e27282a95dc7",
+        "38cdbd0f64e4e18f3398c969abd4d634dc5fa3f56be84d298d9be1d233f1ac4f",
+        "8d9bc0ab3a7187f442dceb86e1839244c6adb6754c4304adafbf3fb70e444069",
+        "a3cdaf1a64bb38eee91100536d7c3243f952eb2edb07d47ea7c837abbdda71b9",
+    )),
+}
 
 def _nvdec_streams():
     """(label, stream, sample entry) of the phase's streams."""
@@ -3416,9 +3484,10 @@ def phase_nvdec(device):
     colour kernel (nv12_to_bgr) against its plain version on each
     reconstructed frame as a pitched NV12 surface (every frame of the
     rig's H.264, NVDEC_SUBSET of the others), and its device time against
-    its bound. The H.264 streams are decoded by the port's software decoder
-    (_h264_decode: every frame equal to the reconstruction with one launch
-    a frame; for the rig's stream seeks and the decode rate). Then NVDEC's
+    its bound. Every stream is decoded by the port's software decoder,
+    H.264's or HEVC's (_software_decode: every frame equal to the
+    reconstruction with one launch a frame; for the rig's streams seeks and
+    the decode rate). Then NVDEC's
     decode gates: every frame decoded equal to the
     writer's reconstruction in cv2's colours with one launch a frame,
     get_frames at VIDEO_SEEKS equal to the sequential decode, frames/s
@@ -3495,10 +3564,9 @@ def phase_nvdec(device):
                     f"{fmt['bottom']}, matrix {fmt['matrix']}, full range {fmt['full_range']}, "
                     f"as written {fmt_ok}; kernel equal to its plain version on {same}/"
                     f"{len(frames)} frames")
-            if entry in ("avc1", "avc3"):
-                more, n = _h264_decode(device, stream, path, coefs, failed, label)
-                text += "; " + more
-                path_launches += n
+            more, n = _software_decode(device, stream, path, coefs, failed, label)
+            text += "; " + more
+            path_launches += n
             if usable:
                 more, n = _nvdec_decode(device, stream, path, coefs, failed, label)
                 text += "; " + more
@@ -3555,25 +3623,50 @@ def h264_streams():
 def phase_h264(device):
     """The port's software H.264 decoder (utils/h264.py,
     utils/csrc/h264.cpp) on the random-syntax writer's streams at the rig's
-    widths (H264_STREAMS): each written on the host, its MP4's SHA-256
-    equal to H264_DIGESTS' (the stream cv2 read on the CPU), decoded on the
-    card through open_video with one nv12_to_bgr launch a frame, and each
-    frame's SHA-256 equal to cv2's (H264_DIGESTS). Where NVDEC decodes on
-    this card (nvdec.refusal is None), its frames equal the software
-    decoder's; where it is refused, only the environment's visible
-    withholding of the video engine (nvdec.withheld) skips that gate. Prints
-    the decode rate at 2704 x 1520 and the host's share."""
+    widths (H264_STREAMS): _random_syntax_phase."""
+    from acinoset_tpu_torch.utils import h264
+
+    _random_syntax_phase(device, "h264", h264_streams(), H264_DIGESTS, h264, "avc1")
+
+
+def hevc_streams():
+    """(label, RandomHEVC) of HEVC_STREAMS, written on the host."""
+    from acinoset_tpu_torch.utils import h26x
+
+    for label, size, n, opts in HEVC_STREAMS:
+        yield label, h26x.RandomHEVC(size, n, **opts)
+
+
+def phase_hevc(device):
+    """The port's software HEVC decoder (utils/hevc.py,
+    utils/csrc/hevc.cpp) on the random-syntax writer's streams at the rig's
+    widths (HEVC_STREAMS): _random_syntax_phase."""
+    from acinoset_tpu_torch.utils import hevc
+
+    _random_syntax_phase(device, "hevc", hevc_streams(), HEVC_DIGESTS, hevc, "hvc1")
+
+
+def _random_syntax_phase(device, phase, streams, digests, module, entry):
+    """A software decoder (``module``: utils.h264 or utils.hevc) on a
+    random-syntax writer's streams: each written on the host, its MP4's
+    SHA-256 equal to ``digests``' (the stream cv2 read on the CPU), decoded
+    on the card through open_video with one nv12_to_bgr launch a frame,
+    and each frame's SHA-256 equal to cv2's. Where NVDEC decodes on this
+    card (nvdec.refusal is None), its frames equal the software decoder's;
+    where it is refused, only the environment's visible withholding of the
+    video engine (nvdec.withheld) skips that gate. Prints the decode rate
+    at 2704 x 1520 and the host's share."""
     import hashlib
     import tempfile
 
     from acinoset_tpu_torch.pipeline import video
-    from acinoset_tpu_torch.utils import h26x, h264, nvdec
+    from acinoset_tpu_torch.utils import h26x, nvdec
 
     t0 = time.perf_counter()
     failed = []
     rig = [0, 0.0, 0.0]  # frames, seconds, host seconds at 2704 x 1520
     with tempfile.TemporaryDirectory() as root:
-        for label, stream in h264_streams():
+        for label, stream in streams:
             W, H = stream.size
             path = os.path.join(root, label.replace(" ", "_") + ".mp4")
             t1 = time.perf_counter()
@@ -3581,66 +3674,72 @@ def phase_h264(device):
             s_write = time.perf_counter() - t1
             with open(path, "rb") as f:
                 file_sha = hashlib.sha256(f.read()).hexdigest()
-            for k in h264.COUNTERS:
-                h264.COUNTERS[k] = 0.0
+            for k in module.COUNTERS:
+                module.COUNTERS[k] = 0.0
             nvdec.nv12_to_bgr.launches = 0
             _sync(device)
             t1 = time.perf_counter()
             with video.open_video(path, device) as reader:
+                kind = type(reader).__module__
                 frames = [reader.read_tensor(k) for k in range(reader.n_frames)]
             _sync(device)
             s_dec = time.perf_counter() - t1
             launches = nvdec.nv12_to_bgr.launches
-            host = h264.COUNTERS["host_s"]
+            host = module.COUNTERS["host_s"]
             shas = [hashlib.sha256(f.cpu().numpy().tobytes()).hexdigest() for f in frames]
-            want_file, want_frames = H264_DIGESTS.get(label, (None, []))
+            want_file, want_frames = digests.get(label, (None, []))
             same = sum(a == b for a, b in zip(shas, want_frames))
-            ok = file_sha == want_file and same == stream.n == len(shas) and launches == stream.n
+            ok = (file_sha == want_file and same == len(want_frames) == len(shas)
+                  and launches == len(shas) and kind == module.__name__)
             if not ok:
-                failed.append(f"{label}: MP4 SHA-256 {file_sha} (want {want_file}); {same}/"
-                              f"{stream.n} frames with cv2's SHA-256; {launches} launches")
+                failed.append(f"{label}: read with {kind}; MP4 SHA-256 {file_sha} (want "
+                              f"{want_file}); {same}/{len(want_frames)} frames with cv2's SHA-256 "
+                              f"({len(shas)} read); {launches} launches")
             if (W, H) == NVDEC_RES:
-                rig[0] += stream.n
+                rig[0] += len(shas)
                 rig[1] += s_dec
                 rig[2] += host
-            why = nvdec.refusal(device, "avc1", stream.size)
+            why = nvdec.refusal(device, entry, stream.size)
             if why is None:
                 with video.open_video(path, device, "nvdec") as reader:
                     hw = [reader.read_tensor(k) for k in range(reader.n_frames)]
                 hw_same = sum(torch.equal(a, b) for a, b in zip(hw, frames))
-                nv_text = f"NVDEC's frames equal the software decoder's on {hw_same}/{stream.n}"
-                if hw_same != stream.n:
+                nv_text = f"NVDEC's frames equal the software decoder's on {hw_same}/{len(frames)}"
+                if hw_same != len(frames) or len(hw) != len(frames):
                     failed.append(f"{label}: {nv_text}")
             elif nvdec.withheld():
                 nv_text = f"NVDEC not compared (the environment withholds it: {why})"
             else:
                 nv_text = f"NVDEC refused where the environment does not withhold it: {why}"
                 failed.append(f"{label}: {nv_text}")
-            _phase("h264", t0, f"{label}, {stream.n} frames ({''.join(stream.types)}), "
-                   f"{os.path.getsize(path) / 1e6:.3f} MB written in {s_write:.3f} s; decoded on "
-                   f"the card in {s_dec:.3f} s, {stream.n / s_dec:.2f} frames/s (host decoder "
-                   f"{host:.3f} s, {100 * host / s_dec:.1f}%); MP4 and frames equal cv2's "
-                   f"digests {ok} ({same}/{stream.n}); kernel launches {launches}; {nv_text}")
-    _phase("h264", t0, f"software decode at {NVDEC_RES[0]} x {NVDEC_RES[1]} of the random-syntax "
+            _phase(phase, t0, f"{label}, {stream.n} pictures ({''.join(stream.types)}), "
+                   f"{os.path.getsize(path) / 1e6:.3f} MB written in {s_write:.3f} s; {len(shas)} "
+                   f"frames decoded on the card in {s_dec:.3f} s, {len(shas) / s_dec:.2f} frames/s "
+                   f"(host decoder {host:.3f} s, {100 * host / s_dec:.1f}%); MP4 and frames equal "
+                   f"cv2's digests {ok} ({same}/{len(want_frames)}); kernel launches {launches}; "
+                   f"{nv_text}")
+    _phase(phase, t0, f"software decode at {NVDEC_RES[0]} x {NVDEC_RES[1]} of the random-syntax "
            f"streams: {rig[0] / rig[1]:.2f} frames/s, the host decoder's share "
            f"{100 * rig[2] / rig[1]:.1f}%")
     if failed:
-        raise AssertionError("h264: " + "; ".join(failed))
+        raise AssertionError(f"{phase}: " + "; ".join(failed))
 
 
-def _h264_decode(device, stream, path, coefs, failed, label):
-    """The software decoder's gates on an H.264 stream of known
-    reconstruction (utils/h264.py through open_video's default for
-    ``avc1``): every frame equal to the reconstruction in cv2's colours
-    with one nv12_to_bgr launch a frame; for the rig's stream, get_frames
-    at VIDEO_SEEKS equal to the sequential decode, and the decode rate with
-    the host's share. Returns (its text, the launches)."""
+def _software_decode(device, stream, path, coefs, failed, label):
+    """The software decoder's gates on an H.264 or HEVC stream of known
+    reconstruction (utils/h264.py or utils/hevc.py through open_video's
+    default for ``avc1``/``avc3`` and ``hvc1``): every frame equal to the
+    reconstruction in cv2's colours with one nv12_to_bgr launch a frame;
+    for the rig's streams, get_frames at VIDEO_SEEKS equal to the
+    sequential decode, and the decode rate with the host's share. Returns
+    (its text, the launches)."""
     from acinoset_tpu_torch.pipeline import video
-    from acinoset_tpu_torch.utils import h264, nvdec
+    from acinoset_tpu_torch.utils import h26x, h264, hevc, nvdec
 
     W, H = stream.size
-    for k in h264.COUNTERS:
-        h264.COUNTERS[k] = 0.0
+    module = hevc if isinstance(stream, h26x.HevcStream) else h264
+    for k in module.COUNTERS:
+        module.COUNTERS[k] = 0.0
     nvdec.nv12_to_bgr.launches = 0  # the decode path's launches: each frame's conversion
     _sync(device)
     t1 = time.perf_counter()
@@ -3653,15 +3752,15 @@ def _h264_decode(device, stream, path, coefs, failed, label):
     same = sum(f is not None and torch.equal(f, nvdec.nv12_to_bgr_plain(
         stream.surface(k, device, NVDEC_PITCH_ALIGN), stream.coded[1], (W, H), coefs))
         for k, f in enumerate(decoded))
-    if kind != h264.__name__ or same != stream.n or launches != stream.n:
+    if kind != module.__name__ or same != stream.n or launches != stream.n:
         failed.append(f"{label}: open_video read it with {kind}; {stream.n - same} frames differ "
                       f"from the reconstruction; {launches} launches for {stream.n} frames")
-    host = h264.COUNTERS["host_s"]
+    host = module.COUNTERS["host_s"]
     text = (f"software decode ({kind}) {s_dec:.3f} s, {stream.n / s_dec:.2f} frames/s (host "
             f"decoder {host:.3f} s, {100 * host / s_dec:.1f}%; copy and kernel "
-            f"{h264.COUNTERS['device_s']:.3f} s); equal to the reconstruction {same}/{stream.n}; "
+            f"{module.COUNTERS['device_s']:.3f} s); equal to the reconstruction {same}/{stream.n}; "
             f"kernel launches {launches}")
-    if stream.n == NVDEC_N:
+    if stream.size == NVDEC_RES:
         seeks = [i for i in VIDEO_SEEKS if i < stream.n] + [stream.n]
         t1 = time.perf_counter()
         got = video.get_frames(path, seeks, device=device)
@@ -3935,28 +4034,42 @@ def files_sweep_run(root, i):
 
 
 def files_h264_camera(root, px, lik, markers, device, failed):
-    """A seventh camera, GoPro's H.264 (utils.h26x.H264Stream at the run's
-    size, rate and length), through ``cli dlc`` in a run directory of its
-    own (the stages after dlc take every dlc/*.h5 as a camera of the
-    scene): labelled through the port's software decoder on every card,
-    with no Not written: line, the labelled video read back at the source's
-    frame count, size and fps, and its bytes equal to mpeg4.Writer fed
-    draw_labels of the stream's reconstruction (the frames it decodes to).
-    Returns its text."""
+    """A seventh camera, GoPro's H.264 (utils.h26x.H264Stream):
+    _files_camera."""
+    return _files_camera(root, px, lik, markers, device, failed, "h264")
+
+
+def files_hevc_camera(root, px, lik, markers, device, failed):
+    """An eighth camera, GoPro's HEVC (utils.h26x.HevcStream):
+    _files_camera."""
+    return _files_camera(root, px, lik, markers, device, failed, "hevc")
+
+
+def _files_camera(root, px, lik, markers, device, failed, codec):
+    """A camera of GoPro's H.264 or HEVC (utils.h26x.H264Stream or
+    HevcStream at the run's size, rate and length), through ``cli dlc`` in
+    a run directory of its own (the stages after dlc take every dlc/*.h5 as
+    a camera of the scene): labelled through the port's software decoder
+    on every card, with no Not written: line, the labelled video read back
+    at the source's frame count, size and fps, and its bytes equal to
+    mpeg4.Writer fed draw_labels of the stream's reconstruction (the frames
+    it decodes to). Returns its text."""
     from acinoset_tpu_torch.pipeline import data as data_io
     from acinoset_tpu_torch.pipeline import video
     from acinoset_tpu_torch.utils import h26x, mp4, mpeg4, nvdec
 
-    seventh = os.path.join(root, "h264")
-    os.makedirs(seventh)
+    extra = os.path.join(root, codec)
+    os.makedirs(extra)
     t1 = time.perf_counter()
-    stream = h26x.H264Stream(FILES_RES, FILES_N, gop=NVDEC_GOP, seed=FILES_CAMS + 1)
-    src = h26x.write_mp4(os.path.join(seventh, "cam1.mp4"), stream, FILES_FPS[0])
+    kind = h26x.HevcStream if codec == "hevc" else h26x.H264Stream
+    number = FILES_CAMS + (2 if codec == "hevc" else 1)
+    stream = kind(FILES_RES, FILES_N, gop=NVDEC_GOP, seed=number)
+    src = h26x.write_mp4(os.path.join(extra, "cam1.mp4"), stream, FILES_FPS[0])
     s_write = time.perf_counter() - t1
-    labels = os.path.join(seventh, "dlc", "cam7DLC_cam1.h5")
+    labels = os.path.join(extra, "dlc", f"cam{number}DLC_cam1.h5")
     data_io.save_dlc_points_h5(labels, px, lik, markers)
-    clock, s_dlc = _cli(["dlc", "--data_dir", seventh, "--device", device.type])
-    out = os.path.join(seventh, "dlc", "cam1_labeled.mp4")
+    clock, s_dlc = _cli(["dlc", "--data_dir", extra, "--device", device.type])
+    out = os.path.join(extra, "dlc", "cam1_labeled.mp4")
     got = None
     if os.path.exists(out):
         with mpeg4.Reader(out, device) as r:
@@ -3973,7 +4086,7 @@ def files_h264_camera(root, px, lik, markers, device, failed):
     colours = np.array(video.marker_colours(len(names)), np.uint8).reshape(-1, 3)
     rows = {int(f): i for i, f in enumerate(frames_idx)}
     coefs = nvdec.colour_coefs(stream.matrix, stream.full_range)
-    ref = os.path.join(seventh, "ref.mp4")
+    ref = os.path.join(extra, "ref.mp4")
     with mpeg4.Writer(ref, FILES_RES, mp4.read_video_track(src).fps, device) as w:
         for k in range(FILES_N):
             frame = nvdec.nv12_to_bgr_plain(stream.surface(k, device), stream.coded[1],
@@ -3985,11 +4098,12 @@ def files_h264_camera(root, px, lik, markers, device, failed):
     s_ref = time.perf_counter() - t1
     bytes_ok = got is not None and open(out, "rb").read() == open(ref, "rb").read()
     ok = got == want and not not_written and bytes_ok
+    name = "HEVC" if codec == "hevc" else "H.264"
     if not ok:
-        failed.append(f"cli dlc on the H.264 camera wrote a labelled video that reads back as "
+        failed.append(f"cli dlc on the {name} camera wrote a labelled video that reads back as "
                       f"{got} (want {want}), printed {not_written}, bytes equal to mpeg4.Writer "
                       f"fed the labels drawn on the reconstruction {bytes_ok}")
-    return (f"a seventh camera, H.264 ({os.path.getsize(src) / 1e6:.3f} MB, written in "
+    return (f"a camera of {name} ({os.path.getsize(src) / 1e6:.3f} MB, written in "
             f"{s_write:.3f} s), through cli dlc in {s_dlc:.3f} s (software decoder): labelled, "
             f"read back as {got}, no Not written: line {not not_written}, bytes equal to "
             f"mpeg4.Writer fed draw_labels of the reconstruction {bytes_ok} (reference written "
@@ -4008,8 +4122,8 @@ def phase_files(device, video_s):
     dlc stage's six labelled videos, each read back by the port's decoder
     at its source's frame count, size and fps, then tri, sba, ekf, fte in
     float64) with each stage held to tests/test_pipeline_e2e.py's bounds,
-    and a seventh camera, H.264, through ``cli dlc``
-    (files_h264_camera); tri against the CPU port and fte's six reprojected .h5 files against the projection
+    and a seventh camera, H.264, and an eighth, HEVC, each through ``cli
+    dlc`` (files_h264_camera, files_hevc_camera); tri against the CPU port and fte's six reprojected .h5 files against the projection
     of its positions, and its plots read back (files_plots_check);
     ``cli eval --hist`` against ground-truth label files (the noiseless
     projections of the truth, as tests/test_pipeline_e2e.py evaluates),
@@ -4109,6 +4223,7 @@ def phase_files(device, video_s):
         if not s_video_work < VIDEO_BUDGET_S:
             failed.append(f"the video work takes {s_video_work} s (bound {VIDEO_BUDGET_S})")
         h264_text = files_h264_camera(root, px[0], lik[0], markers, device, failed)
+        h264_text += "; " + files_hevc_camera(root, px[0], lik[0], markers, device, failed)
         t1 = time.perf_counter()
         plots_text = files_plots_check(run, failed)
         s_slice = time.perf_counter() - t1 + saves.s
@@ -4258,6 +4373,7 @@ def main():
     video_s = phase_video(device)
     phase_nvdec(device)
     phase_h264(device)
+    phase_hevc(device)
     phase_files(device, video_s)
     phase_uncertainty(device)
     phase_solvers(device)

@@ -30,7 +30,7 @@ import torch
 import chip_smoke
 from acinoset_tpu.pipeline import video as jvideo
 from acinoset_tpu_torch.pipeline import video as tvideo
-from acinoset_tpu_torch.utils import h26x, h264, mp4, mpeg4, nvdec
+from acinoset_tpu_torch.utils import h26x, h264, hevc, mp4, mpeg4, nvdec
 
 torch.set_num_threads(2)
 
@@ -228,25 +228,27 @@ def test_refusals_raise_from_the_reader(tmp_path):
 
 
 def test_open_video_picks_the_decoder_by_a_fixed_table(tmp_path):
-    """avc1/avc3 -> the software decoder; hvc1/hev1 -> NVDEC (which the
-    CPU refuses); mp4v -> the port's MPEG-4 codec; decoder= asks for one,
-    and nothing falls back."""
+    """avc1/avc3 -> the software H.264 decoder; hvc1/hev1 -> the software
+    HEVC decoder; mp4v -> the port's MPEG-4 codec; decoder= asks for one
+    (NVDEC, which the CPU refuses), and nothing falls back."""
     avc = h26x.write_mp4(str(tmp_path / "a.mp4"), h26x.RandomH264((64, 48), 2, seed=1), 30.0)
-    hevc = h26x.write_mp4(str(tmp_path / "h.mp4"), h26x.HevcStream((64, 48), 2, seed=1), 30.0)
+    hevc_path = h26x.write_mp4(str(tmp_path / "h.mp4"), h26x.HevcStream((64, 48), 2, seed=1), 30.0)
     with tvideo.open_video(avc, device="cpu") as r:
         assert isinstance(r, h264.Reader)
     with tvideo.open_video(avc, device="cpu", decoder="software") as r:
         assert isinstance(r, h264.Reader)
     with pytest.raises(mpeg4.UnsupportedVideo, match="NVDEC"):
         tvideo.open_video(avc, device="cpu", decoder="nvdec")
+    with tvideo.open_video(hevc_path, device="cpu") as r:
+        assert isinstance(r, hevc.Reader)
+    with tvideo.open_video(hevc_path, device="cpu", decoder="software") as r:
+        assert isinstance(r, hevc.Reader)
     with pytest.raises(mpeg4.UnsupportedVideo, match="NVDEC"):
-        tvideo.open_video(hevc, device="cpu")
-    with pytest.raises(mpeg4.UnsupportedVideo, match="no software decoder"):
-        tvideo.open_video(hevc, device="cpu", decoder="software")
+        tvideo.open_video(hevc_path, device="cpu", decoder="nvdec")
     with pytest.raises(ValueError, match="decoder must be"):
         tvideo.open_video(avc, device="cpu", decoder="cv2")
-    assert tvideo.DECODERS == {"avc1": "software", "avc3": "software", "hvc1": "nvdec",
-                               "hev1": "nvdec"}
+    assert tvideo.DECODERS == {"avc1": "software", "avc3": "software", "hvc1": "software",
+                               "hev1": "software"}
 
 
 def test_chip_smoke_streams_have_the_digests_cv2_gives():

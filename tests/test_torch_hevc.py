@@ -4,7 +4,8 @@ against cv2 (ffmpeg) and the JAX package: cv2 decodes the writer's
 streams to the reconstruction bit for bit (hvc1 and hev1, a size that
 the conformance window crops, BT.709 and BT.601 in both ranges); the
 JAX package's get_frames equals it; hvcC gives back the writer's VPS,
-SPS and PPS; and device='cpu' raises UnsupportedVideo naming NVDEC.
+SPS and PPS; and decoder='nvdec' on the CPU raises UnsupportedVideo naming
+NVDEC.
 The card's half is tests/test_torch_nvdec_cuda.py."""
 import numpy as np
 import pytest
@@ -63,9 +64,12 @@ def test_cabac_contexts_start_where_the_standard_puts_them():
 
 
 def test_cpu_device_raises_naming_nvdec(tmp_path):
+    """decoder='nvdec' asks for the card's decoder, which the CPU has not;
+    the software decoder reads the file by default (its tests are
+    tests/test_torch_hevc_decode.py)."""
     stream = h26x.HevcStream((64, 48), 2, seed=1)
     path = h26x.write_mp4(str(tmp_path / "cam1.mp4"), stream, 30.0, codec="hev1")
     with pytest.raises(mpeg4.UnsupportedVideo) as err:
-        tvideo.get_frames(path, [0], device="cpu")
-    assert err.value.reason == ("HEVC: the port decodes it on the card's NVDEC only, not on cpu "
-                                "(it has no software HEVC decoder)")
+        tvideo.get_frames(path, [0], device="cpu", decoder="nvdec")
+    assert err.value.reason == ("HEVC: NVDEC decodes it on the card only, not on cpu "
+                                "(decoder='software' reads it on the host)")

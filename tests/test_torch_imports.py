@@ -53,7 +53,7 @@ def test_port_and_chip_smoke_import_no_jax_nor_io_stack():
               "eval.metrics", "parallel.mesh", "entry", "utils.profiling",
               "utils.pan_compensation", "gui.label_session", "gui.skeleton_builder",
               "pipeline.plots", "pipeline.video", "utils.argus", "utils.figure",
-              "utils.mpeg4", "utils.h26x", "utils.nvdec", "utils.h264"):
+              "utils.mpeg4", "utils.h26x", "utils.nvdec", "utils.h264", "utils.hevc"):
         assert f"acinoset_tpu_torch.{m}" in modules
     code = (
         "import importlib, sys\n"

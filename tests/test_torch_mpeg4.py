@@ -567,8 +567,8 @@ def test_a_vol_that_changes_the_frame_size_raises(tmp_path, in_band):
                                         (b"av01", "AV1")])
 def test_other_codecs_raise_naming_the_codec(tmp_path, entry, name):
     """A GoPro-like sample entry (write_box_mp4's boxes with another
-    type): every reading function refuses it before it writes; HEVC, and
-    H.264 where NVDEC is asked for (the software decoder reads H.264 by
+    type): every reading function refuses it before it writes; H.264 and
+    HEVC where NVDEC is asked for (the software decoders read them by
     default), because NVDEC decodes on the card only, and so not on the
     CPU; AV1 because the port does not decode it."""
     path = str(tmp_path / "cam1.mp4")
@@ -578,12 +578,10 @@ def test_other_codecs_raise_naming_the_codec(tmp_path, entry, name):
     markers = tsyn.cheetah.get_markers()
     tdata.save_dlc_points_h5(str(tmp_path / "labels_cam1.h5"), np.zeros((4, 20, 2)),
                              np.ones((4, 20)), markers)
-    reason = (f"{name}: the port decodes it on the card's NVDEC only, not on cpu (it has no "
-              f"software {name} decoder)" if entry == b"hvc1"
-              else f"{name}: NVDEC decodes it on the card only, not on cpu (decoder='software' "
-              "reads it on the host)" if entry == b"avc1"
+    reason = (f"{name}: NVDEC decodes it on the card only, not on cpu (decoder='software' "
+              "reads it on the host)" if entry in (b"avc1", b"hvc1")
               else f"{name}: the port decodes mp4v, H.264 and HEVC only")
-    kw = dict(decoder="nvdec") if entry == b"avc1" else {}
+    kw = dict(decoder="nvdec") if entry in (b"avc1", b"hvc1") else {}
     for call in (lambda: tvideo.open_video(path, device="cpu", **kw),
                  lambda: tvideo.create_labeled_videos([path], str(tmp_path), device="cpu", **kw),
                  lambda: tvideo.get_frames(path, [0], out_dir=str(tmp_path / "frames"),

@@ -1,6 +1,13 @@
 // A software HEVC (ITU-T H.265 | ISO/IEC 23008-2) decoder for progressive
-// 8-bit 4:2:0 video in the Main and Main Still Picture profiles, and a
-// writer of test streams that drives the same syntax code.
+// 8- and 10-bit 4:2:0 video in the Main, Main 10 and Main Still Picture
+// profiles, and a writer of test streams that drives the same syntax code.
+// The sample code is templated on the bit depth (Pel<BD>: bytes at 8 bits,
+// 16-bit words at 10), and follows every place the standard reads BitDepth:
+// QpBdOffset in the QP ranges and the chroma QP, the dequantisation and
+// transform shifts, the unavailable-sample value and the strong smoothing
+// threshold, the interpolation and weighted-prediction shifts and offsets,
+// beta and tC, SAO's offset range and band shift, PCM; a 10-bit picture is
+// output as 16-bit words.
 //
 // Decoded, in the order of the standard's clauses: NAL units and the RBSP
 // (emulation prevention, Exp-Golomb codes); the VPS, the SPS
@@ -31,9 +38,10 @@
 // luma and 4-tap chroma interpolation with default and explicit weights;
 // the deblocking filter and SAO.
 //
-// Refused, naming the feature: bit depths above 8, chroma formats other
-// than 4:2:0, the range, multilayer, 3D and SCC extensions, field coding
-// (field_seq_flag, or a pic_timing SEI that says the pictures are fields).
+// Refused, naming the feature: bit depths other than 8 and 10, a chroma
+// bit depth unlike the luma's, chroma formats other than 4:2:0, the range,
+// multilayer, 3D and SCC extensions, field coding (field_seq_flag, or a
+// pic_timing SEI that says the pictures are fields).
 // Pictures of nuh_layer_id > 0 are dropped, as ffmpeg drops them.
 //
 // Which pictures a decode outputs, and in what order, is the DPB's
@@ -103,6 +111,13 @@
 //   stream is one I picture of 64 x 64 in CTBs of 32, SAO band offsets on
 //   chroma, and a bypass CU at (16, 16) of the first CTB. The writer puts
 //   such CUs in that quadrant where the CTB's chroma SAO is on;
+// - the chroma QP of deblocking (8.7.2.5.5): ffmpeg clips qPi (the two
+//   QpY's mean plus pps_cb_qp_offset or pps_cr_qp_offset) to 0..57 before
+//   Table 8-10, where the standard does not, so above 57 its tC for a
+//   chroma edge is one QP step lower; the smallest stream that showed it:
+//   three 10-bit pictures of 128 x 80 in CTBs of 16, QPs up to 46 and a
+//   Cr offset of 12, a negative tc offset. The writer refuses QPs and PPS
+//   chroma offsets that can sum above 57 (below 0 the two agree: tC is 0);
 // - the POC of a CRA after an end of sequence NAL unit: the standard
 //   (8.3.1) sets its PicOrderCntMsb to 0, as for a BLA, where ffmpeg
 //   derives it from the previous TemporalId 0 picture's; where the two
@@ -128,6 +143,7 @@
 #include <memory>
 #include <stdexcept>
 #include <string>
+#include <type_traits>
 #include <vector>
 
 namespace {
@@ -151,7 +167,14 @@ struct Unsupported : std::runtime_error {
 [[noreturn]] void unsupported(const char* what) { throw Unsupported(what); }
 
 inline int clip3(int lo, int hi, int v) { return v < lo ? lo : v > hi ? hi : v; }
-inline uint8_t clip1(int v) { return (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v); }
+// a sample of a BD-bit picture: 8-bit planes hold bytes, 10-bit ones
+// 16-bit words; the sample code is templated on BD
+template <int BD>
+using Pel = typename std::conditional<(BD > 8), uint16_t, uint8_t>::type;
+template <int BD>
+inline Pel<BD> clip1(int v) {
+    return (Pel<BD>)(v < 0 ? 0 : v > (1 << BD) - 1 ? (1 << BD) - 1 : v);
+}
 inline int sign(int v) { return (v > 0) - (v < 0); }
 inline int ceil_log2(int v) {
     int k = 0;
@@ -741,6 +764,7 @@ struct SPS {
     int lt_lsb_sps[33] = {}, lt_used_sps[33] = {};
     int temporal_mvp = 0, strong_intra_smoothing = 0;
     int vui = 0, signal_type = 0, full_range = 0, colour_desc = 0, matrix = 2, field_seq = 0;
+    int chroma_loc = -1;  // chroma_sample_loc_type_top_field, -1 where the VUI has none
     int frame_field_info = 0;
     int vui_extra = 0;  // writer: the VUI's other fields
     // derived
@@ -862,9 +886,14 @@ void vui_parameters(Syn& e, SPS& s) {
             s.matrix = e.u(8, s.matrix);
         }
     }
-    if (e.flag(x)) {  // chroma_loc_info_present_flag
-        e.ue(0);
-        e.ue(0);
+    // chroma_loc_info_present_flag: the writer writes it where asked, or
+    // (type 0) with the other fields
+    if (e.flag(s.chroma_loc >= 0 || x)) {
+        s.chroma_loc = e.ue(std::max(s.chroma_loc, 0));  // chroma_sample_loc_type_top_field
+        int bottom = e.ue(std::max(s.chroma_loc, 0));
+        if (s.chroma_loc > 5 || bottom > 5) invalid("chroma_sample_loc_type above 5");
+    } else {
+        s.chroma_loc = -1;
     }
     e.flag(0);  // neutral_chroma_indication_flag
     s.field_seq = e.flag(0);
@@ -1098,9 +1127,18 @@ void sps_syntax(Syn& e, SPS& s, Rng* rng) {
     }
     s.bit_depth = e.ue(s.bit_depth - 8) + 8;
     s.bit_depth_c = e.ue(s.bit_depth_c - 8) + 8;
-    if (s.bit_depth != 8 || s.bit_depth_c != 8)
-        unsupported("more than 8 bits a sample (bit_depth above 8, such as 10-bit Main 10): the "
-                    "port decodes 8-bit HEVC only");
+    if (s.bit_depth != 8 && s.bit_depth != 10) {
+        static char msg[128];
+        snprintf(msg, sizeof msg, "luma bit depth %d (bit_depth_luma_minus8 %d): the port decodes 8- and "
+                 "10-bit HEVC only", s.bit_depth, s.bit_depth - 8);
+        unsupported(msg);
+    }
+    if (s.bit_depth_c != s.bit_depth) {
+        static char msg[128];
+        snprintf(msg, sizeof msg, "chroma bit depth %d unlike the luma's %d: the port decodes equal "
+                 "bit depths only", s.bit_depth_c, s.bit_depth);
+        unsupported(msg);
+    }
     s.log2_max_poc_lsb = e.ue(s.log2_max_poc_lsb - 4) + 4;
     if (s.log2_max_poc_lsb > 16) invalid("log2_max_pic_order_cnt_lsb_minus4 above 12");
     int ordering = e.flag(0);
@@ -1138,7 +1176,7 @@ void sps_syntax(Syn& e, SPS& s, Rng* rng) {
         s.log2_min_pcm = e.ue(s.log2_min_pcm - 3) + 3;
         s.log2_max_pcm = e.ue(s.log2_max_pcm - s.log2_min_pcm) + s.log2_min_pcm;
         s.pcm_loop_filter_disabled = e.flag(s.pcm_loop_filter_disabled);
-        if (s.pcm_bits > 8 || s.pcm_bits_c > 8 || s.log2_max_pcm > 5)
+        if (s.pcm_bits > s.bit_depth || s.pcm_bits_c > s.bit_depth_c || s.log2_max_pcm > 5)
             invalid("PCM sample bit depths or sizes out of range");
     }
     s.num_st_rps = e.ue(s.num_st_rps);
@@ -1164,6 +1202,7 @@ void sps_syntax(Syn& e, SPS& s, Rng* rng) {
         vui_parameters(e, s);
     } else {
         s.signal_type = s.colour_desc = 0;
+        s.chroma_loc = -1;
     }
     if (s.vui && s.field_seq) unsupported("field_seq_flag: the pictures are fields (interlaced)");
     if (e.flag(0)) {  // sps_extension_present_flag
@@ -1215,7 +1254,9 @@ void pps_syntax(Syn& e, PPS& p, Rng* rng) {
     p.num_ref_idx_default[1] = e.ue(p.num_ref_idx_default[1] - 1) + 1;
     if (p.num_ref_idx_default[0] > 15 || p.num_ref_idx_default[1] > 15) invalid("num_ref_idx_default above 15");
     p.init_qp = e.se(p.init_qp - 26) + 26;
-    if (p.init_qp < 0 || p.init_qp > 51) invalid("init_qp_minus26 out of range");
+    // -(26 + QpBdOffsetY) at the most bits the decoder takes (10); the
+    // slice's SliceQpY is held to its own SPS's range
+    if (p.init_qp < -12 || p.init_qp > 51) invalid("init_qp_minus26 out of range");
     p.constrained_intra = e.flag(p.constrained_intra);
     p.transform_skip = e.flag(p.transform_skip);
     p.cu_qp_delta = e.flag(p.cu_qp_delta);
@@ -1315,28 +1356,46 @@ struct Pic {
     bool in_dpb = false, ref = false, lt = false, output = false, missing = false;
     int latency = 0, out_flag = 1;
     int W = 0, H = 0;
-    std::vector<uint8_t> y, cb, cr;
+    std::vector<uint8_t> y, cb, cr;           // the samples of an 8-bit picture
+    std::vector<uint16_t> y16, cb16, cr16;    // of a 10-bit one
     std::vector<MvField> mvf;     // per 4x4 block
     std::vector<int16_t> ctb_refs;  // per CTB: index into refs
     std::vector<SliceRefs> refs;
 
-    void alloc(int w, int h, int nctb, bool pixels, bool motion) {
+    void alloc(int w, int h, int nctb, bool pixels, bool motion, int bd) {
         W = w;
         H = h;
-        if (pixels) {
-            y.assign((size_t)w * h, 128);
-            cb.assign((size_t)w * h / 4, 128);
-            cr.assign((size_t)w * h / 4, 128);
-        } else {
-            y.clear();
-            cb.clear();
-            cr.clear();
+        y.clear();
+        cb.clear();
+        cr.clear();
+        y16.clear();
+        cb16.clear();
+        cr16.clear();
+        if (pixels) {  // 1 << (BitDepth - 1): the samples of a generated picture (8.3.3.2)
+            if (bd > 8) {
+                y16.assign((size_t)w * h, (uint16_t)(1 << (bd - 1)));
+                cb16.assign((size_t)w * h / 4, (uint16_t)(1 << (bd - 1)));
+                cr16.assign((size_t)w * h / 4, (uint16_t)(1 << (bd - 1)));
+            } else {
+                y.assign((size_t)w * h, 128);
+                cb.assign((size_t)w * h / 4, 128);
+                cr.assign((size_t)w * h / 4, 128);
+            }
         }
         mvf.assign(motion ? (size_t)(w / 4) * (h / 4) : 0, MvField());
         ctb_refs.assign(motion ? nctb : 0, 0);
         refs.assign(1, SliceRefs());
     }
+    bool has_pixels() const { return !y.empty() || !y16.empty(); }
+    template <int BD>
+    Pel<BD>* plane(int c);
+    template <int BD>
+    const Pel<BD>* plane(int c) const { return const_cast<Pic*>(this)->plane<BD>(c); }
 };
+template <>
+inline uint8_t* Pic::plane<8>(int c) { return c == 0 ? y.data() : c == 1 ? cb.data() : cr.data(); }
+template <>
+inline uint16_t* Pic::plane<10>(int c) { return c == 0 ? y16.data() : c == 1 ? cb16.data() : cr16.data(); }
 
 struct SliceHdr {
     int nal_type = 1, tid = 0;
@@ -1384,9 +1443,9 @@ struct WOpts {
     int matrix = 1, full_range = 1, colour = 1, qp_min = 22, qp_max = 36, intra_percent = 15;
     int max_refs = 4, reorder = 0, lf_across_tiles = 1, lf_across_slices = 1;
     int cabac_init = 0, extra_bits = 0, header_ext = 0, vui_extra = 0, output_flag = 0;
-    int lt_sps = 0, profile = 1;
+    int lt_sps = 0, profile = 1, bit_depth = 8, chroma_loc = -1;
 };
-const int WOPTS_N = 53;
+const int WOPTS_N = 55;
 // the writer's odds (percent) of a skipped CU, of a merged PU and of PCM
 // among eligible intra CUs; how far (luma samples) a prediction block may
 // reach past the picture; the largest level it picks most of the time
@@ -1409,6 +1468,7 @@ struct Decoder {
     std::vector<int> col_bd, row_bd, rs2ts, ts2rs, tile_id, zs;
     int wtb = 0;  // width in minimum transform blocks
     std::vector<std::unique_ptr<Pic>> pool;
+    std::array<int, 4> pool_geometry = {0, 0, 0, 0};  // W, H, CtbLog2SizeY, BitDepth
     Pic* cur = nullptr;
     Pic* done = nullptr;  // the last picture finished
     int next_id = 0;
@@ -1469,7 +1529,11 @@ struct Decoder {
     void activate(const PPS& p) {
         const SPS& s = sps[p.sps_id];
         if (!s.valid) invalid("a PPS refers to a missing SPS %d", p.sps_id);
-        bool size_change = !act || act->W != s.W || act->H != s.H || act->log2_ctb != s.log2_ctb;
+        // the pool's pictures fit the SPS they were made for (an SPS may
+        // replace another in its slot)
+        std::array<int, 4> geometry = {s.W, s.H, s.log2_ctb, s.bit_depth};
+        bool size_change = !act || geometry != pool_geometry;
+        pool_geometry = geometry;
         act = &s;
         actp = &p;
         W = s.W;
@@ -1551,7 +1615,7 @@ struct Decoder {
             pool.emplace_back(new Pic());
             p = pool.back().get();
         }
-        p->alloc(W, H, act->nctb, !e.W && !scanning, !scanning);
+        p->alloc(W, H, act->nctb, !e.W && !scanning, !scanning, act->bit_depth);
         p->id = next_id++;
         p->tag = tag;
         p->in_dpb = true;
@@ -1932,7 +1996,7 @@ struct Decoder {
             }
             s.qp_delta = e.se(s.qp_delta);
             s.qp = 26 + (p.init_qp - 26) + s.qp_delta;
-            if (s.qp < 0 || s.qp > 51) invalid("SliceQpY %d", s.qp);
+            if (s.qp < -6 * (sp.bit_depth - 8) || s.qp > 51) invalid("SliceQpY %d", s.qp);  // -QpBdOffsetY
             if (p.slice_chroma_offsets) {
                 s.cb_off = e.se(s.cb_off);
                 s.cr_off = e.se(s.cr_off);
@@ -2074,9 +2138,10 @@ struct Decoder {
             }
             if (!c.type[ci]) continue;
             int abs_[4];
-            for (int i = 0; i < 4; i++) {  // TR, cMax 7, bypass
-                int want = e.W ? r.range(0, 7) : 0, v = 0;
-                while (v < 7 && e.byp(v < want)) v++;
+            int cmax = (1 << (std::min(act->bit_depth, 10) - 5)) - 1;
+            for (int i = 0; i < 4; i++) {  // TR, cMax (1 << (Min(bitDepth, 10) - 5)) - 1, bypass
+                int want = e.W ? r.range(0, cmax) : 0, v = 0;
+                while (v < cmax && e.byp(v < want)) v++;
                 abs_[i] = v;
             }
             if (c.type[ci] == 1) {
@@ -2134,7 +2199,12 @@ struct Decoder {
         return (a + b + 1) >> 1;
     }
     int qpy_pred_cu = 26;
-    void set_qp() { qp_y = ((qpy_pred_cu + qp_delta_val + 52) % 52); }
+    // QpBdOffsetY (= QpBdOffsetC: the depths are equal)
+    int qp_bd_offset() const { return 6 * (act->bit_depth - 8); }
+    void set_qp() {
+        int off = qp_bd_offset();
+        qp_y = ((qpy_pred_cu + qp_delta_val + 52 + 2 * off) % (52 + off)) - off;
+    }
 
     void fill(std::vector<uint8_t>& a, int x0, int y0, int w, int h, uint8_t v) {
         for (int y = y0; y < y0 + h; y += 4)
@@ -2296,6 +2366,14 @@ struct Decoder {
         return e.byp(want == P_nRx2N) ? P_nRx2N : P_nLx2N;
     }
 
+    // one sample of the current picture, written as it is
+    void put(int c, size_t i, int v) {
+        if (act->bit_depth > 8)
+            cur->plane<10>(c)[i] = (uint16_t)v;
+        else
+            cur->plane<8>(c)[i] = (uint8_t)v;
+    }
+
     // 7.3.8.7
     void pcm_sample(int x0, int y0, int log2) {
         const SPS& sp = *act;
@@ -2305,14 +2383,13 @@ struct Decoder {
         for (int j = 0; j < n; j++)
             for (int i = 0; i < n; i++) {
                 int v = e.u(sp.pcm_bits, e.W ? r.range(0, (1 << sp.pcm_bits) - 1) : 0);
-                if (!e.W) cur->y[(size_t)(y0 + j) * W + x0 + i] = (uint8_t)(v << (8 - sp.pcm_bits));
+                if (!e.W) put(0, (size_t)(y0 + j) * W + x0 + i, v << (sp.bit_depth - sp.pcm_bits));
             }
-        for (int c = 0; c < 2; c++) {
-            std::vector<uint8_t>& pl = c ? cur->cr : cur->cb;
+        for (int c = 1; c <= 2; c++) {
             for (int j = 0; j < n / 2; j++)
                 for (int i = 0; i < n / 2; i++) {
                     int v = e.u(sp.pcm_bits_c, e.W ? r.range(0, (1 << sp.pcm_bits_c) - 1) : 0);
-                    if (!e.W) pl[(size_t)(y0 / 2 + j) * (W / 2) + x0 / 2 + i] = (uint8_t)(v << (8 - sp.pcm_bits_c));
+                    if (!e.W) put(c, (size_t)(y0 / 2 + j) * (W / 2) + x0 / 2 + i, v << (sp.bit_depth_c - sp.pcm_bits_c));
                 }
         }
         e.start_engine();
@@ -2814,11 +2891,12 @@ struct Decoder {
         }
     }
 
-    int qp_c[3] = {26, 26, 26};
+    int qp_c[3] = {26, 26, 26};  // Qp'Y, Qp'Cb, Qp'Cr: the QPs of dequantisation
     void chroma_qps() {
-        qp_c[0] = qp_y;
+        int off = qp_bd_offset();
+        qp_c[0] = qp_y + off;
         int oc[2] = {actp->cb_qp_offset + sh->cb_off, actp->cr_qp_offset + sh->cr_off};
-        for (int c = 0; c < 2; c++) qp_c[c + 1] = chroma_qp_table(clip3(0, 57, qp_y + oc[c]));
+        for (int c = 0; c < 2; c++) qp_c[c + 1] = chroma_qp_table(clip3(-off, 57, qp_y + oc[c])) + off;
     }
 
     // 7.3.8.10
@@ -2827,13 +2905,15 @@ struct Decoder {
             int want = 0;
             if (e.W) {  // a QpY within the writer's range
                 int target = e.rng.range(wo.qp_min, wo.qp_max);
-                want = ((target - qpy_pred_cu + 26 + 52) % 52) - 26;
+                int half = 26 + qp_bd_offset() / 2, m = 52 + qp_bd_offset();
+                want = ((target - qpy_pred_cu + half) % m + m) % m - half;
             }
             int a = 0;
             while (a < 5 && e.bin(C_QP_DELTA + (a > 0), std::abs(want) > a)) a++;
             if (a == 5) a += eg_bypass(0, std::abs(want) - 5);
             int v = a && e.byp(want < 0) ? -a : a;
-            if (v < -26 || v > 25) invalid("CuQpDeltaVal %d out of range", v);
+            if (v < -(26 + qp_bd_offset() / 2) || v > 25 + qp_bd_offset() / 2)
+                invalid("CuQpDeltaVal %d out of range", v);
             is_qp_coded = 1;
             qp_delta_val = v;
             set_qp();
@@ -2894,7 +2974,7 @@ struct Decoder {
                     if (!lev[i]) continue;
                     int m = act->scaling_enabled ? sl.sf[log2 - 2][(cu_intra ? 0 : 3) + cIdx][i] : 16;
                     int64_t scale = (int64_t)m * LEVEL_SCALE[qP % 6] << (qP / 6);
-                    int bd = log2 + 3;
+                    int bd = log2 + act->bit_depth - 5;
                     int64_t lim = ((int64_t)30000 << bd) / scale;
                     if (lim < 1) lim = 1;
                     if (std::abs(lev[i]) > lim) lev[i] = (int16_t)(lev[i] < 0 ? -lim : lim);
@@ -3165,17 +3245,25 @@ struct Decoder {
 
     // ---- reconstruction (8.6.2-8.6.7) ----
 
-    uint8_t* plane(int c) { return c == 0 ? cur->y.data() : c == 1 ? cur->cb.data() : cur->cr.data(); }
+    template <int BD>
+    Pel<BD>* plane(int c) { return cur->plane<BD>(c); }
     int stride(int c) const { return c == 0 ? W : W / 2; }
 
     void reconstruct_residual(int cIdx, int x0, int y0, int log2, const int16_t* c, int tskip) {
+        if (act->bit_depth > 8)
+            reconstruct_residual_t<10>(cIdx, x0, y0, log2, c, tskip);
+        else
+            reconstruct_residual_t<8>(cIdx, x0, y0, log2, c, tskip);
+    }
+    template <int BD>
+    void reconstruct_residual_t(int cIdx, int x0, int y0, int log2, const int16_t* c, int tskip) {
         int n = 1 << log2;
         int32_t res[32 * 32];
         if (tq_bypass) {
             for (int i = 0; i < n * n; i++) res[i] = c[i];
         } else {
             int qP = qp_c[cIdx];
-            int bd = log2 + 3;
+            int bd = log2 + BD - 5;
             const ScalingLists& sl = actp->scaling_present ? actp->sl : act->sl;
             const uint8_t* sf = act->scaling_enabled ? sl.sf[log2 - 2][(cu_intra ? 0 : 3) + cIdx] : nullptr;
             int32_t d[32 * 32];
@@ -3189,8 +3277,9 @@ struct Decoder {
                 int64_t v = ((int64_t)c[i] * m * ls + ((int64_t)1 << (bd - 1))) >> bd;
                 d[i] = (int32_t)std::max<int64_t>(-32768, std::min<int64_t>(32767, v));
             }
+            const int sh2 = 20 - BD;  // bdShift of the second stage (8.6.2)
             if (tskip) {
-                for (int i = 0; i < n * n; i++) res[i] = (d[i] * 128 + 2048) >> 12;
+                for (int i = 0; i < n * n; i++) res[i] = (d[i] * 128 + (1 << (sh2 - 1))) >> sh2;
             } else {
                 bool dst = cu_intra && cIdx == 0 && n == 4;
                 int step = 32 / n;
@@ -3222,17 +3311,17 @@ struct Decoder {
                     for (int x = 0; x < n; x++) {
                         int32_t acc = 0;
                         for (int k = 0; k <= last_col; k++) acc += gr[k] * m[k][x];
-                        res[x + n * y] = (acc + 2048) >> 12;
+                        res[x + n * y] = (acc + (1 << (sh2 - 1))) >> sh2;
                     }
                 }
             }
         }
-        uint8_t* pl = plane(cIdx);
+        Pel<BD>* pl = plane<BD>(cIdx);
         int st = stride(cIdx);
         for (int y = 0; y < n; y++)
             for (int x = 0; x < n; x++) {
-                uint8_t& v = pl[(size_t)(y0 + y) * st + x0 + x];
-                v = clip1(v + res[x + n * y]);
+                Pel<BD>& v = pl[(size_t)(y0 + y) * st + x0 + x];
+                v = clip1<BD>(v + res[x + n * y]);
             }
     }
 
@@ -3240,8 +3329,15 @@ struct Decoder {
     // the picture as reconstructed so far; (xL, yL) the block's luma place
     void intra_pred(int c, int x0, int y0, int log2, int mode, int xL, int yL) {
         if (e.W) return;
+        if (act->bit_depth > 8)
+            intra_pred_t<10>(c, x0, y0, log2, mode, xL, yL);
+        else
+            intra_pred_t<8>(c, x0, y0, log2, mode, xL, yL);
+    }
+    template <int BD>
+    void intra_pred_t(int c, int x0, int y0, int log2, int mode, int xL, int yL) {
         int n = 1 << log2, sub = c ? 1 : 0;
-        uint8_t* pl = plane(c);
+        Pel<BD>* pl = plane<BD>(c);
         int st = stride(c);
         int N = 4 * n + 1;
         int ref[4 * 64 + 1];
@@ -3280,7 +3376,7 @@ struct Decoder {
             any |= a;
         }
         if (!any) {
-            for (int i = 0; i < N; i++) ref[i] = 128;
+            for (int i = 0; i < N; i++) ref[i] = 1 << (BD - 1);
         } else {
             if (!av[0]) {
                 for (int i = 1; i < N; i++)
@@ -3299,8 +3395,8 @@ struct Decoder {
             if (dist > thr) {
                 int f[4 * 64 + 1];
                 int C = ref[2 * n], L = ref[0], T = ref[4 * n];
-                bool strong = act->strong_intra_smoothing && n == 32 && std::abs(C + T - 2 * ref[3 * n]) < 8 &&
-                              std::abs(C + L - 2 * ref[n]) < 8;
+                bool strong = act->strong_intra_smoothing && n == 32 && std::abs(C + T - 2 * ref[3 * n]) < (1 << (BD - 5)) &&
+                              std::abs(C + L - 2 * ref[n]) < (1 << (BD - 5));
                 if (strong) {
                     f[2 * n] = C;
                     for (int y = 0; y < 63; y++) f[2 * n - 1 - y] = ((63 - y) * C + (y + 1) * L + 32) >> 6;
@@ -3317,22 +3413,22 @@ struct Decoder {
         }
         auto left = [&](int y) { return ref[2 * n - 1 - y]; };  // p[-1][y], y >= -1
         auto top = [&](int x) { return x < 0 ? ref[2 * n] : ref[2 * n + 1 + x]; };  // p[x][-1]
-        auto out = [&](int x, int y) -> uint8_t& { return pl[(size_t)(y0 + y) * st + x0 + x]; };
+        auto out = [&](int x, int y) -> Pel<BD>& { return pl[(size_t)(y0 + y) * st + x0 + x]; };
         if (mode == 0) {
             for (int y = 0; y < n; y++)
                 for (int x = 0; x < n; x++)
-                    out(x, y) = (uint8_t)(((n - 1 - x) * left(y) + (x + 1) * top(n) + (n - 1 - y) * top(x) +
+                    out(x, y) = (Pel<BD>)(((n - 1 - x) * left(y) + (x + 1) * top(n) + (n - 1 - y) * top(x) +
                                            (y + 1) * left(n) + n) >> (log2 + 1));
         } else if (mode == 1) {
             int sum = n;
             for (int i = 0; i < n; i++) sum += top(i) + left(i);
             int dc = sum >> (log2 + 1);
             for (int y = 0; y < n; y++)
-                for (int x = 0; x < n; x++) out(x, y) = (uint8_t)dc;
+                for (int x = 0; x < n; x++) out(x, y) = (Pel<BD>)dc;
             if (c == 0 && n < 32) {
-                out(0, 0) = (uint8_t)((left(0) + 2 * dc + top(0) + 2) >> 2);
-                for (int x = 1; x < n; x++) out(x, 0) = (uint8_t)((top(x) + 3 * dc + 2) >> 2);
-                for (int y = 1; y < n; y++) out(0, y) = (uint8_t)((left(y) + 3 * dc + 2) >> 2);
+                out(0, 0) = (Pel<BD>)((left(0) + 2 * dc + top(0) + 2) >> 2);
+                for (int x = 1; x < n; x++) out(x, 0) = (Pel<BD>)((top(x) + 3 * dc + 2) >> 2);
+                for (int y = 1; y < n; y++) out(0, y) = (Pel<BD>)((left(y) + 3 * dc + 2) >> 2);
             }
         } else {
             int angle = INTRA_ANGLE[mode];
@@ -3355,16 +3451,16 @@ struct Decoder {
                 for (int x = 0; x < n; x++) {
                     int v = fr ? ((32 - fr) * rr[x + idx + 1] + fr * rr[x + idx + 2] + 16) >> 5 : rr[x + idx + 1];
                     if (vert)
-                        out(x, y) = (uint8_t)v;
+                        out(x, y) = (Pel<BD>)v;
                     else
-                        out(y, x) = (uint8_t)v;
+                        out(y, x) = (Pel<BD>)v;
                 }
             }
             if (c == 0 && n < 32) {
                 if (mode == 26)
-                    for (int y = 0; y < n; y++) out(0, y) = clip1(top(0) + ((left(y) - left(-1)) >> 1));
+                    for (int y = 0; y < n; y++) out(0, y) = clip1<BD>(top(0) + ((left(y) - left(-1)) >> 1));
                 if (mode == 10)
-                    for (int x = 0; x < n; x++) out(x, 0) = clip1(left(0) + ((top(x) - top(-1)) >> 1));
+                    for (int x = 0; x < n; x++) out(x, 0) = clip1<BD>(left(0) + ((top(x) - top(-1)) >> 1));
             }
         }
     }
@@ -3372,8 +3468,9 @@ struct Decoder {
     // 8.5.3.3: fractional sample interpolation and weighted prediction
     int16_t predbuf[2][3][64 * 64];
 
+    template <int BD>
     void mc(const Pic* ref, int c, int xP, int yP, int w, int h, const int16_t* mv, int16_t* dst) {
-        const uint8_t* pl = c == 0 ? ref->y.data() : c == 1 ? ref->cb.data() : ref->cr.data();
+        const Pel<BD>* pl = ref->plane<BD>(c);
         int PW = c ? W / 2 : W, PH = c ? H / 2 : H;
         int fx, fy, ix, iy;
         if (c == 0) {
@@ -3393,13 +3490,13 @@ struct Decoder {
         // the reference window the filters read, its coordinates clipped
         // to the picture (8.5.3.3.3.1) once
         int bw = w + taps - 1, bh = h + taps - 1;
-        uint8_t win[(64 + 7) * (64 + 7)];
+        Pel<BD> win[(64 + 7) * (64 + 7)];
         int x0 = ix - half, y0 = iy - half;
         for (int y = 0; y < bh; y++) {
-            const uint8_t* row = pl + (size_t)clip3(0, PH - 1, y0 + y) * PW;
-            uint8_t* out = win + bw * y;
+            const Pel<BD>* row = pl + (size_t)clip3(0, PH - 1, y0 + y) * PW;
+            Pel<BD>* out = win + bw * y;
             if (x0 >= 0 && x0 + bw <= PW) {
-                memcpy(out, row + x0, bw);
+                memcpy(out, row + x0, bw * sizeof(Pel<BD>));
             } else {
                 for (int x = 0; x < bw; x++) out[x] = row[clip3(0, PW - 1, x0 + x)];
             }
@@ -3407,7 +3504,7 @@ struct Decoder {
         auto S = [&](int x, int y) { return (int)win[(y + half) * bw + x + half]; };  // relative to (ix, iy)
         if (!fx && !fy) {
             for (int y = 0; y < h; y++)
-                for (int x = 0; x < w; x++) dst[x + w * y] = (int16_t)(S(x, y) << 6);
+                for (int x = 0; x < w; x++) dst[x + w * y] = (int16_t)(S(x, y) << (14 - BD));
             return;
         }
         if (!fy) {
@@ -3415,7 +3512,7 @@ struct Decoder {
                 for (int x = 0; x < w; x++) {
                     int s = 0;
                     for (int i = 0; i < taps; i++) s += fh[i] * S(x + i - half, y);
-                    dst[x + w * y] = (int16_t)s;
+                    dst[x + w * y] = (int16_t)(s >> (BD - 8));
                 }
             return;
         }
@@ -3424,7 +3521,7 @@ struct Decoder {
                 for (int x = 0; x < w; x++) {
                     int s = 0;
                     for (int i = 0; i < taps; i++) s += fv[i] * S(x, y + i - half);
-                    dst[x + w * y] = (int16_t)s;
+                    dst[x + w * y] = (int16_t)(s >> (BD - 8));
                 }
             return;
         }
@@ -3433,7 +3530,7 @@ struct Decoder {
             for (int x = 0; x < w; x++) {
                 int s = 0;
                 for (int i = 0; i < taps; i++) s += fh[i] * S(x + i - half, y - half);
-                tmp[x + w * y] = s;
+                tmp[x + w * y] = s >> (BD - 8);
             }
         for (int y = 0; y < h; y++)
             for (int x = 0; x < w; x++) {
@@ -3444,19 +3541,26 @@ struct Decoder {
     }
 
     void predict_inter(int xP, int yP, int w, int h, const MvField& m) {
+        if (act->bit_depth > 8)
+            predict_inter_t<10>(xP, yP, w, h, m);
+        else
+            predict_inter_t<8>(xP, yP, w, h, m);
+    }
+    template <int BD>
+    void predict_inter_t(int xP, int yP, int w, int h, const MvField& m) {
         const SliceHdr& s = *sh;
         for (int l = 0; l < 2; l++) {
             if (!(m.pf >> l & 1)) continue;
             const Pic* ref = s.list[l][m.ref[l]];
-            if (!ref || ref->y.empty()) invalid("a reference picture without samples");
-            mc(ref, 0, xP, yP, w, h, m.mv[l], predbuf[l][0]);
-            mc(ref, 1, xP / 2, yP / 2, w / 2, h / 2, m.mv[l], predbuf[l][1]);
-            mc(ref, 2, xP / 2, yP / 2, w / 2, h / 2, m.mv[l], predbuf[l][2]);
+            if (!ref || !ref->has_pixels()) invalid("a reference picture without samples");
+            mc<BD>(ref, 0, xP, yP, w, h, m.mv[l], predbuf[l][0]);
+            mc<BD>(ref, 1, xP / 2, yP / 2, w / 2, h / 2, m.mv[l], predbuf[l][1]);
+            mc<BD>(ref, 2, xP / 2, yP / 2, w / 2, h / 2, m.mv[l], predbuf[l][2]);
         }
         bool weighted = s.type == 1 ? actp->weighted_pred : actp->weighted_bipred;
         for (int c = 0; c < 3; c++) {
             int cw = c ? w / 2 : w, ch = c ? h / 2 : h, cx = c ? xP / 2 : xP, cy = c ? yP / 2 : yP;
-            uint8_t* pl = plane(c);
+            Pel<BD>* pl = plane<BD>(c);
             int st = stride(c);
             const int16_t* p0 = predbuf[0][c];
             const int16_t* p1 = predbuf[1][c];
@@ -3465,17 +3569,17 @@ struct Decoder {
                     int i = x + cw * y, v;
                     if (!weighted) {
                         if (m.pf == 3)
-                            v = (p0[i] + p1[i] + 64) >> 7;
+                            v = (p0[i] + p1[i] + (1 << (14 - BD))) >> (15 - BD);
                         else
-                            v = ((m.pf == 1 ? p0[i] : p1[i]) + 32) >> 6;
+                            v = ((m.pf == 1 ? p0[i] : p1[i]) + (1 << (13 - BD))) >> (14 - BD);
                     } else {
-                        int denom = c ? s.chroma_denom : s.luma_denom, l2 = denom + 6;
+                        int denom = c ? s.chroma_denom : s.luma_denom, l2 = denom + 14 - BD;
                         int wt[2], o[2];
                         for (int l = 0; l < 2; l++) {
                             if (!(m.pf >> l & 1)) continue;
                             int ri = m.ref[l];
                             wt[l] = c ? s.cw[l][ri][c - 1] : s.lw[l][ri];
-                            o[l] = c ? chroma_offset(s, l, ri, c - 1) : s.lo[l][ri];
+                            o[l] = (c ? chroma_offset(s, l, ri, c - 1) : s.lo[l][ri]) * (1 << (BD - 8));
                         }
                         if (m.pf == 3) {
                             v = (p0[i] * wt[0] + p1[i] * wt[1] + (o[0] + o[1] + 1) * (1 << l2)) >> (l2 + 1);
@@ -3485,7 +3589,7 @@ struct Decoder {
                             v = ((p * wt[l] + (1 << (l2 - 1))) >> l2) + o[l];
                         }
                     }
-                    pl[(size_t)(cy + y) * st + cx + x] = clip1(v);
+                    pl[(size_t)(cy + y) * st + cx + x] = clip1<BD>(v);
                 }
         }
     }
@@ -3577,14 +3681,15 @@ struct Decoder {
 
     // one 4-sample luma edge segment: P(i, k) / Q(i, k) sample i away from
     // the edge on line k
-    void filter_luma(uint8_t* q0, int step, int across, int bs, int xp, int yp, int xq, int yq) {
+    template <int BD>
+    void filter_luma(Pel<BD>* q0, int step, int across, int bs, int xp, int yp, int xq, int yq) {
         const SliceHdr& s = slices[ctb_slice[ctb_of(xq, yq)]];
         int qpl = (qpy[b4(xq, yq)] + qpy[b4(xp, yp)] + 1) >> 1;
-        int beta = BETA_TABLE[clip3(0, 51, qpl + 2 * s.beta_offset)];
-        int tc = TC_TABLE[clip3(0, 53, qpl + 2 * (bs - 1) + 2 * s.tc_offset)];
+        int beta = BETA_TABLE[clip3(0, 51, qpl + 2 * s.beta_offset)] * (1 << (BD - 8));
+        int tc = TC_TABLE[clip3(0, 53, qpl + 2 * (bs - 1) + 2 * s.tc_offset)] * (1 << (BD - 8));
         if (!tc) return;
-        auto P = [&](int i, int k) -> uint8_t& { return q0[k * step - (i + 1) * across]; };
-        auto Q = [&](int i, int k) -> uint8_t& { return q0[k * step + i * across]; };
+        auto P = [&](int i, int k) -> Pel<BD>& { return q0[k * step - (i + 1) * across]; };
+        auto Q = [&](int i, int k) -> Pel<BD>& { return q0[k * step + i * across]; };
         int dp0 = std::abs(P(2, 0) - 2 * P(1, 0) + P(0, 0)), dp3 = std::abs(P(2, 3) - 2 * P(1, 3) + P(0, 3));
         int dq0 = std::abs(Q(2, 0) - 2 * Q(1, 0) + Q(0, 0)), dq3 = std::abs(Q(2, 3) - 2 * Q(1, 3) + Q(0, 3));
         int dpq0 = dp0 + dq0, dpq3 = dp3 + dq3, dp = dp0 + dp3, dq = dq0 + dq3, d = dpq0 + dpq3;
@@ -3601,54 +3706,63 @@ struct Decoder {
             int qq0 = Q(0, k), q1 = Q(1, k), q2 = Q(2, k), q3 = Q(3, k);
             if (dE == 2) {
                 if (!np) {
-                    P(0, k) = (uint8_t)clip3(p0 - 2 * tc, p0 + 2 * tc, (p2 + 2 * p1 + 2 * p0 + 2 * qq0 + q1 + 4) >> 3);
-                    P(1, k) = (uint8_t)clip3(p1 - 2 * tc, p1 + 2 * tc, (p2 + p1 + p0 + qq0 + 2) >> 2);
-                    P(2, k) = (uint8_t)clip3(p2 - 2 * tc, p2 + 2 * tc, (2 * p3 + 3 * p2 + p1 + p0 + qq0 + 4) >> 3);
+                    P(0, k) = (Pel<BD>)clip3(p0 - 2 * tc, p0 + 2 * tc, (p2 + 2 * p1 + 2 * p0 + 2 * qq0 + q1 + 4) >> 3);
+                    P(1, k) = (Pel<BD>)clip3(p1 - 2 * tc, p1 + 2 * tc, (p2 + p1 + p0 + qq0 + 2) >> 2);
+                    P(2, k) = (Pel<BD>)clip3(p2 - 2 * tc, p2 + 2 * tc, (2 * p3 + 3 * p2 + p1 + p0 + qq0 + 4) >> 3);
                 }
                 if (!nq) {
-                    Q(0, k) = (uint8_t)clip3(qq0 - 2 * tc, qq0 + 2 * tc, (p1 + 2 * p0 + 2 * qq0 + 2 * q1 + q2 + 4) >> 3);
-                    Q(1, k) = (uint8_t)clip3(q1 - 2 * tc, q1 + 2 * tc, (p0 + qq0 + q1 + q2 + 2) >> 2);
-                    Q(2, k) = (uint8_t)clip3(q2 - 2 * tc, q2 + 2 * tc, (p0 + qq0 + q1 + 3 * q2 + 2 * q3 + 4) >> 3);
+                    Q(0, k) = (Pel<BD>)clip3(qq0 - 2 * tc, qq0 + 2 * tc, (p1 + 2 * p0 + 2 * qq0 + 2 * q1 + q2 + 4) >> 3);
+                    Q(1, k) = (Pel<BD>)clip3(q1 - 2 * tc, q1 + 2 * tc, (p0 + qq0 + q1 + q2 + 2) >> 2);
+                    Q(2, k) = (Pel<BD>)clip3(q2 - 2 * tc, q2 + 2 * tc, (p0 + qq0 + q1 + 3 * q2 + 2 * q3 + 4) >> 3);
                 }
             } else {
                 int delta = (9 * (qq0 - p0) - 3 * (q1 - p1) + 8) >> 4;
                 if (std::abs(delta) >= tc * 10) continue;
                 delta = clip3(-tc, tc, delta);
-                if (!np) P(0, k) = clip1(p0 + delta);
-                if (!nq) Q(0, k) = clip1(qq0 - delta);
+                if (!np) P(0, k) = clip1<BD>(p0 + delta);
+                if (!nq) Q(0, k) = clip1<BD>(qq0 - delta);
                 if (dEp && !np) {
                     int dpv = clip3(-(tc >> 1), tc >> 1, (((p2 + p0 + 1) >> 1) - p1 + delta) >> 1);
-                    P(1, k) = clip1(p1 + dpv);
+                    P(1, k) = clip1<BD>(p1 + dpv);
                 }
                 if (dEq && !nq) {
                     int dqv = clip3(-(tc >> 1), tc >> 1, (((q2 + qq0 + 1) >> 1) - q1 - delta) >> 1);
-                    Q(1, k) = clip1(q1 + dqv);
+                    Q(1, k) = clip1<BD>(q1 + dqv);
                 }
             }
         }
     }
 
     // two chroma lines of an edge whose luma segment has bS 2
-    void filter_chroma(uint8_t* q0, int step, int across, int c, int xp, int yp, int xq, int yq) {
+    template <int BD>
+    void filter_chroma(Pel<BD>* q0, int step, int across, int c, int xp, int yp, int xq, int yq) {
         const SliceHdr& s = slices[ctb_slice[ctb_of(xq, yq)]];
         int off = c == 1 ? actp->cb_qp_offset : actp->cr_qp_offset;
         int qpi = ((qpy[b4(xq, yq)] + qpy[b4(xp, yp)] + 1) >> 1) + off;
         int qpc = chroma_qp_table(qpi);
-        int tc = TC_TABLE[clip3(0, 53, qpc + 2 + 2 * s.tc_offset)];
+        int tc = TC_TABLE[clip3(0, 53, qpc + 2 + 2 * s.tc_offset)] * (1 << (BD - 8));
         if (!tc) return;
         bool np = no_filter(xp, yp), nq = no_filter(xq, yq);
         for (int k = 0; k < 2; k++) {
-            uint8_t& P0 = q0[k * step - across];
-            uint8_t& Q0 = q0[k * step];
+            Pel<BD>& P0 = q0[k * step - across];
+            Pel<BD>& Q0 = q0[k * step];
             int p1 = q0[k * step - 2 * across], q1 = q0[k * step + across];
             int delta = clip3(-tc, tc, ((((int)Q0 - P0) * 4) + p1 - q1 + 4) >> 3);
             int p0v = P0, q0v = Q0;
-            if (!np) P0 = clip1(p0v + delta);
-            if (!nq) Q0 = clip1(q0v - delta);
+            if (!np) P0 = clip1<BD>(p0v + delta);
+            if (!nq) Q0 = clip1<BD>(q0v - delta);
         }
     }
 
     void deblock_picture() {
+        if (act->bit_depth > 8)
+            deblock_picture_t<10>();
+        else
+            deblock_picture_t<8>();
+    }
+    template <int BD>
+    void deblock_picture_t() {
+        Pel<BD>* luma = plane<BD>(0);
         for (int dir = 0; dir < 2; dir++) {
             const std::vector<uint8_t>& bs = dir == 0 ? bs_v : bs_h;
             for (int y = 0; y < H; y += 4)
@@ -3657,16 +3771,16 @@ struct Decoder {
                     if (!v) continue;
                     if (dir == 0) {
                         if (x & 7) continue;
-                        filter_luma(&cur->y[(size_t)y * W + x], W, 1, v, x - 1, y, x, y);
+                        filter_luma<BD>(luma + (size_t)y * W + x, W, 1, v, x - 1, y, x, y);
                         if (v == 2 && (x & 15) == 0)
                             for (int c = 1; c <= 2; c++)
-                                filter_chroma(plane(c) + (size_t)(y / 2) * (W / 2) + x / 2, W / 2, 1, c, x - 1, y, x, y);
+                                filter_chroma<BD>(plane<BD>(c) + (size_t)(y / 2) * (W / 2) + x / 2, W / 2, 1, c, x - 1, y, x, y);
                     } else {
                         if (y & 7) continue;
-                        filter_luma(&cur->y[(size_t)y * W + x], 1, W, v, x, y - 1, x, y);
+                        filter_luma<BD>(luma + (size_t)y * W + x, 1, W, v, x, y - 1, x, y);
                         if (v == 2 && (y & 15) == 0)
                             for (int c = 1; c <= 2; c++)
-                                filter_chroma(plane(c) + (size_t)(y / 2) * (W / 2) + x / 2, 1, W / 2, c, x, y - 1, x, y);
+                                filter_chroma<BD>(plane<BD>(c) + (size_t)(y / 2) * (W / 2) + x / 2, 1, W / 2, c, x, y - 1, x, y);
                     }
                 }
         }
@@ -3678,8 +3792,16 @@ struct Decoder {
         bool any = false;
         for (const SliceHdr& s : slices) any |= s.sao_luma || s.sao_chroma;
         if (!any) return;
+        if (act->bit_depth > 8)
+            sao_picture_t<10>();
+        else
+            sao_picture_t<8>();
+    }
+    template <int BD>
+    void sao_picture_t() {
         const SPS& sp = *act;
-        std::vector<uint8_t> src[3] = {cur->y, cur->cb, cur->cr};
+        std::vector<Pel<BD>> src[3];
+        for (int c = 0; c < 3; c++) src[c].assign(plane<BD>(c), plane<BD>(c) + (c ? (size_t)W * H / 4 : (size_t)W * H));
         static const int HP[4][2] = {{-1, 1}, {0, 0}, {-1, 1}, {1, -1}};
         static const int VP[4][2] = {{0, 0}, {-1, 1}, {-1, 1}, {-1, 1}};
         for (int rs = 0; rs < sp.nctb; rs++) {
@@ -3690,8 +3812,8 @@ struct Decoder {
                 if (!c.type[ci]) continue;
                 int sub = ci ? 1 : 0, PW = W >> sub, PH = H >> sub, cs = sp.ctb >> sub;
                 int x0 = rx * cs, y0 = ry * cs, x1 = std::min(x0 + cs, PW), y1 = std::min(y0 + cs, PH);
-                const uint8_t* in = src[ci].data();
-                uint8_t* out = plane(ci);
+                const Pel<BD>* in = src[ci].data();
+                Pel<BD>* out = plane<BD>(ci);
                 int table[32] = {};
                 if (c.type[ci] == 1)
                     for (int k = 0; k < 4; k++) table[(k + c.band[ci]) & 31] = k + 1;
@@ -3701,7 +3823,7 @@ struct Decoder {
                         if (no_filter(xl, yl)) continue;
                         int v = in[(size_t)y * PW + x], k;
                         if (c.type[ci] == 1) {
-                            k = table[v >> 3];
+                            k = table[v >> (BD - 5)];  // bandShift
                         } else {
                             int e0 = c.eo[ci];
                             int s_ = 0;
@@ -3738,7 +3860,7 @@ struct Decoder {
                             static const int MAPE[5] = {1, 2, 0, 3, 4};
                             k = MAPE[2 + s_];
                         }
-                        out[(size_t)y * PW + x] = clip1(v + c.off[ci][k]);
+                        out[(size_t)y * PW + x] = clip1<BD>(v + c.off[ci][k]);
                     }
             }
         }
@@ -3964,14 +4086,28 @@ struct Decoder {
         return done != nullptr;
     }
 
-    void output(uint8_t* nv12) const {
-        memcpy(nv12, done->y.data(), (size_t)W * H);
-        uint8_t* uv = nv12 + (size_t)W * H;
+    // the finished picture: luma rows, then rows of interleaved Cb Cr, in
+    // bytes (8-bit) or in native 16-bit words (10-bit)
+    template <int BD>
+    void output(uint8_t* buf) const {
+        Pel<BD>* y = reinterpret_cast<Pel<BD>*>(buf);
+        memcpy(y, done->plane<BD>(0), (size_t)W * H * sizeof(Pel<BD>));
+        Pel<BD>* uv = y + (size_t)W * H;
+        const Pel<BD>* cb = done->plane<BD>(1);
+        const Pel<BD>* cr = done->plane<BD>(2);
         for (size_t k = 0; k < (size_t)W * H / 4; k++) {
-            uv[2 * k] = done->cb[k];
-            uv[2 * k + 1] = done->cr[k];
+            uv[2 * k] = cb[k];
+            uv[2 * k + 1] = cr[k];
         }
     }
+    // the finished picture's own depth (its 16-bit planes are filled)
+    void output(uint8_t* buf) const {
+        if (!done->y16.empty())
+            output<10>(buf);
+        else
+            output<8>(buf);
+    }
+    size_t output_bytes() const { return (size_t)W * H * 3 / 2 * (done->y16.empty() ? 1 : 2); }
 
     void reset() {
         for (auto& q : pool) q->in_dpb = q->ref = q->lt = q->output = false;
@@ -4097,8 +4233,9 @@ struct Decoder {
         s.amp = wo.amp;
         s.sao = wo.sao;
         s.pcm = wo.pcm;
-        s.pcm_bits = r.range(5, 8);
-        s.pcm_bits_c = r.range(5, 8);
+        s.bit_depth = s.bit_depth_c = wo.bit_depth;
+        s.pcm_bits = r.range(5, s.bit_depth);
+        s.pcm_bits_c = r.range(5, s.bit_depth_c);
         s.log2_min_pcm = 3;
         s.log2_max_pcm = std::min(5, s.log2_ctb);
         s.pcm_loop_filter_disabled = wo.pcm_loop_filter_disabled;
@@ -4112,6 +4249,7 @@ struct Decoder {
         s.colour_desc = wo.colour;
         s.matrix = wo.matrix;
         s.vui_extra = wo.vui_extra;
+        s.chroma_loc = wo.chroma_loc;
         s.long_term_present = wo.long_term;
         plan_rps(pl, npl, s);
         e.bw.clear();
@@ -4609,7 +4747,8 @@ void hevc_close(void* h) { delete static_cast<Decoder*>(h); }
 // is one NAL unit, as a parameter set from hvcC). Where it finishes a
 // picture (output or not: hevc_scan tells), *got is 1 and the picture is
 // written into nv12 of cap bytes (the coded width x height luma rows, then
-// as many half rows of interleaved Cb Cr).
+// as many half rows of interleaved Cb Cr; 16-bit words where the SPS says
+// 10 bits, as P010 less its shift).
 int hevc_decode(void* h, const uint8_t* data, int64_t n, int length_size, uint8_t* nv12, int64_t cap,
                 int32_t* got, char* err, int errlen) {
     Decoder* d = static_cast<Decoder*>(h);
@@ -4617,7 +4756,8 @@ int hevc_decode(void* h, const uint8_t* data, int64_t n, int length_size, uint8_
     try {
         if (d->decode(data, (size_t)n, length_size)) {
             *got = 1;
-            if ((int64_t)d->W * d->H * 3 / 2 > cap && nv12) invalid("a picture larger than its buffer (the size changed)");
+            if ((int64_t)d->output_bytes() > cap && nv12)
+                invalid("a picture larger than its buffer (the size or the bit depth changed)");
             if (nv12) d->output(nv12);
         }
         return 0;
@@ -4633,13 +4773,15 @@ int hevc_decode(void* h, const uint8_t* data, int64_t n, int length_size, uint8_
 // The stream's format from its active (else first) SPS: coded width and
 // height, the conformance window (left, top, width, height), VUI
 // video_signal_type (present, full range, colour description present,
-// matrix).
+// matrix), the bit depth and the VUI's chroma_sample_loc_type_top_field
+// (-1: none).
 int hevc_info(void* h, int32_t* rec) {
     Decoder* d = static_cast<Decoder*>(h);
     const SPS* s = d->any_sps();
     if (!s) return -1;
-    int v[10] = {s->W, s->H, 2 * s->conf_l, 2 * s->conf_t, s->W - 2 * (s->conf_l + s->conf_r),
-                 s->H - 2 * (s->conf_t + s->conf_b), s->signal_type, s->full_range, s->colour_desc, s->matrix};
+    int v[12] = {s->W, s->H, 2 * s->conf_l, 2 * s->conf_t, s->W - 2 * (s->conf_l + s->conf_r),
+                 s->H - 2 * (s->conf_t + s->conf_b), s->signal_type, s->full_range, s->colour_desc, s->matrix,
+                 s->bit_depth, s->chroma_loc};
     memcpy(rec, v, sizeof v);
     return 0;
 }

@@ -25,6 +25,24 @@
 // 4 columns of 2 rows (one chroma row): one 4-byte load per luma row and
 // one for the two chroma pairs, three 4-byte stores per row. Bound: bytes,
 // 1.5 W H in and 3 W H out (18.5 MB at 2704 x 1520, 5.52 us at 3.35 TB/s).
+//
+// The kernel yuv420p10_to_bgr: it too replaces no TPU kernel. It converts
+// the software HEVC decoder's 10-bit pictures (16-bit samples in NV12's
+// layout: luma rows, then interleaved Cb Cr rows, at a pitch in samples)
+// to uint8 BGR in the arithmetic of swscale's scaler, which cv2 takes for
+// 10-bit frames (utils/nvdec.py's notes): chroma filtered horizontally and
+// vertically by four taps each (swscale's bicubic at the stream's chroma
+// siting, 14- and 12-bit coefficients; a table of each output column's and
+// row's first input and coefficients, which the caller builds), the
+// horizontal pass to 15 bits ((sum s c) >> 9, at most 32767); every row but
+// the last two in the x86 vertical scaler's arithmetic (each tap's product
+// >> 16, a rounder of 4, the 13-bit constants), the last two in the C
+// output's (8-bit Y, U, V looked up through the tables' formula). A thread
+// takes 4 columns of one row: one 8-byte load of luma, 4-byte loads of the
+// Cb Cr pairs its taps name (4 x 4 for each of its 2 chroma columns;
+// neighbouring threads and rows read them again, from cache), three 4-byte
+// stores. Bound: bytes, 3 W H in (16-bit) and 3 W H out (24.66 MB at 2704 x
+// 1520, 7.36 us at 3.35 TB/s).
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <dlfcn.h>
@@ -446,6 +464,95 @@ __global__ void __launch_bounds__(256) nv12_to_bgr_kernel(
   }
 }
 
+// the 10-bit conversion's constants: the vertical scaler's six (as Coefs)
+// and the tables' six (cy, ybase, Cb->B, Cb->G, Cr->G, Cr->R)
+struct Coefs10 { int ycoef, yoff, cb_b, cb_g, cr_g, cr_r, cy, ybase, t_cb_b, t_cb_g, t_cr_g, t_cr_r; };
+
+__global__ void __launch_bounds__(256) yuv420p10_to_bgr_kernel(
+    const uint16_t *__restrict__ luma, const uint16_t *__restrict__ chroma, int pitch,
+    const int *__restrict__ htaps, const int *__restrict__ vtaps, uint8_t *__restrict__ bgr, int W,
+    int H, Coefs10 k, int vec) {
+  const int x0 = (blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  if (x0 >= W || y >= H) return;
+  const int n = min(4, W - x0);  // W is even: 4 or 2 columns, 2 or 1 chroma pairs
+  const int *vt = vtaps + 5 * y;  // first chroma row, four coefficients
+  const bool table_rows = y >= H - 2;
+  int acc[4] = {0, 0, 0, 0};  // Cb, Cr, Cb, Cr of the columns' two pairs
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int c = vt[1 + j];
+    const uint16_t *row = chroma + (size_t)(vt[0] + j) * pitch;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      if (2 * q >= n) break;
+      // the horizontal pass: 15-bit Cb and Cr of chroma column x0 / 2 + q
+      const int *ht = htaps + 5 * (x0 / 2 + q);
+      int cb = 0, cr = 0;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const uint32_t pair = *reinterpret_cast<const uint32_t *>(row + 2 * (ht[0] + i));
+        cb += (int)(pair & 0xFFFF) * ht[1 + i];
+        cr += (int)(pair >> 16) * ht[1 + i];
+      }
+      cb = min(cb >> 9, 32767);
+      cr = min(cr >> 9, 32767);
+      acc[2 * q] += table_rows ? cb * c : (cb * c) >> 16;
+      acc[2 * q + 1] += table_rows ? cr * c : (cr * c) >> 16;
+    }
+  }
+  uint16_t yy[4] = {0, 0, 0, 0};
+  const uint16_t *l = luma + (size_t)y * pitch + x0;
+  if (vec) {
+    *reinterpret_cast<uint2 *>(yy) = *reinterpret_cast<const uint2 *>(l);
+  } else {
+    for (int i = 0; i < n; ++i) yy[i] = l[i];
+  }
+  uint8_t out[12];
+  if (!table_rows) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int d = acc[2 * j] + 4 - 1024, e = acc[2 * j + 1] + 4 - 1024;
+      const int tb = (d * k.cb_b) >> 16;
+      const int tg = ((d * k.cb_g) >> 16) + ((e * k.cr_g) >> 16);
+      const int tr = (e * k.cr_r) >> 16;
+#pragma unroll
+      for (int i = 2 * j; i < 2 * j + 2; ++i) {
+        const int yv = ((2 * (int)yy[i] + 4 - k.yoff) * k.ycoef) >> 16;
+        out[3 * i] = sat8(yv + tb);
+        out[3 * i + 1] = sat8(yv + tg);
+        out[3 * i + 2] = sat8(yv + tr);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int u = min(max((acc[2 * j] + (1 << 18)) >> 19, 0), 255);
+      const int v = min(max((acc[2 * j + 1] + (1 << 18)) >> 19, 0), 255);
+      const int ob = ((u * k.t_cb_b) >> 16) - (k.t_cb_b >> 9);
+      const int og = ((u * k.t_cb_g) >> 16) - (k.t_cb_g >> 9) + ((v * k.t_cr_g) >> 16) - (k.t_cr_g >> 9);
+      const int orr = ((v * k.t_cr_r) >> 16) - (k.t_cr_r >> 9);
+#pragma unroll
+      for (int i = 2 * j; i < 2 * j + 2; ++i) {
+        const int y8 = (((int)yy[i] << 17) + (1 << 18)) >> 19;
+        out[3 * i] = sat8((k.ybase + (y8 + ob) * k.cy) >> 16);
+        out[3 * i + 1] = sat8((k.ybase + (y8 + og) * k.cy) >> 16);
+        out[3 * i + 2] = sat8((k.ybase + (y8 + orr) * k.cy) >> 16);
+      }
+    }
+  }
+  uint8_t *o = bgr + ((size_t)y * W + x0) * 3;
+  if (vec) {
+    uint32_t *o4 = reinterpret_cast<uint32_t *>(o);
+    const uint32_t *w = reinterpret_cast<const uint32_t *>(out);
+    o4[0] = w[0];
+    o4[1] = w[1];
+    o4[2] = w[2];
+  } else {
+    for (int i = 0; i < 3 * n; ++i) o[i] = out[i];
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -669,6 +776,27 @@ int nv12_to_bgr(const uint8_t *luma, const uint8_t *chroma, int pitch, uint8_t *
   dim3 grid((unsigned)((W + 4 * 64 - 1) / (4 * 64)), (unsigned)(((H + 1) / 2 + 3) / 4));
   nv12_to_bgr_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       luma, chroma, pitch, bgr, W, H, k, vec);
+  return (int)cudaGetLastError();
+}
+
+// 10-bit samples in NV12's layout (luma and chroma planes at pitch
+// samples) -> uint8 BGR (H, W, 3); taps the (W / 2 + H, 5) int32 table of
+// each output chroma column's, then each output row's, first input and four
+// coefficients; coefs the twelve constants of Coefs10. Returns the launch's
+// CUDA error.
+int yuv420p10_to_bgr(const uint16_t *luma, const uint16_t *chroma, int pitch, const int32_t *taps,
+                     uint8_t *bgr, int W, int H, const int32_t *coefs, void *stream) {
+  if (W <= 0 || H <= 0) return 0;
+  Coefs10 k = {coefs[0], coefs[1], coefs[2], coefs[3], coefs[4],  coefs[5],
+               coefs[6], coefs[7], coefs[8], coefs[9], coefs[10], coefs[11]};
+  // luma and BGR in 8- and 4-byte words where aligned; chroma is read in
+  // 4-byte Cb Cr pairs always (the caller keeps it 4-byte aligned)
+  const int vec = (W % 4 == 0) && (pitch % 4 == 0) && !((uintptr_t)luma & 7) &&
+                  !((uintptr_t)bgr & 3);
+  dim3 block(64, 4);
+  dim3 grid((unsigned)((W + 4 * 64 - 1) / (4 * 64)), (unsigned)((H + 3) / 4));
+  yuv420p10_to_bgr_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      luma, chroma, pitch, taps, taps + 5 * ((W + 1) / 2), bgr, W, H, k, vec);
   return (int)cudaGetLastError();
 }
 

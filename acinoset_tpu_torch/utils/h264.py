@@ -14,7 +14,7 @@ first use into ``acinoset_tpu_torch/_build/libh264.so`` and loaded with
 the feature: interlace (field pictures, MBAFF), 4:0:0, 4:2:2 and 4:4:4,
 more than 8 bits a sample, lossless coding, slice groups (FMO), arbitrary
 slice order, SP/SI slices, data partitioning, SVC/MVC NAL units, and
-colour matrices other than BT.601 and BT.709.
+colour matrices other than BT.601, BT.709 and BT.2020.
 
 Frames are numbered as cv2 numbers them: frame k is the k-th by
 composition time after the edit list (``mp4.VideoTrack.order``), whatever
@@ -43,7 +43,7 @@ LIBRARY = _gxx.BUILD_DIR / "libh264.so"
 CODECS = ("avc1", "avc3")
 #: h264_info's record
 INFO_FIELDS = ("coded_width", "coded_height", "left", "top", "width", "height", "signal_type",
-               "full_range", "colour_description", "matrix")
+               "full_range", "colour_description", "matrix", "bit_depth", "chroma_loc")
 #: the reader's work in this process: seconds in the C++ decoder, and
 #: seconds copying pictures to the device and converting them there
 COUNTERS = {"host_s": 0.0, "device_s": 0.0}
@@ -137,14 +137,18 @@ def colour_coefs(info: Dict[str, int]):
     """The conversion's constants for a stream's VUI: the matrix where a
     colour description is present (else 2, unspecified: BT.601) and the
     range where video_signal_type is present (else limited), as ffmpeg
-    reads them."""
+    reads them; those of the 10-bit conversion where the SPS says 10 bits.
+    (constants, None) or (None, why the stream is refused)."""
     matrix = info["matrix"] if info["signal_type"] and info["colour_description"] else 2
     full = bool(info["full_range"]) if info["signal_type"] else False
     if matrix not in nvdec.MATRICES:
-        name = {9: "BT.2020", 10: "BT.2020 (constant luminance)", 0: "identity (RGB)",
-                4: "FCC", 7: "SMPTE 240M"}.get(matrix, "")
-        return None, (f"colour matrix {matrix} {name}".rstrip()
-                      + ": the port converts BT.601 and BT.709 only")
+        return None, nvdec.matrix_reason(matrix)
+    if info["bit_depth"] > 8:
+        try:
+            nvdec.chroma_taps((info["width"], info["height"]), nvdec.chroma_siting(info["chroma_loc"]))
+        except ValueError as e:
+            return None, str(e)
+        return nvdec.colour_coefs10(matrix, full), None
     return nvdec.colour_coefs(matrix, full), None
 
 
@@ -199,7 +203,9 @@ class Reader:
         self._frame_of = np.full(tr.n_samples, -1, np.int64)
         self._frame_of[order] = np.arange(len(order))
         W, H = (info["coded_width"], info["coded_height"]) if info else (0, 0)
-        self._nv12 = torch.empty((H * 3 // 2, W), dtype=torch.uint8,
+        # the decoder's picture: NV12, in 16-bit samples where it has 10 bits
+        wide = info is not None and info["bit_depth"] > 8
+        self._nv12 = torch.empty((H * 3 // 2, W), dtype=torch.int16 if wide else torch.uint8,
                                  pin_memory=self.device.type == "cuda" and info is not None)
         self._run_start = -1
         self._feed = 0
@@ -238,12 +244,17 @@ class Reader:
 
     def _convert(self) -> torch.Tensor:
         """The picture in the NV12 buffer, on the device, as BGR: one
-        launch of the kernel on a CUDA device."""
+        launch of the kernel on a CUDA device (``nvdec.nv12_to_bgr``, or
+        ``nvdec.yuv420p10_to_bgr`` for 10 bits)."""
         info = self.info
         t0 = time.perf_counter()
         surface = self._nv12.to(self.device, non_blocking=False)
-        out = nvdec.nv12_to_bgr(surface, info["coded_height"], self.size, self._coefs,
-                                (info["left"], info["top"]))
+        origin = (info["left"], info["top"])
+        if info["bit_depth"] > 8:
+            out = nvdec.yuv420p10_to_bgr(surface, info["coded_height"], self.size, self._coefs,
+                                         origin, nvdec.chroma_siting(info["chroma_loc"]))
+        else:
+            out = nvdec.nv12_to_bgr(surface, info["coded_height"], self.size, self._coefs, origin)
         self.COUNTERS["device_s"] += time.perf_counter() - t0
         return out
 

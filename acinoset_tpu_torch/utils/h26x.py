@@ -836,11 +836,13 @@ class HevcStream(_Content):
         return out
 
 
-def _hvcc(vps: bytes, sps: bytes, pps: bytes, profile: int = 1) -> bytes:
+def _hvcc(vps: bytes, sps: bytes, pps: bytes, profile: int = 1, bit_depth: int = 8) -> bytes:
     """An hvcC payload: one VPS, SPS and PPS, 4-byte NAL lengths."""
-    out = bytes([1, profile]) + struct.pack(">I", 0x60000000 if profile == 1 else 0x10000000)
+    compat = {1: 0x60000000, 2: 0x20000000}.get(profile, 0x10000000)
+    out = bytes([1, profile]) + struct.pack(">I", compat)
     out += bytes([0x90, 0, 0, 0, 0, 0])
-    out += bytes([HEVC_LEVEL, 0xF0, 0x00, 0xFC, 0xFD, 0xF8, 0xF8, 0, 0, 0x0F, 3])
+    depth = 0xF8 | (bit_depth - 8)
+    out += bytes([HEVC_LEVEL, 0xF0, 0x00, 0xFC, 0xFD, depth, depth, 0, 0, 0x0F, 3])
     for kind, nal in ((_VPS, vps), (_HSPS, sps), (_HPPS, pps)):
         out += bytes([0x80 | kind]) + struct.pack(">HH", 1, len(nal)) + nal
     return out
@@ -856,7 +858,7 @@ _HEVC_WOPTS = ("width", "height", "log2_ctb", "log2_min_cb", "depth_inter",
                "list_mod", "log2_max_poc_lsb", "matrix", "full_range", "colour", "qp_min",
                "qp_max", "intra_percent", "max_refs", "reorder", "lf_across_tiles",
                "lf_across_slices", "cabac_init", "extra_bits", "header_ext", "vui_extra",
-               "output_flag", "lt_sps", "profile")
+               "output_flag", "lt_sps", "profile", "bit_depth", "chroma_loc")
 #: HEVC nal_unit_type of the writer's pictures
 TRAIL_N, TRAIL_R, RADL_N, RASL_N, BLA_W_LP, IDR_W_RADL, IDR_N_LP, CRA_NUT = 0, 1, 6, 8, 16, 19, 20, 21
 _EOS = 36
@@ -909,7 +911,11 @@ class RandomHEVC:
     (small ones wrap), ``qp`` (min, max), ``refs``, ``intra_percent``,
     ``cabac_init``, ``extra_bits``, ``header_ext``, ``vui_extra``,
     ``lf_across`` (tiles, slices), ``matrix`` and
-    ``full_range`` (VUI; matrix None writes no colour description).
+    ``full_range`` (VUI; matrix None writes no colour description), and
+    ``bit_depth`` (8, or 10: Main 10, every element drawn within its 10-bit
+    range: QPs down to -12, SAO offsets to 31, PCM depths to 10), and
+    ``chroma_loc`` (the VUI's chroma_sample_loc_type, 0-5; None writes
+    none unless ``vui_extra`` writes 0).
     ``pictures`` holds each picture's NAL units in decode order."""
 
     def __init__(self, size, n_frames, seed=0, *, gop=8, b_frames=3, intra_only=False,
@@ -922,7 +928,8 @@ class RandomHEVC:
                  parallel_merge=2, weighted=False, long_term=False, lt_sps=False,
                  list_mod=False, log2_max_poc_lsb=8, qp=(22, 36), refs=4, intra_percent=15,
                  cabac_init=False, extra_bits=0, header_ext=False, vui_extra=False,
-                 lf_across=(True, True), matrix=BT709, full_range=True):
+                 lf_across=(True, True), matrix=BT709, full_range=True, bit_depth=8,
+                 chroma_loc=None):
         from . import hevc
 
         self.size = (int(size[0]), int(size[1]))
@@ -935,10 +942,17 @@ class RandomHEVC:
         if constrained_intra and min_cb > 8:
             raise ValueError("constrained_intra with CBs of 16 or more: the writer keeps clear of "
                              "it (csrc/hevc.cpp's notes)")
+        if qp[1] + max(chroma_qp_offsets) > 57:
+            raise ValueError("a QP and a chroma QP offset above 57 together: ffmpeg's deblocking "
+                             "clips the chroma's QP there; the writer keeps clear of it "
+                             "(csrc/hevc.cpp's notes)")
         self.coded = (-(-W // min_cb) * min_cb, -(-H // min_cb) * min_cb)
         self.n, self.gop, self.seed = int(n_frames), int(gop), int(seed)
         self.matrix, self.full_range = matrix, bool(full_range)
-        self.still = self.n == 1 and intra_only
+        if bit_depth not in (8, 10):
+            raise ValueError(f"bit_depth {bit_depth}: the writer writes 8 or 10 bits")
+        self.bit_depth = int(bit_depth)
+        self.still = self.n == 1 and intra_only and bit_depth == 8
         self.kinds, self.decode, plan = self._plan(b_frames, intra_only, open_gop, cra_start, bla,
                                                    eos, hidden, 1 << log2_max_poc_lsb)
         #: each frame's picture type by display index: I, P or B
@@ -970,7 +984,8 @@ class RandomHEVC:
                     lf_across_tiles=int(lf_across[0]), lf_across_slices=int(lf_across[1]),
                     cabac_init=int(cabac_init), extra_bits=extra_bits, header_ext=int(header_ext),
                     vui_extra=int(vui_extra), output_flag=int(hidden),
-                    lt_sps=int(lt_sps), profile=3 if self.still else 1)
+                    lt_sps=int(lt_sps), profile=self.profile, bit_depth=self.bit_depth,
+                    chroma_loc=-1 if chroma_loc is None else int(chroma_loc))
         arr = np.array([opts[k] for k in _HEVC_WOPTS], np.int32)
         pl = np.array(plan, np.int32).reshape(-1)
         lib = hevc._library()
@@ -1079,8 +1094,13 @@ class RandomHEVC:
         for k, nals in zip(self.decode, self.pictures):
             yield k, self.kinds[k] in (IDR_W_RADL, IDR_N_LP, CRA_NUT, BLA_W_LP), nals
 
+    @property
+    def profile(self) -> int:
+        """general_profile_idc: Main (1), Main 10 (2) or Main Still Picture (3)."""
+        return 2 if self.bit_depth == 10 else 3 if self.still else 1
+
     def config(self) -> bytes:
-        return _hvcc(self.vps, self.sps, self.pps, 3 if self.still else 1)
+        return _hvcc(self.vps, self.sps, self.pps, self.profile, self.bit_depth)
 
     @property
     def presentation_offsets(self) -> List[int]:

@@ -1,22 +1,26 @@
 """HEVC in MP4 (``hvc1``/``hev1``: what GoPro cameras from the HERO6 on
-write in their high-rate and high-resolution modes) decoded in software on
-the host, as cv2's ffmpeg decodes it for the JAX package, with each
-picture converted to BGR on the device by the hand-written NV12 -> BGR
-kernel (``nvdec.nv12_to_bgr``, one launch a frame; its plain version on
-the CPU).
+write in their high-rate and high-resolution modes, at 10 bits where
+their 10-bit colour is on) decoded in software on the host, as cv2's
+ffmpeg decodes it for the JAX package, with each picture converted to BGR
+on the device by a hand-written kernel, one launch a frame (its plain
+version on the CPU): ``nvdec.nv12_to_bgr`` for 8-bit pictures,
+``nvdec.yuv420p10_to_bgr`` (swscale's high-bit-depth arithmetic) for
+10-bit ones.
 
-``csrc/hevc.cpp`` is the decoder: progressive 8-bit 4:2:0 video in the
-Main and Main Still Picture profiles (every coding tool of the Main
-profile: CTBs of 16 to 64, AMP, transform skip, sign hiding, scaling
+``csrc/hevc.cpp`` is the decoder: progressive 8- and 10-bit 4:2:0 video in
+the Main, Main 10 and Main Still Picture profiles (every coding tool of
+the Main profile: CTBs of 16 to 64, AMP, transform skip, sign hiding, scaling
 lists, PCM, transquant bypass, tiles, wavefronts, dependent slice
 segments, weighted prediction, TMVP, long-term pictures, deblocking and
 SAO; IDR, CRA and BLA pictures with their leading pictures). It is built by
 ``g++`` at first use into ``acinoset_tpu_torch/_build/libhevc.so`` and
 loaded with ``ctypes``. What it does not take raises
-``mpeg4.UnsupportedVideo`` naming the feature: more than 8 bits a sample
-(Main 10), chroma formats other than 4:2:0, the range, multilayer, 3D and
-SCC extensions, field coding, and colour matrices other than BT.601 and
-BT.709. Pictures of nuh_layer_id > 0 are dropped, as ffmpeg drops them.
+``mpeg4.UnsupportedVideo`` naming the feature: bit depths other than 8
+and 10, a chroma bit depth unlike the luma's, chroma formats other than
+4:2:0, the range, multilayer, 3D and SCC extensions, field coding, colour
+matrices other than BT.601, BT.709 and BT.2020, and 10-bit frames of
+fewer than 10 rows. Pictures of nuh_layer_id > 0 are dropped, as ffmpeg
+drops them.
 
 Frames are numbered as cv2 numbers them: frame k is the k-th by
 composition time after the edit list (``mp4.VideoTrack.order``) among the
@@ -103,8 +107,8 @@ def _library():
 
 
 class Decoder:
-    """The C++ decoder: NAL units in, NV12 pictures (coded size) out, in
-    decode order. Errors raise ``UnsupportedVideo`` (a feature it does not
+    """The C++ decoder: NAL units in, NV12 pictures (coded size; 16-bit
+    samples at 10 bits) out, in decode order. Errors raise ``UnsupportedVideo`` (a feature it does not
     take) or ``ValueError`` (a malformed stream), naming fpath."""
 
     def __init__(self, fpath: str = "<stream>"):
@@ -122,8 +126,8 @@ class Decoder:
     def decode(self, data: bytes, length_size: int, out: Optional[np.ndarray]) -> bool:
         """Decode one MP4 sample (length_size 0: one NAL unit, such as a
         parameter set); where it finishes a picture (output or not: the
-        scan tells), write it into out (uint8, coded height x 1.5 rows of
-        the coded width) and return True."""
+        scan tells), write it into out (coded height x 1.5 rows of the
+        coded width: uint8, or int16 at 10 bits) and return True."""
         got = ctypes.c_int32(0)
         ptr = None if out is None else _P(out.ctypes.data)
         cap = 0 if out is None else out.nbytes
@@ -176,7 +180,7 @@ class Reader(h264.Reader):
     pictures shown, as cv2 counts them), as BGR uint8 on the device
     (``cuda`` unless ``device`` names another), decoded by the port's
     software decoder: ``h264.Reader``'s reading (one NV12 copy and one
-    ``nv12_to_bgr`` launch a frame) over this decoder, the frames and
+    conversion launch a frame) over this decoder, the frames and
     each one's decode start found by a scan of the samples through the
     decoder's own DPB (the module's notes). ``n_frames``, ``size`` (the
     stream's display width, height) and ``fps``; an index past the end

@@ -343,12 +343,17 @@ def bgr_to_yuv420(bgr: torch.Tensor, coded: Tuple[int, int]):
 #: the integer constants of the YUV -> BGR arithmetic below, by (VUI
 #: matrix_coefficients family, full range): (ycoef, yoff, Cb->B, Cb->G,
 #: Cr->G, Cr->R), what cv2's swscale uses for each (BT.601 covers streams
-#: that signal no matrix, and matrices 5 and 6)
+#: that signal no matrix, and matrices 5 and 6; BT.2020 is matrix 9). Each
+#: was held to cv2 over every (Y, U, V) triple (tests/test_torch_h264.py);
+#: full-range BT.2020 takes swscale's plain constants (ycoef 8192, yoff 0),
+#: where full-range BT.601 and BT.709 take others
 BGR_COEFS = {
     ("BT.601", False): (9539, 128, 16525, -3209, -6660, 13075),
     ("BT.709", False): (9539, 128, 17305, -1747, -4366, 14686),
+    ("BT.2020", False): (9539, 128, 17545, -1535, -5328, 13752),
     ("BT.601", True): (8189, -1, 14516, -2819, -5850, 11485),
     ("BT.709", True): (8189, -1, 15201, -1535, -3835, 12901),
+    ("BT.2020", True): (8192, 0, 15412, -1348, -4680, 12080),
 }
 
 

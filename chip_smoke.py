@@ -126,7 +126,11 @@ Phases, one line each with its seconds:
      hevc    - the software HEVC decoder (utils/csrc/hevc.cpp) on the
                random-syntax writer's streams (utils.h26x.RandomHEVC, B
                pictures, SAO, deblocking, tiles or wavefronts, 2704 x 1520
-               and 1920 x 1080): the same gates as h264;
+               and 1920 x 1080, 8-bit and 10-bit): the same gates as
+               h264; each 10-bit frame's conversion (yuv420p10_to_bgr,
+               utils/csrc/nvdec.cu) equal to its plain version on the
+               same surface, and the kernel's device time at 2704 x 1520
+               against its bound;
  13. files   - the file-level pipeline, the user's path: a run directory
                at full width (make_synthetic_run_dir: 6 cameras x 200
                frames x 20 markers, 2704 x 1520, its DLC .h5 files written
@@ -3410,6 +3414,16 @@ HEVC_STREAMS = (
     ("wpp 1920x1080", (1920, 1080), 8, dict(
         seed=54, ctb=16, wpp=True, b_frames=1, sao=True, constrained_intra=True, scaling="pps",
         list_mod=True, parallel_merge=3, matrix=1, full_range=False, qp=(20, 34))),
+    # Main 10, as GoPros record with 10-bit colour on: QPs below 0, SAO
+    # offsets past 7, PCM of up to 10 bits; BT.709, and BT.2020 cropped
+    # from 1088 rows
+    ("main10 tiles 2704x1520", (2704, 1520), 8, dict(
+        seed=55, bit_depth=10, ctb=64, tiles=(4, 3), slices=2, b_frames=3, sao=True,
+        weighted=True, pcm=True, cu_qp_delta=True, matrix=1, full_range=False, qp=(-4, 32))),
+    ("main10 wpp 1920x1080", (1920, 1080), 8, dict(
+        seed=56, bit_depth=10, ctb=32, min_cb=16, wpp=True, slices=2, dependent_slices=True,
+        b_frames=2, sao=True, deblock_offsets=True, transform_skip=True, matrix=9,
+        full_range=False, qp=(-12, 26), chroma_qp_offsets=(-2, 3))),
 )
 #: each stream's MP4 SHA-256 and its frames' SHA-256 (BGR, H x W x 3) as
 #: cv2 reads them on the CPU (tests/test_torch_hevc_decode.py holds cv2 to
@@ -3455,6 +3469,26 @@ HEVC_DIGESTS = {
         "8d9bc0ab3a7187f442dceb86e1839244c6adb6754c4304adafbf3fb70e444069",
         "a3cdaf1a64bb38eee91100536d7c3243f952eb2edb07d47ea7c837abbdda71b9",
     )),
+    "main10 tiles 2704x1520": ("d41cd11bcdecaa37166ac50eb2c2a04f87dcd7e87bc85a599e8a374acad4bf9b", (
+        "b78e8fdfdd1d3e0b3cb27da582aabc46f04722e5827faef07fb2f472bd7e10a9",
+        "8a3a7a36e6b4f464c9e97feb40e929882cd3eafc993027dc1ff02bf89056b25d",
+        "f9650fa2cade00558d27aa839b34a30e820c13cba3b0f37ccc01db2ff78f341c",
+        "77a2a44747a1ead4ab80f01f7964e23e46f7460f9ce31bb445aa703d29e3eb66",
+        "8cc1f25ec7e104ce1ce699f36edd34f6301ceef755619b43f6cd6c670031c8e2",
+        "13bcd043b837497137ab84a80183bdf781c518e32c0145489c86033df0d4082d",
+        "d9434b1636b1fc91c6540e1c8d10664459984c59b43565e73f71e3246e2c7947",
+        "9b3caa3c341b304b6b19128aa4d4a6d0d59917fbb2b096d80a2ef279049c6f14",
+    )),
+    "main10 wpp 1920x1080": ("b9cf5a98bd7c73d3a27783b6690088eecdcc095ef045b3fc0e59248e8e37140d", (
+        "7ee27165c876fec025e21e0beeb65622ce7d1616be7e59d059051c4b49663eeb",
+        "e0c5519f065251d7b7726be04db3b601dea6f407117a0469307d92ede499e589",
+        "13055af1518fe049066e245da5025f41b55032b789a325a7cc159f663baaff58",
+        "bf0a486a5b1444a90f0a1224cbc44b4b1da1ed88a3e77185e304c8e50571c2a0",
+        "d5a600075eb0d8f81ed46a2c4888db5d400da75b59c71a7065fc40a50b03b946",
+        "9079ed0a9054f80fe17189c0109184962cbacf6472f21872145088725674c954",
+        "aa2ad735127d1dc8d78935931eccf5f422fb51ab2880c867e29e29d8b9d4e62e",
+        "14cff468a75960e728076debd1128810790f480d4c17f6b28809f94bef2ace8c",
+    )),
 }
 
 def _nvdec_streams():
@@ -3496,8 +3530,8 @@ def phase_nvdec(device):
     only where cuvidGetDecoderCaps fails and the environment visibly
     withholds the video engine (nvdec.withheld); then every reading
     function must raise UnsupportedVideo naming NVDEC and that reason (no
-    fallback). A refusal on any other ground fails the phase. Prints the
-    kernel's record on a line of its own."""
+    fallback). A refusal on any other ground fails the phase. Returns the
+    kernel's record (for main's kernels line)."""
     import tempfile
 
     from acinoset_tpu_torch.pipeline import video
@@ -3607,9 +3641,9 @@ def phase_nvdec(device):
            f"{100 * bound_ms / kernel_ms:.1f}% of it), plain version {plain_ms:.4f} ms; launches "
            f"on the decode path {launches} (it replaces no TPU kernel: the JAX package converts "
            f"on the host in cv2)")
-    print("nvdec kernel " + json.dumps(rec), flush=True)
     if failed:
         raise AssertionError("nvdec: " + "; ".join(failed))
+    return rec
 
 
 def h264_streams():
@@ -3629,33 +3663,93 @@ def phase_h264(device):
     _random_syntax_phase(device, "h264", h264_streams(), H264_DIGESTS, h264, "avc1")
 
 
-def hevc_streams():
-    """(label, RandomHEVC) of HEVC_STREAMS, written on the host."""
+def hevc_streams(bit_depth=None):
+    """(label, RandomHEVC) of HEVC_STREAMS (those of bit_depth where it is
+    given), written on the host."""
     from acinoset_tpu_torch.utils import h26x
 
     for label, size, n, opts in HEVC_STREAMS:
-        yield label, h26x.RandomHEVC(size, n, **opts)
+        if bit_depth in (None, opts.get("bit_depth", 8)):
+            yield label, h26x.RandomHEVC(size, n, **opts)
 
 
 def phase_hevc(device):
     """The port's software HEVC decoder (utils/hevc.py,
     utils/csrc/hevc.cpp) on the random-syntax writer's streams at the rig's
-    widths (HEVC_STREAMS): _random_syntax_phase."""
+    widths (HEVC_STREAMS), 8-bit and 10-bit: _random_syntax_phase. Returns
+    the 10-bit kernel's record (for main's kernels line)."""
     from acinoset_tpu_torch.utils import hevc
 
-    _random_syntax_phase(device, "hevc", hevc_streams(), HEVC_DIGESTS, hevc, "hvc1")
+    return _random_syntax_phase(device, "hevc", hevc_streams(), HEVC_DIGESTS, hevc, "hvc1")
+
+
+def _hold_to_plain(reader, device, errs):
+    """Make a 10-bit reader hold each frame's conversion to the plain
+    version on the same surface, on the card: appends |kernel - plain|'s
+    largest value for each frame to errs; returns a list whose one entry
+    sums the seconds the checks take (left out of the decode rate)."""
+    from acinoset_tpu_torch.utils import nvdec
+
+    convert, spent = reader._convert, [0.0]
+
+    def held():
+        out = convert()
+        t0 = time.perf_counter()
+        info = reader.info
+        plain = nvdec.yuv420p10_to_bgr_plain(
+            reader._nv12.to(device), info["coded_height"], reader.size, reader._coefs,
+            (info["left"], info["top"]), nvdec.chroma_siting(info["chroma_loc"]))
+        errs.append(int((out.int() - plain.int()).abs().max()))
+        spent[0] += time.perf_counter() - t0
+        return out
+
+    reader._convert = held
+    return spent
+
+
+def _p10_record(device, reader, launches, errs):
+    """The 10-bit kernel's record: its device time on the reader's last
+    surface (profiler; CUDA events beside it), the plain version's, and
+    the bound (bytes: 3 W H in, 3 W H out)."""
+    from acinoset_tpu_torch.utils import nvdec
+
+    info = reader.info
+    W, H = reader.size
+    surf = reader._nv12.to(device)
+    args = (surf, info["coded_height"], (W, H), reader._coefs, (info["left"], info["top"]),
+            nvdec.chroma_siting(info["chroma_loc"]))
+    kernel_ms = kernel_device_ms(lambda: nvdec.yuv420p10_to_bgr(*args),
+                                 "yuv420p10_to_bgr_kernel", reps=NVDEC_REPS)
+    events_ms = _cuda_ms(lambda: nvdec.yuv420p10_to_bgr(*args), NVDEC_REPS)
+    plain_ms = _cuda_ms(lambda: nvdec.yuv420p10_to_bgr_plain(*args), 20)
+    in_b, out_b = 2 * W * H * 3 // 2, 3 * W * H
+    bound_ms = (in_b + out_b) / PEAK_BYTES_PER_S * 1e3
+    text = (f"yuv420p10_to_bgr at {W} x {H}: device {kernel_ms:.5f} ms a frame (profiler; "
+            f"events {events_ms:.5f} ms), bound {bound_ms:.5f} ms ({in_b / 1e6:.2f} MB in, "
+            f"{out_b / 1e6:.2f} MB out at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s, "
+            f"{100 * bound_ms / kernel_ms:.1f}% of it), plain version {plain_ms:.4f} ms; launches "
+            f"on the decode path {launches}, largest |kernel - plain| {max(errs, default=0)} over "
+            f"{len(errs)} frames (it replaces no TPU kernel: the JAX package converts on the host "
+            f"in cv2)")
+    return dict(name="yuv420p10_to_bgr", route="cuda",
+                source="acinoset_tpu_torch/utils/csrc/nvdec.cu", replaces=None, launches=launches,
+                max_abs_err=max(errs, default=0), ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by="bytes", library_ms=None), text
 
 
 def _random_syntax_phase(device, phase, streams, digests, module, entry):
     """A software decoder (``module``: utils.h264 or utils.hevc) on a
     random-syntax writer's streams: each written on the host, its MP4's
     SHA-256 equal to ``digests``' (the stream cv2 read on the CPU), decoded
-    on the card through open_video with one nv12_to_bgr launch a frame,
-    and each frame's SHA-256 equal to cv2's. Where NVDEC decodes on this
+    on the card through open_video with one conversion launch a frame
+    (nv12_to_bgr, or yuv420p10_to_bgr for 10 bits: each such frame's
+    output equal to the plain version's on the same surface), and each
+    frame's SHA-256 equal to cv2's. Where NVDEC decodes on this
     card (nvdec.refusal is None), its frames equal the software decoder's;
     where it is refused, only the environment's visible withholding of the
     video engine (nvdec.withheld) skips that gate. Prints the decode rate
-    at 2704 x 1520 and the host's share."""
+    at 2704 x 1520 and the host's share, 8-bit and 10-bit apart. Returns
+    the 10-bit kernel's record where a stream has 10 bits, else None."""
     import hashlib
     import tempfile
 
@@ -3664,10 +3758,13 @@ def _random_syntax_phase(device, phase, streams, digests, module, entry):
 
     t0 = time.perf_counter()
     failed = []
-    rig = [0, 0.0, 0.0]  # frames, seconds, host seconds at 2704 x 1520
+    rig = {8: [0, 0.0, 0.0], 10: [0, 0.0, 0.0]}  # frames, seconds, host seconds at 2704 x 1520
+    p10 = [0, [], None]  # the 10-bit path's launches, |kernel - plain| a frame, its record
     with tempfile.TemporaryDirectory() as root:
         for label, stream in streams:
             W, H = stream.size
+            depth = getattr(stream, "bit_depth", 8)
+            kernel = nvdec.yuv420p10_to_bgr if depth > 8 else nvdec.nv12_to_bgr
             path = os.path.join(root, label.replace(" ", "_") + ".mp4")
             t1 = time.perf_counter()
             h26x.write_mp4(path, stream, NVDEC_FPS)
@@ -3676,15 +3773,26 @@ def _random_syntax_phase(device, phase, streams, digests, module, entry):
                 file_sha = hashlib.sha256(f.read()).hexdigest()
             for k in module.COUNTERS:
                 module.COUNTERS[k] = 0.0
-            nvdec.nv12_to_bgr.launches = 0
+            errs, spent = [], [0.0]
+            kernel.launches = 0
             _sync(device)
             t1 = time.perf_counter()
             with video.open_video(path, device) as reader:
                 kind = type(reader).__module__
+                if depth > 8:
+                    spent = _hold_to_plain(reader, device, errs)
                 frames = [reader.read_tensor(k) for k in range(reader.n_frames)]
-            _sync(device)
-            s_dec = time.perf_counter() - t1
-            launches = nvdec.nv12_to_bgr.launches
+                _sync(device)
+                s_dec = time.perf_counter() - t1 - spent[0]
+                launches = kernel.launches
+                if depth > 8:
+                    p10[0] += launches
+                    p10[1] += errs
+                    if any(errs):
+                        failed.append(f"{label}: yuv420p10_to_bgr differs from its plain version "
+                                      f"on {sum(e > 0 for e in errs)} of {len(errs)} frames")
+                    if (W, H) == NVDEC_RES:
+                        p10[2] = reader
             host = module.COUNTERS["host_s"]
             shas = [hashlib.sha256(f.cpu().numpy().tobytes()).hexdigest() for f in frames]
             want_file, want_frames = digests.get(label, (None, []))
@@ -3696,9 +3804,9 @@ def _random_syntax_phase(device, phase, streams, digests, module, entry):
                               f"{want_file}); {same}/{len(want_frames)} frames with cv2's SHA-256 "
                               f"({len(shas)} read); {launches} launches")
             if (W, H) == NVDEC_RES:
-                rig[0] += len(shas)
-                rig[1] += s_dec
-                rig[2] += host
+                rig[depth][0] += len(shas)
+                rig[depth][1] += s_dec
+                rig[depth][2] += host
             why = nvdec.refusal(device, entry, stream.size)
             if why is None:
                 with video.open_video(path, device, "nvdec") as reader:
@@ -3716,13 +3824,21 @@ def _random_syntax_phase(device, phase, streams, digests, module, entry):
                    f"{os.path.getsize(path) / 1e6:.3f} MB written in {s_write:.3f} s; {len(shas)} "
                    f"frames decoded on the card in {s_dec:.3f} s, {len(shas) / s_dec:.2f} frames/s "
                    f"(host decoder {host:.3f} s, {100 * host / s_dec:.1f}%); MP4 and frames equal "
-                   f"cv2's digests {ok} ({same}/{len(want_frames)}); kernel launches {launches}; "
-                   f"{nv_text}")
-    _phase(phase, t0, f"software decode at {NVDEC_RES[0]} x {NVDEC_RES[1]} of the random-syntax "
-           f"streams: {rig[0] / rig[1]:.2f} frames/s, the host decoder's share "
-           f"{100 * rig[2] / rig[1]:.1f}%")
+                   f"cv2's digests {ok} ({same}/{len(want_frames)}); {kernel.__name__} launches "
+                   f"{launches}" + (f", each frame equal to the plain version's {not any(errs)}"
+                                    if depth > 8 else "") + f"; {nv_text}")
+    for depth, (n, s, host) in rig.items():
+        if n:
+            _phase(phase, t0, f"software decode at {NVDEC_RES[0]} x {NVDEC_RES[1]} of the "
+                   f"{depth}-bit random-syntax streams: {n / s:.2f} frames/s, the host decoder's "
+                   f"share {100 * host / s:.1f}%")
+    rec = None
+    if p10[2] is not None:
+        rec, text = _p10_record(device, p10[2], p10[0], p10[1])
+        _phase(phase, t0, text)
     if failed:
         raise AssertionError(f"{phase}: " + "; ".join(failed))
+    return rec
 
 
 def _software_decode(device, stream, path, coefs, failed, label):
@@ -4371,9 +4487,9 @@ def main():
     phase_calib(device)
     phase_images(device)
     video_s = phase_video(device)
-    phase_nvdec(device)
+    nvdec_rec = phase_nvdec(device)
     phase_h264(device)
-    phase_hevc(device)
+    p10_rec = phase_hevc(device)
     phase_files(device, video_s)
     phase_uncertainty(device)
     phase_solvers(device)
@@ -4381,7 +4497,7 @@ def main():
     phase_profile(device)
     phase_device()  # again: the card and its power limit beside the results
     print(f"[total] {time.perf_counter() - t_all:.2f} s", flush=True)
-    print(json.dumps({"kernels": [rec] + probe_recs}), flush=True)
+    print(json.dumps({"kernels": [rec] + probe_recs + [nvdec_rec, p10_rec]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

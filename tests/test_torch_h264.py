@@ -128,12 +128,13 @@ def test_jax_get_frames_and_get_vid_info_on_h264(tmp_path):
 
 
 @pytest.mark.parametrize("family,full", [("BT.601", False), ("BT.709", False),
-                                         ("BT.601", True), ("BT.709", True)])
+                                         ("BT.601", True), ("BT.709", True),
+                                         ("BT.2020", False), ("BT.2020", True)])
 def test_plain_conversion_equals_cv2_over_every_uv_pair(tmp_path, family, full):
     """One 512 x 512 I_PCM frame whose chroma holds every (U, V) pair and
     whose luma every Y beside each: cv2's BGR equals the plain
     conversion's on all 786,432 values."""
-    matrix = h26x.BT709 if family == "BT.709" else h26x.BT601
+    matrix = {"BT.601": h26x.BT601, "BT.709": h26x.BT709, "BT.2020": h26x.BT2020}[family]
 
     class Exhaustive(h26x.H264Stream):
         def planes(self, k):
@@ -215,15 +216,17 @@ def test_formats_the_nvdec_path_refuses_are_named():
     base = dict(chroma_format=1, luma_minus8=0, chroma_minus8=0, progressive=1, matrix=1)
     assert nvdec.format_reason(base) is None
     assert nvdec.format_reason({**base, "matrix": 2}) is None  # unspecified: BT.601
+    assert nvdec.format_reason({**base, "matrix": 9}) is None  # BT.2020
     cases = {("chroma_format", 2): "4:2:2", ("chroma_format", 3): "4:4:4",
              ("luma_minus8", 2): "10-bit video (P016)", ("progressive", 0): "interlaced",
-             ("matrix", 9): "BT.2020"}
+             ("matrix", 10): "BT.2020 (constant luminance)"}
     for (key, value), name in cases.items():
         why = nvdec.format_reason({**base, key: value})
         assert why is not None and name in why
     assert nvdec.colour_coefs(6, True) == mpeg4.BGR_COEFS[("BT.601", True)]
+    assert nvdec.colour_coefs(9, True) == mpeg4.BGR_COEFS[("BT.2020", True)]
     with pytest.raises(KeyError):
-        nvdec.colour_coefs(9, False)
+        nvdec.colour_coefs(10, False)
 
 
 def test_escape_and_nal_units_round_trip():

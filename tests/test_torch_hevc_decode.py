@@ -13,8 +13,8 @@ CPU:
   modification; CRA and BLA pictures with RASL and RADL pictures; SEI
   units; POC lsb wrap; pic_output_flag; IRAP pictures whose
   NoOutputOfPriorPicsFlag drops the pictures still waiting, an end of
-  sequence before a CRA; a cropped size; BT.601 and BT.709 in both
-  ranges);
+  sequence before a CRA; a cropped size; BT.601, BT.709 and BT.2020 in
+  both ranges);
 - the port's get_frames and extract_frame_range equal the JAX package's
   on the same file, and seeks equal the sequential decode (a RASL frame
   too); where a decode drops pictures, frames are numbered as cv2 reads
@@ -87,6 +87,8 @@ CASES = {
     "bt601_full": ((64, 48), 2, dict(matrix=h26x.BT601, full_range=True)),
     "bt709_limited": ((64, 48), 2, dict(matrix=h26x.BT709, full_range=False)),
     "bt709_full": ((64, 48), 2, dict(matrix=h26x.BT709, full_range=True)),
+    "bt2020_limited": ((64, 48), 2, dict(matrix=h26x.BT2020, full_range=False)),
+    "bt2020_full": ((64, 48), 2, dict(matrix=h26x.BT2020, full_range=True)),
 }
 
 
@@ -218,14 +220,15 @@ def _nal(kind, rbsp: bytes) -> bytes:
     return bytes([kind << 1, 1]) + h26x.escape(np.frombuffer(rbsp, np.uint8))
 
 
-def _sps(chroma=1, depth=8, field_seq=False, frame_field=False, ext=None):
-    """A 64 x 64 SPS (CTB 32, min CB 16) with the fields the decoder checks;
-    ext (flag index, range-extension flag index) sets one extension flag."""
+def _sps(chroma=1, depth=8, field_seq=False, frame_field=False, ext=None, depth_c=None):
+    """A 64 x 64 SPS (CTB 32, min CB 16) with the fields the decoder checks
+    (depth_c: the chroma's bit depth, the luma's by default); ext (flag
+    index, range-extension flag index) sets one extension flag."""
     b = h26x.Bits().u(0, 4).u(0, 3).u(1, 1)
     h26x.HevcStream._ptl(b).ue(0).ue(chroma)
     if chroma == 3:
         b.u(0, 1)
-    b.ue(64).ue(64).u(0, 1).ue(depth - 8).ue(depth - 8).ue(4)
+    b.ue(64).ue(64).u(0, 1).ue(depth - 8).ue((depth if depth_c is None else depth_c) - 8).ue(4)
     b.u(1, 1).ue(1).ue(0).ue(0)  # sub-layer ordering
     b.ue(1).ue(1).ue(0).ue(2).ue(0).ue(0)  # CB 16..32, TB 4..16, depths 0
     b.u(0, 1).u(0, 1).u(0, 1).u(0, 1)  # scaling lists, AMP, SAO, PCM
@@ -262,7 +265,8 @@ def _refusal(nals):
 
 
 @pytest.mark.parametrize("feature,nals,name", [
-    ("10-bit", [_sps(depth=10)], "more than 8 bits a sample"),
+    ("12-bit", [_sps(depth=12)], "luma bit depth 12"),
+    ("chroma depth unlike luma's", [_sps(depth=10, depth_c=8)], "chroma bit depth 8 unlike the luma's 10"),
     ("4:0:0", [_sps(chroma=0)], "4:0:0"),
     ("4:2:2", [_sps(chroma=2)], "4:2:2"),
     ("4:4:4", [_sps(chroma=3)], "4:4:4"),
@@ -280,16 +284,19 @@ def test_refused_features_are_named(feature, nals, name):
 
 
 def test_refusals_raise_from_the_reader(tmp_path):
-    """A 10-bit SPS in hvcC and a BT.2020 colour matrix refuse at open,
-    through every reading function; nothing falls back."""
+    """A 12-bit SPS in hvcC and a colour matrix the port does not convert
+    (10, BT.2020 constant luminance) refuse at open, through every reading
+    function; nothing falls back. (10-bit streams and BT.2020 read: the
+    bt2020 cases above, tests/test_torch_hevc10.py.)"""
     stream = h26x.RandomHEVC((64, 48), 1, seed=1, intra_only=True)
-    bad = str(tmp_path / "main10.mp4")
-    with mp4.Mp4Writer(bad, (64, 48), 30.0, h26x._hvcc(stream.vps, _sps(depth=10), stream.pps),
+    bad = str(tmp_path / "main12.mp4")
+    with mp4.Mp4Writer(bad, (64, 48), 30.0, h26x._hvcc(stream.vps, _sps(depth=12), stream.pps),
                        codec="hvc1") as w:
         w.add_sample(b"".join(len(n).to_bytes(4, "big") + n for n in stream.pictures[0]), True)
-    bt2020 = h26x.write_mp4(str(tmp_path / "bt2020.mp4"), h26x.RandomHEVC(
-        (64, 48), 1, seed=1, intra_only=True, matrix=h26x.BT2020), 30.0)
-    for path, match in ((bad, "more than 8 bits"), (bt2020, "colour matrix 9")):
+    bt2020c = h26x.write_mp4(str(tmp_path / "bt2020c.mp4"), h26x.RandomHEVC(
+        (64, 48), 1, seed=1, intra_only=True, matrix=10), 30.0)
+    for path, match in ((bad, "luma bit depth 12"),
+                        (bt2020c, "colour matrix 10 BT.2020 \\(constant luminance\\)")):
         for call in (lambda: hevc.Reader(path, device="cpu"),
                      lambda: tvideo.open_video(path, device="cpu"),
                      lambda: tvideo.get_frames(path, [0], device="cpu")):
@@ -315,11 +322,12 @@ def test_layers_above_zero_are_dropped(tmp_path):
 
 def test_chip_smoke_streams_have_the_digests_cv2_gives():
     """chip_smoke.phase_hevc holds the card's decode of its full-width
-    streams to HEVC_DIGESTS: the streams written here are those bytes, and
-    cv2 reads them to those frames."""
+    8-bit streams to HEVC_DIGESTS: the streams written here are those
+    bytes, and cv2 reads them to those frames (its Main 10 streams:
+    tests/test_torch_hevc10.py)."""
     import tempfile
 
-    for label, stream in chip_smoke.hevc_streams():
+    for label, stream in chip_smoke.hevc_streams(bit_depth=8):
         with tempfile.TemporaryDirectory() as root:
             path = h26x.write_mp4(f"{root}/a.mp4", stream, chip_smoke.NVDEC_FPS)
             with open(path, "rb") as f:

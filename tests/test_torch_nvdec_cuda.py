@@ -1,6 +1,9 @@
 """The port's NVDEC path on a CUDA device (acinoset_tpu_torch.utils.nvdec,
 utils/csrc/nvdec.cu): the colour kernel against its plain version on
-pitched NV12 surfaces in all four (matrix, range) cases; NVDEC's parser
+pitched NV12 surfaces in every (matrix, range) case; the 10-bit kernel
+(yuv420p10_to_bgr) against its plain version on random 16-bit surfaces
+in every matrix, range and chroma siting, and a 10-bit HEVC stream read
+on the card equal to its read on the CPU, one launch a frame; NVDEC's parser
 reading the writer's format; and every frame of an H.264 and an HEVC
 stream of utils.h26x decoded equal to the reconstruction, one launch a
 frame, and seeks equal to the sequential decode (that test skips only
@@ -14,7 +17,7 @@ on a GPU machine without them:
 import pytest
 import torch
 
-from acinoset_tpu_torch.utils import h26x, mpeg4, nvdec
+from acinoset_tpu_torch.utils import h26x, hevc, mpeg4, nvdec
 
 
 @pytest.fixture
@@ -40,6 +43,50 @@ def test_kernel_equals_plain_version(cuda, family, full, size):
     torch.cuda.synchronize()
     assert nvdec.nv12_to_bgr.launches == before + 1
     assert torch.equal(got.cpu(), nvdec.nv12_to_bgr_plain(surf, rows, size, coefs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("matrix,full", [(6, False), (1, True), (9, False), (9, True)])
+@pytest.mark.parametrize("size,origin", [((2704, 1520), (0, 0)), ((1920, 1080), (8, 4)),
+                                         ((174, 136), (2, 2))])
+def test_10bit_kernel_equals_plain_version(cuda, matrix, full, size, origin):
+    """Random 10-bit samples on a pitched surface, the rectangle at an
+    origin (widths not a multiple of 4 take the kernel's scalar path), in
+    every chroma siting."""
+    W, H = size
+    rows = (H + origin[1] + 15) // 16 * 16
+    g = torch.Generator().manual_seed(W + H + matrix)
+    surf = torch.randint(0, 1024, (rows * 3 // 2, (W + origin[0] + 63) // 64 * 64),
+                         dtype=torch.int16, generator=g)
+    coefs = nvdec.colour_coefs10(matrix, full)
+    for loc in range(6):
+        siting = nvdec.chroma_siting(loc)
+        before = nvdec.yuv420p10_to_bgr.launches
+        got = nvdec.yuv420p10_to_bgr(surf.to(cuda), rows, size, coefs, origin, siting)
+        torch.cuda.synchronize()
+        assert nvdec.yuv420p10_to_bgr.launches == before + 1
+        want = nvdec.yuv420p10_to_bgr_plain(surf, rows, size, coefs, origin, siting)
+        assert torch.equal(got.cpu(), want), (loc, int((got.cpu().int() - want.int()).abs().max()))
+
+
+@pytest.mark.cuda
+def test_10bit_stream_reads_on_the_card_as_on_the_cpu(cuda, tmp_path):
+    """A Main 10 stream (cropped, BT.2020, SAO, PCM, B pictures) through
+    the software decoder: frames on the card equal the CPU's (the plain
+    conversion), one yuv420p10_to_bgr launch a frame, seeks too."""
+    stream = h26x.RandomHEVC((176, 136), 7, seed=5, bit_depth=10, matrix=9, full_range=False,
+                             sao=True, pcm=True, b_frames=2, min_cb=16, qp=(-12, 30))
+    path = h26x.write_mp4(str(tmp_path / "a.mp4"), stream, 30.0)
+    with hevc.Reader(path, device="cpu") as r:
+        want = [r.read_tensor(k) for k in range(r.n_frames)]
+    nvdec.yuv420p10_to_bgr.launches = 0
+    with hevc.Reader(path, device=cuda) as r:
+        got = [r.read_tensor(k) for k in range(r.n_frames)]
+        assert nvdec.yuv420p10_to_bgr.launches == len(want) == stream.n
+        for k in (5, 1, 6, 0):
+            assert torch.equal(r.read_tensor(k).cpu(), want[k])
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
 
 
 @pytest.mark.cuda
